@@ -1,0 +1,113 @@
+"""Top-level CoDETR model: Swin backbone -> ChannelMapper neck -> CoDINO head.
+
+The public image layout stays NHWC: ``batch_inputs`` is (bs, H, W, 3)
+normalised images and ``img_masks`` is (bs, H, W) with 1.0 in the padded
+region.  The result is (boxes (bs, max_per_img, 4) xyxy pixels, scores,
+labels).  ``state_dict()`` keys are mmdet's, so an mmdet checkpoint or the
+JAX package's params (``utils.checkpoint.state_dict_from_jax``) load as
+they are.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+from torch import nn
+
+from codetr_torch.config import CoDETRConfig
+from codetr_torch.models.channel_mapper import ChannelMapper
+from codetr_torch.models.co_dino_head import CoDINOHead
+from codetr_torch.models.msda_module import MultiScaleDeformableAttention, grid_offset_bias
+from codetr_torch.models.swin import SwinTransformer, WindowMSA
+
+
+class CoDETR(nn.Module):
+    def __init__(self, cfg: CoDETRConfig):
+        super().__init__()
+        if cfg.backbone_type != "swin":
+            raise NotImplementedError(
+                f"backbone {cfg.backbone_type!r} is not ported yet (only Swin)"
+            )
+        self.cfg = cfg
+        self.backbone = SwinTransformer(cfg.swin)
+        self.neck = ChannelMapper(cfg.neck)
+        self.query_head = CoDINOHead(cfg.head)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.query_head.transformer.level_embeds.dtype
+
+    def features(self, batch_inputs: torch.Tensor) -> List[torch.Tensor]:
+        """(bs, H, W, 3) -> NCHW neck features, one per level."""
+        return self.neck(self.backbone(batch_inputs.to(self.dtype)))
+
+    def detect(self, feats: List[torch.Tensor], img_masks: torch.Tensor):
+        return self.query_head(feats, img_masks)
+
+    def forward(self, batch_inputs: torch.Tensor, img_masks: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        return self.detect(self.features(batch_inputs), img_masks)
+
+
+def check_device(device) -> torch.device:
+    """The device an entry point runs on; CUDA without a card raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the plain "
+            "PyTorch path on the CPU"
+        )
+    return device
+
+
+@torch.no_grad()
+def init_weights(model: CoDETR, seed: int = 0) -> CoDETR:
+    """Seeded random init, drawn on the CPU from one ``torch.Generator``:
+    Linear/Conv weights ~ N(0, 1/fan_in), biases ~ U(-0.05, 0.05), norms at
+    identity, bias tables ~ N(0, 0.02), embeddings ~ N(0, 1).  MSDA gets
+    mmdet's grid offset bias and small random offset/weight projections,
+    so sampling locations vary per query."""
+    g = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            fan_in = m.weight[0].numel()
+            m.weight.copy_(torch.randn(m.weight.shape, generator=g) * fan_in**-0.5)
+            if m.bias is not None:
+                m.bias.copy_(torch.rand(m.bias.shape, generator=g) * 0.1 - 0.05)
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=g))
+    for m in model.modules():
+        if isinstance(m, MultiScaleDeformableAttention):
+            c = m.cfg
+            m.sampling_offsets.weight.mul_(0.02)
+            m.sampling_offsets.bias.copy_(grid_offset_bias(c.num_heads, c.num_levels, c.num_points))
+            m.attention_weights.weight.mul_(0.1)
+        elif isinstance(m, WindowMSA):
+            t = m.relative_position_bias_table
+            t.copy_(torch.randn(t.shape, generator=g) * 0.02)
+    qh = model.query_head
+    qh.transformer.level_embeds.copy_(torch.randn(qh.transformer.level_embeds.shape, generator=g))
+    for attn in (layer.attentions[0].attn for layer in qh.transformer.decoder.layers):
+        fan_in = attn.in_proj_weight.shape[1]
+        attn.in_proj_weight.copy_(torch.randn(attn.in_proj_weight.shape, generator=g) * fan_in**-0.5)
+        attn.in_proj_bias.copy_(torch.rand(attn.in_proj_bias.shape, generator=g) * 0.1 - 0.05)
+    return model
+
+
+def build_codetr(
+    cfg: CoDETRConfig,
+    *,
+    dtype: torch.dtype = torch.float32,
+    device="cuda",
+    seed: int = 0,
+) -> CoDETR:
+    """Build the model with seeded random weights, in eval mode, on
+    ``device`` (CUDA by default; raises if there is no card) in ``dtype``.
+    Load real weights afterwards with ``load_state_dict``."""
+    device = check_device(device)
+    model = init_weights(CoDETR(cfg), seed)
+    return model.to(device=device, dtype=dtype).eval()

@@ -1,0 +1,105 @@
+"""MultiScaleDeformableAttention module, batch-first.
+
+Projections keep mmdet's names and layout; in particular the
+sampling-offset columns stay interleaved (h, L, P, 2) as in mmdet
+checkpoints.  Coordinates, offsets and attention weights are float32 in every
+compute dtype (bf16 locations would quantise to ~0.6 px at stride 4).
+
+With ``grid_queries=True`` (encoder self-attention, queries = the
+level-concatenated pixel grid) the coordinates are packed into one
+(bs, K, 3*HLP) tensor [x(HLP) | y(HLP) | w(HLP)] for ``msda_grid_packed``;
+otherwise (decoder cross-attention, 4-coordinate reference boxes) they go
+through the reference-layout ``multi_scale_deformable_attention``.  Both
+reach the same CUDA kernel on the card.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from codetr_torch.config import MSDAConfig
+from codetr_torch.ops.msda import msda_grid_packed, multi_scale_deformable_attention
+
+
+def grid_offset_bias(num_heads: int, num_levels: int, num_points: int) -> torch.Tensor:
+    """mmdet's sampling-offset bias init: unit directions at head angles,
+    scaled by point index, interleaved (h, L, P, 2)."""
+    thetas = torch.arange(num_heads, dtype=torch.float64) * (2.0 * math.pi / num_heads)
+    grid = torch.stack([thetas.cos(), thetas.sin()], -1)
+    grid = grid / grid.abs().max(-1, keepdim=True)[0]
+    grid = grid[:, None, None, :].repeat(1, num_levels, num_points, 1)
+    grid = grid * torch.arange(1, num_points + 1, dtype=torch.float64)[None, None, :, None]
+    return grid.reshape(-1).float()
+
+
+class MultiScaleDeformableAttention(nn.Module):
+    def __init__(self, cfg: MSDAConfig, grid_queries: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        self.grid_queries = grid_queries
+        E = cfg.embed_dims
+        n = cfg.num_heads * cfg.num_levels * cfg.num_points
+        self.sampling_offsets = nn.Linear(E, 2 * n)
+        self.attention_weights = nn.Linear(E, n)
+        self.value_proj = nn.Linear(E, int(E * cfg.value_proj_ratio))
+        self.output_proj = nn.Linear(int(E * cfg.value_proj_ratio), E)
+
+    def forward(
+        self,
+        query: torch.Tensor,  # (bs, nq, C)
+        value: torch.Tensor,  # (bs, nk, C)
+        query_pos: Optional[torch.Tensor],
+        key_padding_mask: Optional[torch.Tensor],  # (bs, nk) True = pad
+        reference_points: torch.Tensor,  # (bs, nq, L, 2|4) float32
+        spatial_shapes: Sequence[Tuple[int, int]],
+    ) -> torch.Tensor:
+        c = self.cfg
+        h, L, P = c.num_heads, c.num_levels, c.num_points
+        identity = query
+        if query_pos is not None:
+            query = query + query_pos
+        bs, nq, _ = query.shape
+        nk = value.shape[1]
+
+        v = self.value_proj(value)
+        if key_padding_mask is not None:
+            v = v.masked_fill(key_padding_mask[..., None], 0.0)
+        v = v.reshape(bs, nk, h, -1).contiguous()
+
+        off = self.sampling_offsets(query).float().reshape(bs, nq, h, L, P, 2)
+        attn = self.attention_weights(query).float().reshape(bs, nq, h, L * P)
+        attn = attn.softmax(-1).reshape(bs, nq, h, L, P)
+        ref = reference_points.float()
+
+        if self.grid_queries:
+            if ref.shape != (bs, nq, L, 2):
+                raise ValueError(f"grid queries take (bs, K, L, 2) refs, got {tuple(ref.shape)}")
+            # multiply by the reciprocal level sizes, as the packed JAX path does
+            inv = torch.tensor(
+                [[1.0 / ww, 1.0 / hh] for hh, ww in spatial_shapes], dtype=torch.float32,
+                device=query.device,
+            )  # (L, 2) xy
+            loc = ref[:, :, None, :, None, :] + off * inv[None, None, None, :, None, :]
+            cpk = torch.cat(
+                [loc[..., 0].reshape(bs, nq, -1), loc[..., 1].reshape(bs, nq, -1),
+                 attn.reshape(bs, nq, -1)],
+                dim=-1,
+            )
+            out = msda_grid_packed(v, spatial_shapes, cpk, P)
+        else:
+            if ref.shape[-1] == 2:
+                normalizer = torch.tensor(
+                    [[ww, hh] for hh, ww in spatial_shapes], dtype=torch.float32,
+                    device=query.device,
+                )
+                loc = ref[:, :, None, :, None, :] + off / normalizer[None, None, None, :, None, :]
+            elif ref.shape[-1] == 4:
+                loc = ref[:, :, None, :, None, :2] + off / P * ref[:, :, None, :, None, 2:] * 0.5
+            else:
+                raise ValueError(f"reference_points last dim must be 2 or 4, got {ref.shape[-1]}")
+            out = multi_scale_deformable_attention(v, spatial_shapes, loc.contiguous(), attn)
+        return self.output_proj(out.to(query.dtype)) + identity

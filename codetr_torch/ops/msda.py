@@ -1,0 +1,249 @@
+"""Multi-scale deformable attention (MSDA): the CUDA kernel's wrappers and
+its plain PyTorch version.
+
+Sampling semantics are ``grid_sample``'s with ``mode='bilinear',
+padding_mode='zeros', align_corners=False``: a normalised location ``loc``
+maps to pixel ``loc * size - 0.5``; of the four bilinear corners, those
+outside the level contribute zero.  Results are exact for any offset.
+
+Two public entry points keep the JAX package's signatures and layouts:
+
+- ``msda_grid_packed(value, spatial_shapes, cpk, num_points)``: the
+  encoder's packed coordinates ``cpk`` (bs, K, C) = [x(HLP) | y(HLP) |
+  w(HLP) | pad], HLP = heads*levels*points in (h, L, P) order.
+- ``multi_scale_deformable_attention(value, spatial_shapes,
+  sampling_locations, attention_weights)``: the reference layout, locations
+  (bs, Q, h, L, P, 2) and weights (bs, Q, h, L, P) (the decoder).
+
+``value`` is (bs, K, h, d) in float32 or bfloat16, coordinates and weights
+are float32, and the result is (bs, Q, h*d) in the value's dtype, with fp32
+accumulation.  For CPU tensors they run the plain version; for CUDA tensors
+they launch the hand-written kernel (``csrc/msda_fwd.cu``) or raise.
+``launches`` counts kernel launches (callers reset it to 0 and read it).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence, Tuple
+
+import torch
+
+from codetr_torch.ops import _build
+
+Shapes = Sequence[Tuple[int, int]]
+
+launches = 0
+
+_MAX_LEVELS = 8
+_MAX_HEAD_DIM = 128
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(value: torch.Tensor, spatial_shapes: Shapes, *coords: torch.Tensor) -> None:
+    if value.dim() != 4:
+        raise ValueError(f"value must be (bs, K, h, d), got {tuple(value.shape)}")
+    total = sum(h * w for h, w in spatial_shapes)
+    if total != value.shape[1]:
+        raise ValueError(f"spatial_shapes cover {total} keys, value has {value.shape[1]}")
+    if value.dtype not in _DTYPE_CODE:
+        raise TypeError(f"value dtype must be float32 or bfloat16, got {value.dtype}")
+    for c in coords:
+        if c.dtype != torch.float32:
+            raise TypeError(f"coordinates and weights must be float32, got {c.dtype}")
+        if c.device != value.device:
+            raise ValueError(f"tensors on {c.device} and {value.device}")
+
+
+def msda_plain(
+    value: torch.Tensor,  # (bs, K, h, d)
+    spatial_shapes: Shapes,
+    x: torch.Tensor,  # (bs, Q, h, L, P) normalised x
+    y: torch.Tensor,  # (bs, Q, h, L, P) normalised y
+    w: torch.Tensor,  # (bs, Q, h, L, P) attention weights
+    q_chunk: int = 8192,
+) -> torch.Tensor:
+    """Exact MSDA as a flat gather of the 4 bilinear corners, chunked over
+    queries so the gathered rows stay bounded (at the 768x1152 encoder scale
+    an unchunked gather would materialise ~6 GB).  Any device."""
+    bs, K, h, d = value.shape
+    Q, L, P = x.shape[1], x.shape[3], x.shape[4]
+    dev = value.device
+    table = value.reshape(bs * K * h, d)
+    shape5 = (1, 1, 1, L, 1)
+    widths = torch.tensor([ww for _, ww in spatial_shapes], device=dev).view(shape5)
+    heights = torch.tensor([hh for hh, _ in spatial_shapes], device=dev).view(shape5)
+    starts = [0]
+    for hh, ww in spatial_shapes[:-1]:
+        starts.append(starts[-1] + hh * ww)
+    start = torch.tensor(starts, device=dev).view(shape5)
+    size_x, size_y = widths.float(), heights.float()
+    b_off = (torch.arange(bs, device=dev) * K).view(bs, 1, 1, 1, 1)
+    head = torch.arange(h, device=dev).view(1, 1, h, 1, 1)
+
+    out = torch.empty(bs, Q, h, d, dtype=value.dtype, device=dev)
+    for q0 in range(0, Q, q_chunk):
+        q1 = min(Q, q0 + q_chunk)
+        px = x[:, q0:q1] * size_x - 0.5
+        py = y[:, q0:q1] * size_y - 0.5
+        wc = w[:, q0:q1]
+        fx, fy = torch.floor(px), torch.floor(py)
+        tx, ty = px - fx, py - fy
+        x0, y0 = fx.long(), fy.long()
+        acc = None
+        for cdx, cdy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            xi, yi = x0 + cdx, y0 + cdy
+            valid = (xi >= 0) & (xi < widths) & (yi >= 0) & (yi < heights)
+            k = (
+                start
+                + yi.clamp(min=0).minimum(heights - 1) * widths
+                + xi.clamp(min=0).minimum(widths - 1)
+            )
+            rows = table[((b_off + k) * h + head).reshape(-1)].view(*k.shape, d).float()
+            wx = tx if cdx else 1.0 - tx
+            wy = ty if cdy else 1.0 - ty
+            cw = wx * wy * valid.float() * wc  # (bs, q, h, L, P)
+            term = rows * cw[..., None]
+            acc = term if acc is None else acc + term
+        out[:, q0:q1] = acc.sum(dim=(3, 4)).to(value.dtype)
+    return out.reshape(bs, Q, h * d)
+
+
+def _unpack(cpk: torch.Tensor, h: int, L: int, P: int):
+    bs, K, _ = cpk.shape
+    HLP = h * L * P
+    return tuple(cpk[..., i * HLP:(i + 1) * HLP].reshape(bs, K, h, L, P) for i in range(3))
+
+
+def msda_grid_packed_plain(value, spatial_shapes, cpk, num_points):
+    """Plain PyTorch version of ``msda_grid_packed`` on any device."""
+    h = value.shape[2]
+    return msda_plain(value, spatial_shapes, *_unpack(cpk, h, len(spatial_shapes), num_points))
+
+
+def multi_scale_deformable_attention_plain(
+    value, spatial_shapes, sampling_locations, attention_weights
+):
+    """Plain PyTorch version of ``multi_scale_deformable_attention``."""
+    loc = sampling_locations
+    return msda_plain(value, spatial_shapes, loc[..., 0], loc[..., 1], attention_weights)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The built kernel library, with its C signatures declared."""
+    lib = _build.load("msda_fwd").lib
+    p, i = ctypes.c_void_p, ctypes.c_int
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.msda_packed_fwd.argtypes = [p, p, p, i, i, i, i, i, i, i, i, ip, ip, p]
+    lib.msda_packed_fwd.restype = i
+    lib.msda_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ip, ip, p]
+    lib.msda_fwd.restype = i
+    return lib
+
+
+def _kernel_checks(value: torch.Tensor, spatial_shapes: Shapes, *coords: torch.Tensor) -> None:
+    if len(spatial_shapes) > _MAX_LEVELS:
+        raise ValueError(f"the kernel takes at most {_MAX_LEVELS} levels")
+    if value.shape[3] > _MAX_HEAD_DIM:
+        raise ValueError(f"the kernel takes head dims up to {_MAX_HEAD_DIM}")
+    for t in (value, *coords):
+        if not t.is_contiguous():
+            raise ValueError("the kernel takes contiguous tensors")
+
+
+def _level_arrays(spatial_shapes: Shapes):
+    L = len(spatial_shapes)
+    hs = (ctypes.c_int * L)(*[int(hh) for hh, _ in spatial_shapes])
+    ws = (ctypes.c_int * L)(*[int(ww) for _, ww in spatial_shapes])
+    return hs, ws
+
+
+def _raise_on(err: int, fn: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{fn} failed: code {err} (negative: bad argument; positive: cudaError_t)")
+
+
+def _launch_packed(value, spatial_shapes, cpk, num_points):
+    global launches
+    _kernel_checks(value, spatial_shapes, cpk)
+    bs, K, h, d = value.shape
+    lib = _lib()
+    out = torch.empty(bs, K, h * d, dtype=value.dtype, device=value.device)
+    hs, ws = _level_arrays(spatial_shapes)
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.msda_packed_fwd(
+            value.data_ptr(), cpk.data_ptr(), out.data_ptr(), _DTYPE_CODE[value.dtype],
+            bs, K, h, d, len(spatial_shapes), num_points, cpk.shape[2], hs, ws, stream,
+        )
+    _raise_on(err, "msda_packed_fwd")
+    launches += 1
+    return out
+
+
+def _launch_reference(value, spatial_shapes, loc, attn):
+    global launches
+    _kernel_checks(value, spatial_shapes, loc, attn)
+    bs, K, h, d = value.shape
+    Q, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    lib = _lib()
+    out = torch.empty(bs, Q, h * d, dtype=value.dtype, device=value.device)
+    hs, ws = _level_arrays(spatial_shapes)
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.msda_fwd(
+            value.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[value.dtype], bs, K, Q, h, d, L, P, hs, ws, stream,
+        )
+    _raise_on(err, "msda_fwd")
+    launches += 1
+    return out
+
+
+def _route(t: torch.Tensor) -> str:
+    if t.device.type in ("cpu", "cuda"):
+        return t.device.type
+    raise ValueError(f"MSDA runs on CPU (plain version) or CUDA (kernel), not {t.device}")
+
+
+def msda_grid_packed(
+    value: torch.Tensor,  # (bs, K, h, d)
+    spatial_shapes: Shapes,
+    cpk: torch.Tensor,  # (bs, K, C) fp32 [x(HLP) | y(HLP) | w(HLP) | pad]
+    num_points: int,
+) -> torch.Tensor:
+    """Grid-query (encoder) MSDA on packed coordinates -> (bs, K, h*d)."""
+    _check(value, spatial_shapes, cpk)
+    bs, K, h, _ = value.shape
+    HLP = h * len(spatial_shapes) * num_points
+    if cpk.dim() != 3 or cpk.shape[:2] != (bs, K) or cpk.shape[2] < 3 * HLP:
+        raise ValueError(f"cpk must be ({bs}, {K}, >={3 * HLP}), got {tuple(cpk.shape)}")
+    if _route(value) == "cpu":
+        return msda_grid_packed_plain(value, spatial_shapes, cpk, num_points)
+    return _launch_packed(value, spatial_shapes, cpk, num_points)
+
+
+def multi_scale_deformable_attention(
+    value: torch.Tensor,  # (bs, K, h, d)
+    spatial_shapes: Shapes,
+    sampling_locations: torch.Tensor,  # (bs, Q, h, L, P, 2) fp32
+    attention_weights: torch.Tensor,  # (bs, Q, h, L, P) fp32
+) -> torch.Tensor:
+    """Reference-layout MSDA -> (bs, Q, h*d)."""
+    _check(value, spatial_shapes, sampling_locations, attention_weights)
+    bs, _, h, _ = value.shape
+    L = len(spatial_shapes)
+    loc, attn = sampling_locations, attention_weights
+    if (
+        loc.dim() != 6 or loc.shape[0] != bs or loc.shape[2:4] != (h, L) or loc.shape[5] != 2
+        or attn.shape != loc.shape[:5]
+    ):
+        raise ValueError(
+            f"sampling_locations {tuple(loc.shape)} / attention_weights "
+            f"{tuple(attn.shape)} do not match value {tuple(value.shape)} and {L} levels"
+        )
+    if _route(value) == "cpu":
+        return multi_scale_deformable_attention_plain(value, spatial_shapes, loc, attn)
+    return _launch_reference(value, spatial_shapes, loc, attn)
