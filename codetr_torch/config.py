@@ -2,12 +2,11 @@
 
 An independent copy of the inference-relevant dataclasses of the JAX
 package's ``config.py``, so that this package imports nothing from it.
-Field names and defaults are the same.  Fields that the port's inference
-path never reads are left out: the TPU kernel's window-envelope sizing and
-im2col step (the CUDA kernel is exact for every tap), dropout,
-stochastic-depth and gradient-checkpointing knobs (training), and the
-unused pretrain size, stage strides, co-head flags, query count and BGR
-flag.
+Field names and defaults are the same.  Fields that the port never reads
+are left out: the TPU kernel's window-envelope sizing and im2col step (the
+CUDA kernels are exact for every tap), dropout and stochastic depth (the
+JAX package's training path runs without them too), and the unused
+pretrain size, stage strides, co-head flags, query count and BGR flag.
 """
 
 from __future__ import annotations
@@ -31,6 +30,9 @@ class SwinConfig:
     out_indices: Tuple[int, ...] = (0, 1, 2, 3)
     qkv_bias: bool = True
     qk_scale: Optional[float] = None
+    # gradient checkpointing for training: each Swin block's activations
+    # are recomputed in the backward pass
+    with_cp: bool = False
 
     @property
     def num_features(self) -> Tuple[int, ...]:

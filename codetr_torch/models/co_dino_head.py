@@ -39,6 +39,22 @@ class CoDINOHead(nn.Module):
             pos.append(sine_positional_encoding(m, self.cfg.positional_encoding, dtype=dtype))
         return self.transformer(mlvl_feats, masks, pos, self.reg_branches, self.cls_branches)
 
+    def raw_predictions(self, mlvl_feats: Sequence[torch.Tensor], img_masks: torch.Tensor):
+        """Training-path outputs, float32: the class logits and cxcywh boxes
+        of every decoder layer, ``all_cls_logits`` (nl, bs, nq, ncls) and
+        ``all_coords`` (nl, bs, nq, 4), and of the encoder stage,
+        ``enc_cls_logits`` (bs, K, ncls) and ``enc_coords`` (bs, K, 4): the
+        tensors the DINO losses supervise."""
+        _, _, aux = self.run_transformer(mlvl_feats, img_masks)
+        states = aux["inter_states"]  # (nl, bs, nq, C), normed
+        all_cls = torch.stack([self.cls_branches[i](s) for i, s in enumerate(states)])
+        return {
+            "all_cls_logits": all_cls.float(),
+            "all_coords": aux["inter_refs_unact"].float().sigmoid(),
+            "enc_cls_logits": aux["enc_class"].float(),
+            "enc_coords": aux["enc_coord_unact"].float().sigmoid(),
+        }
+
     def decode(self, final_state: torch.Tensor, final_refs_unact: torch.Tensor,
                image_hw: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Last decoder state -> top-k (boxes xyxy in pixels, scores, labels)."""

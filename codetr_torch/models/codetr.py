@@ -10,7 +10,7 @@ they are.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
@@ -48,6 +48,12 @@ class CoDETR(nn.Module):
     def forward(self, batch_inputs: torch.Tensor, img_masks: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         return self.detect(self.features(batch_inputs), img_masks)
+
+    def train_outputs(self, batch_inputs: torch.Tensor, img_masks: torch.Tensor
+                      ) -> Dict[str, torch.Tensor]:
+        """Per-decoder-layer and encoder-stage class logits and cxcywh boxes
+        for the training losses (``parallel.losses.dino_detection_loss``)."""
+        return self.query_head.raw_predictions(self.features(batch_inputs), img_masks)
 
 
 def check_device(device) -> torch.device:

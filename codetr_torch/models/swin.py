@@ -10,7 +10,10 @@ keys (``stages.i.blocks.j.attn.w_msa.qkv``, ``stages.i.downsample.reduction``,
 - PatchMerging concatenates each 2x2 neighbourhood in ``nn.Unfold``'s
   channel-major order (channel c of position p lands at c*4 + p), as mmdet
   checkpoints expect.
-- Dropout and stochastic depth are inert at inference and left out.
+- Dropout and stochastic depth are left out (inert at inference; the JAX
+  package's training path runs without them too).
+- ``SwinConfig.with_cp`` recomputes each block's activations in the
+  backward pass (``torch.utils.checkpoint``) when gradients are on.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from codetr_torch.config import SwinConfig
 from codetr_torch.models.layers import FFN, LN_EPS, corner_pad_to_multiple
@@ -197,7 +201,10 @@ class SwinTransformer(nn.Module):
         outs = []
         for i, stage in enumerate(self.stages):
             for block in stage.blocks:
-                x = block(x)
+                if self.cfg.with_cp and torch.is_grad_enabled():
+                    x = checkpoint(block, x, use_reentrant=False)
+                else:
+                    x = block(x)
             if i in self.cfg.out_indices:
                 outs.append(getattr(self, f"norm{i}")(x).permute(0, 3, 1, 2).contiguous())
             if stage.downsample is not None:

@@ -212,9 +212,11 @@ class CoDinoTransformer(nn.Module):
 
         topk = c.two_stage_num_proposals
         topk_idx = torch.topk(enc_class.float().max(-1)[0], topk, dim=1)[1]
+        # the proposals enter the decoder as constants: its box losses reach
+        # the encoder stage only through its own outputs, not through them
         topk_coords_unact = torch.gather(
             enc_coord_unact, 1, topk_idx[..., None].expand(-1, -1, 4)
-        )
+        ).detach()
         query = self.query_embed.weight[None].expand(bs, -1, -1)
 
         inter_states, inter_refs = self.decoder(

@@ -1,5 +1,5 @@
-"""Multi-scale deformable attention (MSDA): the CUDA kernel's wrappers and
-its plain PyTorch version.
+"""Multi-scale deformable attention (MSDA): the CUDA kernels' wrappers and
+their plain PyTorch versions.
 
 Sampling semantics are ``grid_sample``'s with ``mode='bilinear',
 padding_mode='zeros', align_corners=False``: a normalised location ``loc``
@@ -17,9 +17,14 @@ Two public entry points keep the JAX package's signatures and layouts:
 
 ``value`` is (bs, K, h, d) in float32 or bfloat16, coordinates and weights
 are float32, and the result is (bs, Q, h*d) in the value's dtype, with fp32
-accumulation.  For CPU tensors they run the plain version; for CUDA tensors
-they launch the hand-written kernel (``csrc/msda_fwd.cu``) or raise.
-``launches`` counts kernel launches (callers reset it to 0 and read it).
+accumulation.  Both are differentiable in the value, the coordinates and the
+weights.  For CPU tensors they run the plain version (``msda_plain``, whose
+gradient is autograd's); for CUDA tensors they launch the hand-written
+forward kernel (``csrc/msda_fwd.cu``) inside a ``torch.autograd.Function``
+whose backward launches the backward kernel (``csrc/msda_bwd.cu``), or
+raise.  ``msda_backward_plain`` is the backward's plain version.
+``launches`` and ``launches_bwd`` count kernel launches (callers reset them
+to 0 and read them).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from codetr_torch.ops import _build
 Shapes = Sequence[Tuple[int, int]]
 
 launches = 0
+launches_bwd = 0
 
 _MAX_LEVELS = 8
 _MAX_HEAD_DIM = 128
@@ -130,9 +136,26 @@ def multi_scale_deformable_attention_plain(
     return msda_plain(value, spatial_shapes, loc[..., 0], loc[..., 1], attention_weights)
 
 
+def msda_backward_plain(
+    value: torch.Tensor,  # (bs, K, h, d)
+    spatial_shapes: Shapes,
+    x: torch.Tensor,  # (bs, Q, h, L, P)
+    y: torch.Tensor,
+    w: torch.Tensor,
+    grad_out: torch.Tensor,  # (bs, Q, h*d)
+):
+    """Plain version of the MSDA backward: the vector-Jacobian product of
+    ``msda_plain`` taken by autograd -> (grad_value, grad_x, grad_y,
+    grad_w), each shaped like its input.  Any device."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (value, x, y, w)]
+        out = msda_plain(leaves[0], spatial_shapes, *leaves[1:])
+        return torch.autograd.grad(out, leaves, grad_out.to(out.dtype))
+
+
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    """The built kernel library, with its C signatures declared."""
+def _fwd_lib() -> ctypes.CDLL:
+    """The built forward kernel library, with its C signatures declared."""
     lib = _build.load("msda_fwd").lib
     p, i = ctypes.c_void_p, ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
@@ -140,6 +163,19 @@ def _lib() -> ctypes.CDLL:
     lib.msda_packed_fwd.restype = i
     lib.msda_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ip, ip, p]
     lib.msda_fwd.restype = i
+    return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    """The built backward kernel library, with its C signatures declared."""
+    lib = _build.load("msda_bwd").lib
+    p, i = ctypes.c_void_p, ctypes.c_int
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.msda_packed_bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, ip, ip, p]
+    lib.msda_packed_bwd.restype = i
+    lib.msda_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, ip, ip, p]
+    lib.msda_bwd.restype = i
     return lib
 
 
@@ -169,7 +205,7 @@ def _launch_packed(value, spatial_shapes, cpk, num_points):
     global launches
     _kernel_checks(value, spatial_shapes, cpk)
     bs, K, h, d = value.shape
-    lib = _lib()
+    lib = _fwd_lib()
     out = torch.empty(bs, K, h * d, dtype=value.dtype, device=value.device)
     hs, ws = _level_arrays(spatial_shapes)
     with torch.cuda.device(value.device):
@@ -188,7 +224,7 @@ def _launch_reference(value, spatial_shapes, loc, attn):
     _kernel_checks(value, spatial_shapes, loc, attn)
     bs, K, h, d = value.shape
     Q, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
-    lib = _lib()
+    lib = _fwd_lib()
     out = torch.empty(bs, Q, h * d, dtype=value.dtype, device=value.device)
     hs, ws = _level_arrays(spatial_shapes)
     with torch.cuda.device(value.device):
@@ -200,6 +236,98 @@ def _launch_reference(value, spatial_shapes, loc, attn):
     _raise_on(err, "msda_fwd")
     launches += 1
     return out
+
+
+def _grad_rows(value, grad_out, num_queries):
+    """The upstream gradient as the backward kernel reads it: contiguous
+    (bs, Q, h*d) in the value's dtype (the forward's output dtype)."""
+    bs, _, h, d = value.shape
+    if grad_out.shape != (bs, num_queries, h * d):
+        raise ValueError(f"grad_out must be ({bs}, {num_queries}, {h * d}), got {tuple(grad_out.shape)}")
+    return grad_out.to(value.dtype).contiguous()
+
+
+def _launch_packed_bwd(value, spatial_shapes, cpk, num_points, grad_out):
+    """-> (grad_value in the value's dtype, grad_cpk (bs, K, C) fp32, its
+    pad columns zero)."""
+    global launches_bwd
+    bs, K, h, d = value.shape
+    g = _grad_rows(value, grad_out, K)
+    _kernel_checks(value, spatial_shapes, cpk, g)
+    L, C = len(spatial_shapes), cpk.shape[2]
+    lib = _bwd_lib()
+    # fp32 accumulator for the kernel's atomics, zeroed
+    grad_value = torch.zeros(bs, K, h, d, dtype=torch.float32, device=value.device)
+    grad_cpk = torch.zeros(bs, K, C, dtype=torch.float32, device=value.device)
+    hs, ws = _level_arrays(spatial_shapes)
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.msda_packed_bwd(
+            value.data_ptr(), cpk.data_ptr(), g.data_ptr(), grad_value.data_ptr(),
+            grad_cpk.data_ptr(), _DTYPE_CODE[value.dtype], bs, K, h, d, L, num_points, C,
+            hs, ws, stream,
+        )
+    _raise_on(err, "msda_packed_bwd")
+    launches_bwd += 1
+    return grad_value.to(value.dtype), grad_cpk
+
+
+def _launch_reference_bwd(value, spatial_shapes, loc, attn, grad_out):
+    """-> (grad_value in the value's dtype, grad_loc, grad_attn), fp32
+    gradients in the coordinates' layouts."""
+    global launches_bwd
+    bs, K, h, d = value.shape
+    Q, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    g = _grad_rows(value, grad_out, Q)
+    _kernel_checks(value, spatial_shapes, loc, attn, g)
+    lib = _bwd_lib()
+    grad_value = torch.zeros(bs, K, h, d, dtype=torch.float32, device=value.device)
+    grad_loc, grad_attn = torch.empty_like(loc), torch.empty_like(attn)
+    hs, ws = _level_arrays(spatial_shapes)
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.msda_bwd(
+            value.data_ptr(), loc.data_ptr(), attn.data_ptr(), g.data_ptr(),
+            grad_value.data_ptr(), grad_loc.data_ptr(), grad_attn.data_ptr(),
+            _DTYPE_CODE[value.dtype], bs, K, Q, h, d, L, P, hs, ws, stream,
+        )
+    _raise_on(err, "msda_bwd")
+    launches_bwd += 1
+    return grad_value.to(value.dtype), grad_loc, grad_attn
+
+
+class _PackedMSDA(torch.autograd.Function):
+    """The packed-layout kernel with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, value, cpk, spatial_shapes, num_points):
+        ctx.save_for_backward(value, cpk)
+        ctx.spatial_shapes, ctx.num_points = spatial_shapes, num_points
+        return _launch_packed(value, spatial_shapes, cpk, num_points)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        value, cpk = ctx.saved_tensors
+        grad_value, grad_cpk = _launch_packed_bwd(
+            value, ctx.spatial_shapes, cpk, ctx.num_points, grad_out)
+        return grad_value, grad_cpk, None, None
+
+
+class _ReferenceMSDA(torch.autograd.Function):
+    """The reference-layout kernel with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, value, loc, attn, spatial_shapes):
+        ctx.save_for_backward(value, loc, attn)
+        ctx.spatial_shapes = spatial_shapes
+        return _launch_reference(value, spatial_shapes, loc, attn)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        value, loc, attn = ctx.saved_tensors
+        return (*_launch_reference_bwd(value, ctx.spatial_shapes, loc, attn, grad_out), None)
 
 
 def _route(t: torch.Tensor) -> str:
@@ -222,7 +350,7 @@ def msda_grid_packed(
         raise ValueError(f"cpk must be ({bs}, {K}, >={3 * HLP}), got {tuple(cpk.shape)}")
     if _route(value) == "cpu":
         return msda_grid_packed_plain(value, spatial_shapes, cpk, num_points)
-    return _launch_packed(value, spatial_shapes, cpk, num_points)
+    return _PackedMSDA.apply(value, cpk, spatial_shapes, num_points)
 
 
 def multi_scale_deformable_attention(
@@ -246,4 +374,4 @@ def multi_scale_deformable_attention(
         )
     if _route(value) == "cpu":
         return multi_scale_deformable_attention_plain(value, spatial_shapes, loc, attn)
-    return _launch_reference(value, spatial_shapes, loc, attn)
+    return _ReferenceMSDA.apply(value, loc, attn, spatial_shapes)

@@ -4,8 +4,7 @@ normalise -> pad mask (0 inside the image, 1 in the padding).
 The resize is ``F.interpolate(mode='bilinear', align_corners=False,
 antialias=False)`` of the uint8 image followed by rounding half up: cv2
 ``INTER_LINEAR``'s half-pixel mapping, equal to it up to cv2's fixed-point
-coefficients (within one uint8 level).  It runs on whichever device the image is
-given on.
+coefficients (within one uint8 level).  It runs on the device it is given.
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from codetr_torch.config import PreprocessConfig
+from codetr_torch.models.codetr import check_device
 
 
 def rescale_size(old_w: int, old_h: int, new_w: int, new_h: int) -> Tuple[int, int]:
@@ -31,11 +31,13 @@ def preprocess(
     width: int,
     cfg: PreprocessConfig = PreprocessConfig(),
     keep_ratio: bool = True,
-    device="cpu",
+    device="cuda",
 ):
     """image (H, W, 3) RGB uint8 (numpy or tensor) -> (inputs (height, width,
     3) float32, mask (height, width) float32, scale_factor (w_scale,
-    h_scale), unpadded (th, tw)); tensors on ``device``."""
+    h_scale), unpadded (th, tw)); tensors on ``device`` (the card by
+    default; raises if there is none)."""
+    device = check_device(device)
     img = torch.as_tensor(np.asarray(image_rgb) if not torch.is_tensor(image_rgb) else image_rgb)
     if img.dtype != torch.uint8 or img.dim() != 3 or img.shape[2] != 3:
         raise ValueError(f"expected an (H, W, 3) uint8 image, got {tuple(img.shape)} {img.dtype}")

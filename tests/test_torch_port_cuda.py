@@ -1,6 +1,7 @@
-"""The MSDA CUDA kernel against its plain PyTorch version, on the card.
+"""The MSDA CUDA kernels (forward and backward) against their plain PyTorch
+versions, on the card.
 
-The kernel has no CPU mode, so these tests are marked ``gpu`` and skip
+The kernels have no CPU mode, so these tests are marked ``gpu`` and skip
 where there is no card.  This file imports neither JAX nor the JAX package
 (the machine with the card has no JAX), so run it there without the suite's
 JAX conftest, from the repository root:
@@ -113,6 +114,87 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype):
                 assert_close(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5)
             else:
                 assert_within_bf16_rounding(got, want)
+
+
+def assert_grads_match_plain(got, want, bf16_value: bool) -> None:
+    """Kernel gradients (grad_value, grad_x, grad_y, grad_w) against the
+    plain backward on the same values: coordinate and weight gradients to
+    1e-5 of their scale (fp32 reassociation); grad_value to 1e-5 of its
+    scale in fp32 (atomics add in another order), and for a bf16 value
+    within its own bf16 rounding."""
+    for name, g, w in zip(("grad_value", "grad_x", "grad_y", "grad_w"), got, want):
+        assert g.shape == w.shape, (name, g.shape, w.shape)
+        assert torch.isfinite(g).all(), name
+        if name == "grad_value" and bf16_value:
+            assert g.dtype == torch.bfloat16
+            assert_within_bf16_rounding(g, w)
+        else:
+            err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+            assert err < 1e-5, f"{name}: max err {err:.2e} of its scale"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_backward_matches_plain(cuda_device, dtype):
+    """The backward kernel through both entry points' autograd against the
+    plain backward on the card, at the flagship's head width."""
+    for i, shapes in enumerate(SHAPES):
+        rng = np.random.default_rng(30 + i)
+        value, loc, w = make_inputs(rng, shapes, h=8, d=32, P=4)
+        g = torch.from_numpy(rng.standard_normal((1, loc.shape[1], 8 * 32)).astype(np.float32))
+        g = g.to(cuda_device, dtype)
+        v = torch.from_numpy(value).to(cuda_device, dtype)
+        loc_t, w_t = torch.from_numpy(loc).to(cuda_device), torch.from_numpy(w).to(cuda_device)
+        want = port_msda.msda_backward_plain(
+            v.float(), shapes, loc_t[..., 0], loc_t[..., 1], w_t, g.float())
+
+        before = port_msda.launches_bwd
+        vp = v.clone().requires_grad_()
+        cpk = torch.from_numpy(pack(loc, w)).to(cuda_device).requires_grad_()
+        port_msda.msda_grid_packed(vp, shapes, cpk, 4).backward(g)
+        HLP = w.size // w.shape[0] // w.shape[1]
+        gx, gy, gw = (cpk.grad[..., j * HLP:(j + 1) * HLP].reshape(w_t.shape) for j in range(3))
+        vr = v.clone().requires_grad_()
+        lr, wr = loc_t.clone().requires_grad_(), w_t.clone().requires_grad_()
+        port_msda.multi_scale_deformable_attention(vr, shapes, lr, wr).backward(g)
+        torch.cuda.synchronize()
+        assert port_msda.launches_bwd == before + 2
+        bf16 = dtype == torch.bfloat16
+        assert_grads_match_plain((vp.grad, gx, gy, gw), want, bf16)
+        assert_grads_match_plain((vr.grad, lr.grad[..., 0], lr.grad[..., 1], wr.grad), want, bf16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid_queries", [True, False])
+def test_msda_module_gradient_reaches_the_kernel(cuda_device, grid_queries):
+    """A CUDA module whose parameters need gradients launches the backward
+    kernel once per call, and its parameter gradients match the same module
+    on the CPU (1e-5 of each gradient's scale)."""
+    from codetr_torch.config import MSDAConfig
+    from codetr_torch.models.msda_module import MultiScaleDeformableAttention
+
+    shapes = SHAPES[0]
+    L, E = len(shapes), 64
+    K = sum(hh * ww for hh, ww in shapes)
+    torch.manual_seed(0)
+    cpu = MultiScaleDeformableAttention(
+        MSDAConfig(embed_dims=E, num_heads=2, num_levels=L, num_points=4), grid_queries)
+    gpu = MultiScaleDeformableAttention(cpu.cfg, grid_queries).to(cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(7)
+    nq = K if grid_queries else 29
+    query = torch.from_numpy(rng.standard_normal((1, nq, E)).astype(np.float32))
+    value = query if grid_queries else torch.from_numpy(rng.standard_normal((1, K, E)).astype(np.float32))
+    ref = torch.from_numpy(rng.uniform(0.1, 0.9, (1, nq, L, 2 if grid_queries else 4)).astype(np.float32))
+    mask = torch.zeros(1, K, dtype=torch.bool)
+    mask[0, -5:] = True
+    for mod, dev in ((cpu, "cpu"), (gpu, cuda_device)):
+        before = port_msda.launches_bwd
+        out = mod(query.to(dev), value.to(dev), None, mask.to(dev), ref.to(dev), shapes)
+        out.square().sum().backward()
+        assert port_msda.launches_bwd - before == (0 if dev == "cpu" else 1)
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        assert_close(pg.grad.cpu().numpy(), pc.grad.numpy(), rtol=1e-5)
 
 
 @pytest.mark.gpu

@@ -26,7 +26,9 @@ from codetr_tpu.models.codetr import build_codetr as jax_build_codetr
 from codetr_tpu.utils.checkpoint import convert_state_dict
 from codetr_torch.config import co_dino_swin_l, tiny_test_config
 from codetr_torch.models.codetr import CoDETR, build_codetr, init_weights
+from codetr_torch.inferencer import Inferencer
 from codetr_torch.utils.checkpoint import state_dict_from_jax
+from codetr_torch.utils.preprocess import preprocess
 
 REPO = Path(__file__).resolve().parent.parent
 H = W = 128
@@ -165,12 +167,19 @@ def test_swin_l_key_schema_round_trip():
 
 
 def test_build_codetr_defaults_to_cuda_and_raises_without_a_card():
+    """So do ``preprocess`` and the ``Inferencer``."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
     with pytest.raises(RuntimeError, match="CUDA"):
         build_codetr(tiny_test_config())
     model = build_codetr(tiny_test_config(), device="cpu")
     assert next(model.parameters()).device.type == "cpu"
+    image = np.zeros((20, 30, 3), np.uint8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        preprocess(image, 32, 32)
+    assert preprocess(image, 32, 32, device="cpu")[0].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Inferencer(model, height=32, width=32)
 
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "codetr_tpu", "cv2")

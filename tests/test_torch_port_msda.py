@@ -1,14 +1,18 @@
-"""The port's MSDA op and module against the JAX package.
+"""The port's MSDA op, its gradients and the module against the JAX package.
 
-On the CPU the port's entry points run their plain PyTorch version; the JAX
-side runs its exact oracle ``msda_reference_qm``, its production encoder
-entry ``msda_grid_packed(impl="auto")`` (the Pallas kernel in interpret mode
-plus its exactness correction) and the decoder's ``msda_pair_gather``.  The
-same float32 inputs, made from a seed with numpy, go to both.  Tolerance:
-1e-5 relative to the output's scale (fp32 reassociation only).
+On the CPU the port's entry points run their plain PyTorch version (its
+gradient is autograd's); the JAX side runs its exact oracle
+``msda_reference_qm``, its production encoder entry
+``msda_grid_packed(impl="auto")`` (the Pallas kernel in interpret mode plus
+its exactness correction, differentiated through kernel K2 and the
+correction tiers), K2 itself (``msda_win_qm_packed_bwd`` in interpret mode)
+and the decoder's ``msda_pair_gather``.  The same float32 inputs, made from
+a seed with numpy, go to both; locations include far-out taps and taps on
+grid lines (see ``agree_with_fused_rounding`` for the gradient tests).
+Tolerance: 1e-5 relative to each output's scale (fp32 reassociation only).
 
-The CUDA kernel itself is held against the plain version on the card by
-``test_torch_port_cuda.py``.
+The CUDA kernels themselves are held against the plain versions on the card
+by ``test_torch_port_cuda.py``.
 """
 
 import jax
@@ -24,11 +28,14 @@ from codetr_tpu.ops.msda import (
     msda_pair_gather,
     msda_reference_qm,
 )
+from codetr_tpu.ops.msda_win import _tile_shape_for_level, pack_coords_qmajor, unpack_coords_qmajor
+from codetr_tpu.ops.msda_win_bwd import msda_win_qm_packed_bwd
 from codetr_torch.config import MSDAConfig
 from codetr_torch.models.msda_module import MultiScaleDeformableAttention
 from codetr_torch.ops import msda as port_msda
 from codetr_torch.utils.checkpoint import _Out
 
+from test_msda_win_bwd import SHAPES as WIN_SHAPES, _grid_coords
 from test_torch_port_cuda import SHAPES, assert_close, assert_within_bf16_rounding, make_inputs, pack
 
 def to_qm(loc, w):
@@ -65,6 +72,159 @@ def test_reference_layout_matches_pair_gather(shapes):
     )
     want = msda_pair_gather(jnp.asarray(value), shapes, jnp.asarray(loc), jnp.asarray(w))
     assert_close(got.numpy(), want)
+
+
+def assert_close_to_scale(got, want, rtol=1e-5):
+    """Max error relative to the reference's own largest magnitude."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err < rtol, f"max err {err:.2e} of scale {np.abs(want).max():.2e}"
+
+
+def agree_with_fused_rounding(coord, size):
+    """``coord`` with each entry whose pixel ``coord * size - 0.5`` floors
+    differently when the multiply-add is fused moved to 0.5, the level's
+    centre (a grid line for odd sizes, exact under both roundings).  The
+    JAX package's XLA:CPU code fuses it; the port rounds the product first,
+    as its kernels do.  The two roundings put a tap that sits within an ulp
+    of a grid line on either side of it, where the one-sided derivative
+    differs; taps that sit exactly on a grid line under both stay."""
+    coord = np.array(coord, np.float32)
+    size = np.asarray(size, np.float32)
+    rounded = np.floor(coord * size - np.float32(0.5))
+    fused = np.floor((coord.astype(np.float64) * size - 0.5).astype(np.float32))
+    return np.where(rounded != fused, np.float32(0.5), coord)
+
+
+def jax_safe_inputs(rng, shapes, num_queries=None):
+    """``make_inputs`` with its locations passed through
+    ``agree_with_fused_rounding``."""
+    value, loc, w = make_inputs(rng, shapes, num_queries)
+    size = np.asarray([[ww, hh] for hh, ww in shapes], np.float32)[:, None, :]  # (L, P, xy)
+    return value, agree_with_fused_rounding(loc, size), w
+
+
+def port_packed_vjp(value, shapes, cpk, P, g):
+    """(grad_value, grad_cpk) of the port's packed entry, by autograd."""
+    v, c = (torch.from_numpy(np.array(a)).requires_grad_() for a in (value, cpk))
+    port_msda.msda_grid_packed(v, shapes, c, P).backward(torch.from_numpy(g))
+    return v.grad.numpy(), c.grad.numpy()
+
+
+@pytest.mark.parametrize("shapes", SHAPES)
+def test_packed_grads_match_jax_oracle_and_production_vjp(shapes):
+    rng = np.random.default_rng(40 + len(shapes))
+    value, loc, w = jax_safe_inputs(rng, shapes)
+    bs, K, h, d = value.shape
+    L, P = len(shapes), loc.shape[4]
+    HLP = h * L * P
+    cpk = pack(loc, w, pad_to=-(-3 * HLP // 128) * 128)
+    g = rng.standard_normal((bs, K, h * d)).astype(np.float32)
+    got_v, got_c = port_packed_vjp(value, shapes, cpk, P, g)
+    assert not got_c[..., 3 * HLP:].any()  # pad columns
+
+    def oracle(v, c):
+        return msda_reference_qm(v, shapes, *unpack_coords_qmajor(c, h, L, P))
+
+    want_v, want_c = jax.vjp(oracle, jnp.asarray(value), jnp.asarray(cpk))[1](jnp.asarray(g))
+    assert_close_to_scale(got_v, want_v)
+    assert_close_to_scale(got_c, want_c)
+    if len(shapes) == 2:  # the production dispatch: K2 + coarse + correction VJPs
+        prod_v, prod_c = jax.vjp(
+            lambda v, c: jax_msda_grid_packed(v, shapes, c, P, impl="auto"),
+            jnp.asarray(value), jnp.asarray(cpk),
+        )[1](jnp.asarray(g))
+        assert_close_to_scale(got_v, prod_v)
+        assert_close_to_scale(got_c, prod_c)
+
+
+def test_packed_grads_match_win_backward_kernel():
+    """K2 (``msda_win_qm_packed_bwd``, interpret mode) on in-envelope
+    coordinates, a fifth of the taps snapped onto grid lines (those within
+    an ulp of one moved as ``agree_with_fused_rounding`` says).  K2 leaves
+    the coarse query levels to its caller, so those rows are masked out of
+    the coordinate comparison and their upstream gradient is zeroed for the
+    value comparison, as the JAX suite's own K2 test does."""
+    h, P, d = 4, 2, 16
+    shapes, L = WIN_SHAPES, len(WIN_SHAPES)
+    K = sum(a * b for a, b in shapes)
+    rng = np.random.default_rng(8)
+    x, y, w = (np.array(a) for a in _grid_coords(h, P, jit_px=2.0, seed=8))
+    size_x = np.asarray([ww for _, ww in shapes], np.float32)[None, None, :, None, None]
+    size_y = np.asarray([hh for hh, _ in shapes], np.float32)[None, None, :, None, None]
+    on_line = rng.random(x.shape) < 0.2
+    x = np.where(on_line, (np.round(x * size_x - 0.5) + 0.5) / size_x, x).astype(np.float32)
+    y = np.where(on_line, (np.round(y * size_y - 0.5) + 0.5) / size_y, y).astype(np.float32)
+    x, y = agree_with_fused_rounding(x, size_x), agree_with_fused_rounding(y, size_y)
+    cpk = np.asarray(pack_coords_qmajor(jnp.asarray(x), jnp.asarray(y), jnp.asarray(w), interpret=True))
+    value = rng.standard_normal((1, K, h, d)).astype(np.float32)
+    g = rng.standard_normal((1, K, h * d)).astype(np.float32)
+
+    keep = np.zeros(K, bool)
+    q0 = 0
+    for lq, (Hq, Wq) in enumerate(shapes):
+        th, tw = _tile_shape_for_level(lq, L)
+        keep[q0:q0 + Hq * Wq] = th * tw >= 16
+        q0 += Hq * Wq
+    g_kept = np.where(keep[None, :, None], g, 0.0).astype(np.float32)
+    k2_v, k2_c = msda_win_qm_packed_bwd(jnp.asarray(value), shapes, jnp.asarray(cpk),
+                                        jnp.asarray(g_kept), P, radius=5, interpret=True)
+    got_v, got_c = port_packed_vjp(value, shapes, cpk, P, g_kept)
+    assert_close_to_scale(got_v, k2_v)
+    assert_close_to_scale(got_c[0, keep], np.asarray(k2_c)[0, keep])
+
+
+@pytest.mark.parametrize("shapes", SHAPES[:2])
+def test_reference_layout_grads_match_pair_gather_and_oracle(shapes):
+    rng = np.random.default_rng(50 + len(shapes))
+    value, loc, w = jax_safe_inputs(rng, shapes, num_queries=37)
+    g = rng.standard_normal((1, 37, value.shape[2] * value.shape[3])).astype(np.float32)
+    got = port_msda.msda_backward_plain(
+        torch.from_numpy(value), shapes, *(torch.from_numpy(a) for a in (loc[..., 0], loc[..., 1], w, g)))
+    got_v, got_loc, got_w = got[0], torch.stack(got[1:3], -1), got[3]
+
+    pair = jax.vjp(lambda v, lc, a: msda_pair_gather(v, shapes, lc, a),
+                   *(jnp.asarray(a) for a in (value, loc, w)))[1](jnp.asarray(g))
+
+    def oracle(v, lc, a):
+        x, y, ww = (jnp.moveaxis(t, 1, -1) for t in (lc[..., 0], lc[..., 1], a))
+        return msda_reference_qm(v, shapes, x, y, ww)
+
+    exact = jax.vjp(oracle, *(jnp.asarray(a) for a in (value, loc, w)))[1](jnp.asarray(g))
+    for want in (pair, exact):
+        for t, wt in zip((got_v, got_loc, got_w), want):
+            assert_close_to_scale(t.numpy(), wt)
+
+
+def test_cuda_autograd_functions_route_gradients(monkeypatch):
+    """The autograd Functions that wrap the kernels, run here with plain
+    launchers in place of the CUDA ones: each input gets the gradient the
+    backward launcher returns, and a backward launch is counted per call."""
+    shapes = SHAPES[0]
+    rng = np.random.default_rng(4)
+    value, loc, w = (torch.from_numpy(a) for a in make_inputs(rng, shapes, num_queries=11))
+
+    def fake_reference(v, sh, lc, a):
+        return port_msda.multi_scale_deformable_attention_plain(v, sh, lc, a)
+
+    def fake_reference_bwd(v, sh, lc, a, g):
+        port_msda.launches_bwd += 1
+        gv, gx, gy, gw = port_msda.msda_backward_plain(v, sh, lc[..., 0], lc[..., 1], a, g)
+        return gv, torch.stack([gx, gy], -1), gw
+
+    monkeypatch.setattr(port_msda, "_launch_reference", fake_reference)
+    monkeypatch.setattr(port_msda, "_launch_reference_bwd", fake_reference_bwd)
+    monkeypatch.setattr(port_msda, "launches_bwd", 0)
+    leaves = [t.clone().requires_grad_() for t in (value, loc, w)]
+    out = port_msda._ReferenceMSDA.apply(*leaves, shapes)
+    g = torch.from_numpy(rng.standard_normal(out.shape).astype(np.float32))
+    out.backward(g)
+    assert port_msda.launches_bwd == 1
+    want = port_msda.msda_backward_plain(value, shapes, loc[..., 0], loc[..., 1], w, g)
+    torch.testing.assert_close(leaves[0].grad, want[0], rtol=0, atol=0)
+    torch.testing.assert_close(leaves[1].grad, torch.stack(want[1:3], -1), rtol=0, atol=0)
+    torch.testing.assert_close(leaves[2].grad, want[3], rtol=0, atol=0)
 
 
 def test_both_layouts_agree_and_bf16_value_accumulates_in_fp32():

@@ -35,7 +35,7 @@ def test_preprocess_matches_jax_host_path(size):
     rng = np.random.default_rng(sum(size))
     img = rng.integers(0, 256, (*size, 3), np.uint8)
     want_x, want_mask, want_sf, want_thw = preprocess_numpy(img, 128, 160, JaxPreprocessConfig())
-    x, mask, sf, thw = preprocess(img, 128, 160, PreprocessConfig())
+    x, mask, sf, thw = preprocess(img, 128, 160, PreprocessConfig(), device="cpu")
     assert thw == want_thw and sf == want_sf
     np.testing.assert_array_equal(mask.numpy(), want_mask)
     th, tw = thw
