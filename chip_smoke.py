@@ -9,15 +9,20 @@ Phases (any failure raises, and the script exits non-zero without a result):
    once (build seconds and ``-Xptxas -v`` printed);
 3. hold the MSDA forward and backward kernels against their plain PyTorch
    versions at the 768x1152 main-path shapes (encoder: 5 levels, K = 73,656
-   queries, packed layout; decoder: 900 queries with 4-coordinate
-   references), value in fp32 and in bf16;
+   queries, packed and q-minor layouts; decoder: 900 queries with
+   4-coordinate references), value in fp32 and in bf16;
 4. check the full-width Swin-L model's inference forward on the card
    against the same model run on the CPU through the plain versions, at a
    small input;
 5. the serving path: 3 synthetic images of different sizes through the
    Swin-L ``Inferencer`` at 768x1152 in fp32 and one in bf16, checking the
    outputs and that each forward launched the forward kernel 12 times (6
-   encoder + 6 decoder layers);
+   encoder + 6 decoder layers); then the on-card MSDA gate
+   (``codetr_torch.bench.verify_msda_on_card``, the JAX ``bench.py
+   --verify``) at 1280x1920 in fp32 and bf16, which launches the q-minor
+   kernel; then the R50 family: its full-width model on the card against
+   the CPU at a small input, and the ``Inferencer`` at 608x608 fp32 and at
+   768x1152 bf16 (3 images each, 12 forward launches per image);
 6. one full-width Swin-L train step on the card against the CPU at a small
    input (loss and every gradient, each leaf held against its own measured
    sensitivity); then the training path: Swin-L train steps at 768x1152,
@@ -50,13 +55,16 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from codetr_torch import Inferencer, build_codetr, co_dino_swin_l
+from codetr_torch import Inferencer, build_codetr, co_dino_r50, co_dino_swin_l
+from codetr_torch.bench import verify_inputs, verify_msda_on_card
 from codetr_torch.ops import _build
 from codetr_torch.ops import msda
 from codetr_torch.parallel.losses import dino_detection_loss
 from codetr_torch.parallel.train import adamw, make_train_step
 
 HEIGHT, WIDTH = 768, 1152  # the serving size
+VERIFY_HW = (1280, 1920)  # the on-card MSDA gate's size, the JAX bench.py's default
+R50_SERVING = ((608, 608, torch.float32), (768, 1152, torch.bfloat16))  # BASELINE configs[0], [1]
 CHECK_HW = (384, 384)  # small input for the card-vs-CPU model check
 TRAIN_CHECK_HW = (256, 256)  # small input for the card-vs-CPU train-step check (K = 5,456)
 PERTURBATIONS = 3  # seeded 1e-7 weight perturbations that measure each gradient's spread
@@ -293,6 +301,23 @@ def upstream_grads(num_keys):
 
 def plain_backward(value, shapes, loc, w, grad_out):
     return msda.msda_backward_plain(value, shapes, loc[..., 0], loc[..., 1], w, grad_out)
+
+
+def to_qm(loc, w):
+    """Reference layout -> contiguous q-minor x, y, w, each (bs, h, L, P, Q)."""
+    return tuple(a.permute(0, 2, 3, 4, 1).contiguous() for a in (loc[..., 0], loc[..., 1], w))
+
+
+def from_qm(x, y, w):
+    """q-minor x, y, w -> reference-layout views (loc, w)."""
+    return torch.stack([x, y], -1).permute(0, 4, 1, 2, 3, 5), w.permute(0, 4, 1, 2, 3)
+
+
+def plain_backward_qm(value, shapes, x, y, w, grad_out):
+    """The plain backward, its coordinate gradients moved to q-minor."""
+    grads = msda.msda_backward_plain(value, shapes, *(a.permute(0, 4, 1, 2, 3) for a in (x, y, w)),
+                                     grad_out)
+    return (grads[0], *(a.permute(0, 2, 3, 4, 1) for a in grads[1:]))
 
 
 def split_packed(grad_value, gcpk, heads, levels, points):
@@ -544,9 +569,9 @@ def launches_per_forward(cfg) -> int:
     return tc.num_encoder_layers + tc.num_decoder_layers
 
 
-def compare_models(cfg, shape_hw, stamp):
-    """The Swin-L model on the card (kernel path) against the same weights on
-    the CPU (plain path), fp32, at a small padded input."""
+def compare_models(cfg, shape_hw, stamp, label="Swin-L"):
+    """A full-width model on the card (kernel path) against the same weights
+    on the CPU (plain path), fp32, at a small padded input."""
     h, w = shape_hw
     rng = np.random.default_rng(SEED + 1)
     img = torch.from_numpy(rng.standard_normal((1, h, w, 3)).astype(np.float32))
@@ -592,7 +617,7 @@ def compare_models(cfg, shape_hw, stamp):
             unmatched += 1
             continue
         used[cand[np.argmin(d)]] = True
-    print(f"Swin-L {h}x{w} card vs CPU: features rel err {feat_err:.3e}, encoder memory "
+    print(f"{label} {h}x{w} card vs CPU: features rel err {feat_err:.3e}, encoder memory "
           f"{mem_err:.3e}, encoder class logits {cls_err:.3e} (tol 2e-4 each); "
           f"{k - shared}/{k} top-k proposals differ; scores err {score_err:.3e} (tol 1e-3), "
           f"unmatched boxes {unmatched}/{len(cb)} at 0.5 px (tol {len(cb) // 100}) [{stamp}]")
@@ -611,6 +636,68 @@ def check_detections(dets, n_expected, max_per_img):
             fail("keep must be a non-empty (N,) bool mask")
         if not (np.isfinite(d.boxes).all() and np.isfinite(d.scores[d.keep]).all()):
             fail("non-finite detections")
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, (time.perf_counter() - t0) * 1e3
+
+
+def serve(cfg, height, width, dtype, images, warmup):
+    """One serving configuration: the ``Inferencer`` at batch 1 after one
+    warm-up image, then each of ``images`` timed on the host clock with the
+    launch counts set to 0 before and read after (each forward must launch
+    the forward kernel once per encoder and decoder layer, and no other);
+    then one forward of the last image timed piece by piece."""
+    from codetr_torch.ops.nms import postprocess_detections
+    from codetr_torch.utils.preprocess import preprocess
+
+    model = build_codetr(cfg, dtype=dtype, device=DEVICE, seed=SEED)
+    inf = Inferencer(model, height=height, width=width, batch_size=1, device=DEVICE)
+    inf([warmup])  # library handles, allocator, cached masks
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    msda.launches = msda.launches_qm = msda.launches_bwd = 0
+    dets, latencies = [], []
+    for im in images:
+        d, t = timed(lambda: inf([im]))
+        dets += d
+        latencies.append(t)
+    launches = (msda.launches, msda.launches_qm, msda.launches_bwd)
+    peak = torch.cuda.max_memory_allocated()
+    check_detections(dets, len(images), cfg.head.max_per_img)
+    per_forward = launches_per_forward(cfg)
+    if launches != (per_forward * len(images), 0, 0):
+        fail(f"serving {height}x{width} {dtype} launched (forward, q-minor, backward) kernels "
+             f"{launches}, not ({per_forward * len(images)}, 0, 0)")
+
+    with torch.inference_mode():
+        pre, t_pre = timed(lambda: preprocess(images[-1], height, width, cfg.preprocess, device=DEVICE))
+        x, mk = pre[0][None], pre[1][None]
+        feats, t_feat = timed(lambda: model.features(x))
+        det, t_det = timed(lambda: model.detect(feats, mk))
+        _, t_post = timed(lambda: postprocess_detections(
+            *det, score_threshold=0.0, iou_threshold=cfg.head.nms_iou_threshold,
+            nms_type=cfg.head.nms_type))
+    del model, inf, feats, det
+    torch.cuda.empty_cache()
+    return {"latencies": latencies, "split": (t_pre, t_feat, t_det, t_post), "peak": peak,
+            "held": held, "launches": launches[0], "kept": [int(d.keep.sum()) for d in dets]}
+
+
+def print_serving(label, r, images, stamp):
+    for im, t in zip(images, r["latencies"]):
+        print(f"latency {label} image {im.shape[:2]}: {t:.2f} ms [{stamp}]")
+    print(f"latency {label} median: {statistics.median(r['latencies']):.2f} ms per image [{stamp}]")
+    t_pre, t_feat, t_det, t_post = r["split"]
+    print(f"{label} split, one image: preprocess {t_pre:.2f} ms, backbone+neck {t_feat:.2f} ms, "
+          f"head {t_det:.2f} ms, soft-NMS {t_post:.2f} ms [{stamp}]")
+    print(f"peak memory allocated, {label}: {r['peak'] / 2**30:.3f} GiB, of which "
+          f"{r['held'] / 2**30:.3f} GiB held before the serving path [{stamp}]")
 
 
 def main() -> int:
@@ -669,7 +756,19 @@ def main() -> int:
             *msda._launch_reference_bwd(v, shapes, loc_d, w_d, g)),
         lambda v, g: plain_backward(v, shapes, loc_d, w_d, g), stamp,
     )
-    del g_e, g_d
+    # the q-minor entry (K3's counterpart) on the same encoder taps
+    qm = to_qm(loc_e, w_e)
+    enc_qm = check_kernel(
+        f"encoder MSDA (q-minor, Q={K})", value,
+        lambda v: msda.msda_grid_qm(v, shapes, *qm),
+        lambda v: msda.msda_reference_qm(v, shapes, *qm), stamp,
+    )
+    enc_qm_b = check_backward(
+        f"encoder MSDA backward (q-minor, Q={K})", value, g_e,
+        lambda v, g: msda._launch_qm_bwd(v, shapes, *qm, g),
+        lambda v, g: plain_backward_qm(v, shapes, *qm, g), stamp,
+    )
+    del g_e, g_d, qm
 
     # 4. the whole model's inference forward on the card against the CPU
     # reference (the train step's check follows the serving path, so that
@@ -677,69 +776,34 @@ def main() -> int:
     cfg = CONFIG()
     compare_models(cfg, CHECK_HW, stamp)
 
-    # 5. the main path: Swin-L Inferencer at 768x1152
+    # 5. the main path: Swin-L Inferencer at 768x1152, fp32 then bf16
     rng = np.random.default_rng(SEED)
     images = [rng.integers(0, 256, s, np.uint8) for s in ((480, 640, 3), (1280, 720, 3), (900, 1600, 3))]
-    model = build_codetr(cfg, device=DEVICE, seed=SEED)
-    inf = Inferencer(model, height=HEIGHT, width=WIDTH, batch_size=1, device=DEVICE)
-    inf(images[:1])  # warm-up: library handles, allocator, cached masks
-    torch.cuda.synchronize()
-    held_before_serving = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    msda.launches = 0
-    dets, latencies = [], []
-    for im in images:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        dets += inf([im])
-        torch.cuda.synchronize()
-        latencies.append((time.perf_counter() - t0) * 1e3)
-    main_launches = msda.launches
-    peak_mem = torch.cuda.max_memory_allocated()
-    check_detections(dets, 3, cfg.head.max_per_img)
-    per_forward = launches_per_forward(cfg)  # 6 encoder + 6 decoder layers for Swin-L
-    if main_launches != per_forward * len(images):
-        fail(f"main path launched the kernel {main_launches} times, not {per_forward * len(images)}")
+    swin = serve(cfg, HEIGHT, WIDTH, torch.float32, images, images[0])
+    main_launches = swin["launches"]
     print(f"main path fp32: {len(images)} images, kernel launches {main_launches} "
-          f"({per_forward} per forward), kept detections {[int(d.keep.sum()) for d in dets]}")
+          f"({launches_per_forward(cfg)} per forward), kept detections {swin['kept']}")
+    swin_bf16 = serve(cfg, HEIGHT, WIDTH, torch.bfloat16, images[1:2], images[0])
 
-    # where a forward's time goes, measured piece by piece on one image
-    from codetr_torch.ops.nms import postprocess_detections
-    from codetr_torch.utils.preprocess import preprocess
+    # the on-card MSDA gate (the JAX bench.py --verify), which runs the
+    # q-minor kernel (K3's counterpart) and the packed one
+    msda.launches = msda.launches_qm = msda.launches_bwd = 0
+    gate = {dt: verify_msda_on_card(*VERIFY_HW, dt) for dt in (torch.float32, torch.bfloat16)}
+    gate_launches = (msda.launches_qm, msda.launches, msda.launches_bwd)
+    if gate_launches != (2, 2, 0):
+        fail(f"the MSDA gate launched (q-minor, forward, backward) kernels {gate_launches}, not (2, 2, 0)")
+    for dt, errs in gate.items():
+        print(f"MSDA gate {VERIFY_HW[0]}x{VERIFY_HW[1]} {dt}: q-minor max abs err "
+              f"{errs['max_abs_err']:.3e}, packed {errs['max_abs_err_packed']:.3e} (tol "
+              f"{1e-4 if dt == torch.float32 else 1e-2}), mean |out| {errs['mean_abs_out']:.4f} [{stamp}]")
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = fn()
-        torch.cuda.synchronize()
-        return r, (time.perf_counter() - t0) * 1e3
-
-    with torch.inference_mode():
-        pre, t_pre = timed(lambda: preprocess(images[2], HEIGHT, WIDTH, cfg.preprocess, device=DEVICE))
-        x, mk = pre[0][None], pre[1][None]
-        feats, t_feat = timed(lambda: model.features(x))
-        det, t_det = timed(lambda: model.detect(feats, mk))
-        _, t_post = timed(lambda: postprocess_detections(
-            *det, score_threshold=0.0, iou_threshold=cfg.head.nms_iou_threshold,
-            nms_type=cfg.head.nms_type))
-    del model, inf, feats, det
-    torch.cuda.empty_cache()
-
-    model_bf16 = build_codetr(cfg, dtype=torch.bfloat16, device=DEVICE, seed=SEED)
-    inf_bf16 = Inferencer(model_bf16, height=HEIGHT, width=WIDTH, batch_size=1, device=DEVICE)
-    inf_bf16(images[:1])
-    msda.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    dets_bf16 = inf_bf16(images[1:2])
-    torch.cuda.synchronize()
-    lat_bf16 = (time.perf_counter() - t0) * 1e3
-    bf16_launches = msda.launches
-    check_detections(dets_bf16, 1, cfg.head.max_per_img)
-    if bf16_launches != per_forward:
-        fail(f"bf16 forward launched the kernel {bf16_launches} times, not {per_forward}")
-    del model_bf16, inf_bf16
-    torch.cuda.empty_cache()
+    # the R50 family: the full-width model against the CPU, then serving
+    cfg_r50 = co_dino_r50()
+    compare_models(cfg_r50, CHECK_HW, stamp, label="R50")
+    r50 = {(h, w, dt): serve(cfg_r50, h, w, dt, images, images[0]) for h, w, dt in R50_SERVING}
+    for (h, w, dt), r in r50.items():
+        print(f"R50 {h}x{w} {dt}: {len(images)} images, kernel launches {r['launches']} "
+              f"({launches_per_forward(cfg_r50)} per forward), kept detections {r['kept']}")
 
     # 6. one train step on the card against the CPU, then the training path,
     # without and with SwinConfig.with_cp; at CP_BATCH images a step needs it
@@ -772,11 +836,35 @@ def main() -> int:
         print(f"msda_fwd {name}: kernel {r['ms']:.4f} ms/call, plain {r['plain_ms']:.4f} ms/call, "
               f"bound {r['bound_ms']:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
               f"{flops / 1e9:.2f} GFLOP) [{stamp}]")
+    # the q-minor kernel (K3's counterpart): at the encoder shapes above
+    # and at the gate's 1280x1920 shapes, its own path's call
+    per_call_qm = {}
+    qm = to_qm(loc_e, w_e)
+    gate_in = verify_inputs(*VERIFY_HW, torch.float32)
+    for name, v, shp, xyw, reps in (("encoder", value, shapes, qm, (20, 3)),
+                                    ("encoder_bf16", value.to(torch.bfloat16), shapes, qm, (20, 3)),
+                                    ("gate", gate_in[0], gate_in[1], gate_in[2:], (10, 2))):
+        b_ms, b_by, nbytes, flops = bound_ms(v, shp, *from_qm(*xyw), v.dtype)
+        r = per_call_qm[name] = {
+            "ms": cuda_ms(functools.partial(msda.msda_grid_qm, v, shp, *xyw), reps[0]),
+            "plain_ms": cuda_ms(functools.partial(msda.msda_reference_qm, v, shp, *xyw), reps[1]),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+        }
+        print(f"msda_qm_fwd {name} (K = {v.shape[1]}): kernel {r['ms']:.4f} ms/call, plain "
+              f"{r['plain_ms']:.4f} ms/call, bound {r['bound_ms']:.4f} ms ({b_by}: "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) [{stamp}]")
+    del gate_in
+
     g_e, g_d = upstream_grads(K)
     for name, v_dtype in (("encoder", torch.float32), ("encoder_bf16", torch.bfloat16),
-                          ("decoder", torch.float32), ("decoder_bf16", torch.bfloat16)):
+                          ("decoder", torch.float32), ("decoder_bf16", torch.bfloat16),
+                          ("encoder_qm", torch.float32), ("encoder_qm_bf16", torch.bfloat16)):
         v = value.to(v_dtype)
-        if name.startswith("encoder"):
+        if name.startswith("encoder_qm"):
+            g = g_e.to(v_dtype)
+            kern = functools.partial(msda._launch_qm_bwd, v, shapes, *qm, g)
+            loc, w, reps = loc_e, w_e, (10, 2)
+        elif name.startswith("encoder"):
             g = g_e.to(v_dtype)
             kern = functools.partial(msda._launch_packed_bwd, v, shapes, cpk, P, g)
             loc, w, reps = loc_e, w_e, (10, 2)
@@ -793,14 +881,10 @@ def main() -> int:
         print(f"msda_bwd {name}: kernel {r['ms']:.4f} ms/call, plain {r['plain_ms']:.4f} ms/call, "
               f"bound {r['bound_ms']:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
               f"{flops / 1e9:.2f} GFLOP) [{stamp}]")
-    for i, t in enumerate(latencies):
-        print(f"latency fp32 image {i} {images[i].shape[:2]}: {t:.2f} ms [{stamp}]")
-    print(f"latency fp32 median: {statistics.median(latencies):.2f} ms per image [{stamp}]")
-    print(f"latency bf16 image 1: {lat_bf16:.2f} ms [{stamp}]")
-    print(f"fp32 split, one image: preprocess {t_pre:.2f} ms, backbone+neck {t_feat:.2f} ms, "
-          f"head {t_det:.2f} ms, soft-NMS {t_post:.2f} ms [{stamp}]")
-    print(f"peak memory allocated, fp32 main path: {peak_mem / 2**30:.3f} GiB, of which "
-          f"{held_before_serving / 2**30:.3f} GiB held before the serving path [{stamp}]")
+    print_serving(f"Swin-L {HEIGHT}x{WIDTH} fp32", swin, images, stamp)
+    print_serving(f"Swin-L {HEIGHT}x{WIDTH} bf16", swin_bf16, images[1:2], stamp)
+    for (h, w, dt), r in r50.items():
+        print_serving(f"R50 {h}x{w} {'fp32' if dt == torch.float32 else 'bf16'}", r, images, stamp)
     print(f"train fp32 {HEIGHT}x{WIDTH} batch 1: predictions (train_outputs) "
           f"{fmt_ms(train['predict_ms'])}, loss forward {fmt_ms(train['fwd_ms'])}, "
           f"forward+backward {fmt_ms(train['fwd_bwd_ms'])}, step {fmt_ms(train['step_ms'])} ms; "
@@ -835,6 +919,23 @@ def main() -> int:
         "max_abs_err_bf16": max(enc["max_abs_err_bf16"], dec["max_abs_err_bf16"]),
         "card": stamp,
     }, {
+        "name": "msda_qm_fwd",
+        "route": "cuda",
+        "source": "codetr_torch/csrc/msda_fwd.cu",
+        "replaces": "codetr_tpu/ops/msda_win.py:605",
+        "launches": gate_launches[0],  # the gate's fp32 and bf16 calls
+        "max_abs_err": max(enc_qm["max_abs_err_fp32"], gate[torch.float32]["max_abs_err"]),
+        # one fp32 call of the gate's path, at 1280x1920
+        "ms": per_call_qm["gate"]["ms"],
+        "plain_ms": per_call_qm["gate"]["plain_ms"],
+        "bound_ms": per_call_qm["gate"]["bound_ms"],
+        "bound_by": per_call_qm["gate"]["bound_by"],
+        "library_ms": None,
+        "per_call": per_call_qm,
+        "max_abs_err_bf16": max(enc_qm["max_abs_err_bf16"], gate[torch.bfloat16]["max_abs_err"]),
+        "out_of_envelope_count": "n/a: exact kernel",
+        "card": stamp,
+    }, {
         "name": "msda_bwd",
         "route": "cuda",
         "source": "codetr_torch/csrc/msda_bwd.cu",
@@ -852,6 +953,7 @@ def main() -> int:
         "library_ms": None,
         "per_call": per_call_bwd,
         "max_abs_err_bf16": max(enc_b["max_abs_err_bf16"], dec_b["max_abs_err_bf16"]),
+        "max_abs_err_qm": enc_qm_b["max_abs_err_fp32"],
         "card": stamp,
     }]}
     print(json.dumps(kernels))

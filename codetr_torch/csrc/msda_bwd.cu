@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernel K2, codetr_tpu/ops/msda_win_bwd.py:
 // msda_win_lq_packed_bwd (the windowed read-modify-write backward of the
-// encoder kernel), and serves the decoder's cross-attention too.  It is the
+// encoder kernel), and serves the decoder's cross-attention and the q-minor
+// entry (the gradient of K3's counterpart; the JAX package differentiates
+// K3 through the XLA pair-gather VJP, ops/msda.py:829-835) too.  It is the
 // exact vector-Jacobian product of msda_fwd.cu for every tap: given the
 // upstream gradient g of one (batch, query, head) row, each tap (level l,
 // point p, weight a, pixel (px, py) = (loc_x * W_l - 0.5, loc_y * H_l - 0.5),
@@ -41,7 +43,7 @@
 // neighbouring queries sample the same rows, which a shared-memory
 // accumulation or a segmented reduce would cut.
 //
-// Two C entry points read two coordinate layouts with the same kernel,
+// Three C entry points read three coordinate layouts with the same kernel,
 // like msda_fwd.cu:
 //   msda_packed_bwd: the encoder's packed (bs, K, C) [x(HLP) | y(HLP) |
 //                    w(HLP) | pad] tensor; its gradient has the same layout
@@ -49,8 +51,11 @@
 //   msda_bwd:        sampling_locations (bs, Q, h, L, P, 2) and
 //                    attention_weights (bs, Q, h, L, P), and their
 //                    gradients in the same layouts.
-// Both return cudaGetLastError() after the launch (or a negative code for
-// arguments the kernel does not take); neither synchronises.
+//   msda_qm_bwd:     q-minor x, y and w, each (bs, h, L, P, Q), and their
+//                    gradients in the same layouts (uncoalesced coordinate
+//                    loads and gradient stores, as msda_qm_fwd's).
+// All return cudaGetLastError() after the launch (or a negative code for
+// arguments the kernel does not take); none synchronises.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,10 +77,21 @@ struct Levels {
 struct Stream {
   const float* base;
   float* grad;
-  long long q_stride;  // between consecutive (batch, query) rows
+  long long b_stride;  // between batch entries
+  long long q_stride;  // between queries
   long long h_stride;  // between heads
   long long t_stride;  // between taps (level-major, then point)
 };
+
+// Offset of one (batch, query, head) row in a stream; only the q-minor
+// layout splits bq into batch and query (see msda_fwd.cu's row_offset).
+template <bool kSplitBatch>
+__device__ __forceinline__ long long row_offset(const Stream& s, long long bq,
+                                                long long b, int Q, int head) {
+  const long long r =
+      kSplitBatch ? b * s.b_stride + (bq - b * Q) * s.q_stride : bq * s.q_stride;
+  return r + head * s.h_stride;
+}
 
 __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
@@ -88,7 +104,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T>
+template <typename T, bool kSplitBatch>
 __global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK)
 msda_bwd_kernel(const T* __restrict__ value,     // (bs, K, H, D)
                 const T* __restrict__ grad_out,  // (bs, Q, H, D)
@@ -107,9 +123,9 @@ msda_bwd_kernel(const T* __restrict__ value,     // (bs, K, H, D)
   const long long b = bq / Q;
   const int LP = lv.n * P;
 
-  const long long xoff = bq * xs.q_stride + head * xs.h_stride;
-  const long long yoff = bq * ys.q_stride + head * ys.h_stride;
-  const long long woff = bq * ws.q_stride + head * ws.h_stride;
+  const long long xoff = row_offset<kSplitBatch>(xs, bq, b, Q, head);
+  const long long yoff = row_offset<kSplitBatch>(ys, bq, b, Q, head);
+  const long long woff = row_offset<kSplitBatch>(ws, bq, b, Q, head);
   // row k of this (batch, head) starts at base + k * row_pitch
   const long long vrow0 = (b * K * H + head) * (long long)D;
   const T* vbase = value + vrow0;
@@ -210,9 +226,20 @@ static int make_levels(Levels* lv, int L, const int* level_h, const int* level_w
   return 0;
 }
 
+template <typename T>
+static void launch_typed(bool split_batch, dim3 grid, dim3 block, cudaStream_t s,
+                         const void* value, const void* grad_out, Stream xs,
+                         Stream ys, Stream ws, float* grad_value, const Levels& lv,
+                         int K, int Q, int H, int D, int P, long long n_items) {
+  auto kernel = split_batch ? msda_bwd_kernel<T, true> : msda_bwd_kernel<T, false>;
+  kernel<<<grid, block, 0, s>>>((const T*)value, (const T*)grad_out, xs, ys, ws,
+                                grad_value, lv, K, Q, H, D, P, n_items);
+}
+
 static int launch(int dtype, const void* value, const void* grad_out, Stream xs,
                   Stream ys, Stream ws, float* grad_value, const Levels& lv,
-                  int bs, int K, int Q, int H, int D, int P, void* stream) {
+                  int bs, int K, int Q, int H, int D, int P, bool split_batch,
+                  void* stream) {
   if (D < 1 || D > 32 * MSDA_MAX_SLICES) return -2;
   const long long n_items = (long long)bs * Q * H;
   if (n_items == 0) return 0;
@@ -222,13 +249,11 @@ static int launch(int dtype, const void* value, const void* grad_out, Stream xs,
   const dim3 grid((unsigned)blocks), block(32 * MSDA_WARPS_PER_BLOCK);
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
-    msda_bwd_kernel<float><<<grid, block, 0, s>>>(
-        (const float*)value, (const float*)grad_out, xs, ys, ws, grad_value, lv,
-        K, Q, H, D, P, n_items);
+    launch_typed<float>(split_batch, grid, block, s, value, grad_out, xs, ys, ws,
+                        grad_value, lv, K, Q, H, D, P, n_items);
   } else if (dtype == 1) {
-    msda_bwd_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        (const __nv_bfloat16*)value, (const __nv_bfloat16*)grad_out, xs, ys, ws,
-        grad_value, lv, K, Q, H, D, P, n_items);
+    launch_typed<__nv_bfloat16>(split_batch, grid, block, s, value, grad_out, xs,
+                                ys, ws, grad_value, lv, K, Q, H, D, P, n_items);
   } else {
     return -4;
   }
@@ -249,11 +274,12 @@ extern "C" int msda_packed_bwd(const void* value, const void* cpk,
   const float* c = (const float*)cpk;
   float* gc = (float*)grad_cpk;
   const long long LP = (long long)L * P;
-  Stream xs = {c, gc, C, LP, 1};
-  Stream ys = {c + HLP, gc + HLP, C, LP, 1};
-  Stream ws = {c + 2 * HLP, gc + 2 * HLP, C, LP, 1};
+  const long long row = (long long)K * C;  // one batch entry
+  Stream xs = {c, gc, row, C, LP, 1};
+  Stream ys = {c + HLP, gc + HLP, row, C, LP, 1};
+  Stream ws = {c + 2 * HLP, gc + 2 * HLP, row, C, LP, 1};
   return launch(dtype, value, grad_out, xs, ys, ws, (float*)grad_value, lv, bs,
-                K, K, H, D, P, stream);
+                K, K, H, D, P, false, stream);
 }
 
 extern "C" int msda_bwd(const void* value, const void* loc, const void* attn,
@@ -268,9 +294,27 @@ extern "C" int msda_bwd(const void* value, const void* loc, const void* attn,
   const float* w = (const float*)attn;
   float* gxy = (float*)grad_loc;
   float* gw = (float*)grad_attn;
-  Stream xs = {xy, gxy, 2 * H * LP, 2 * LP, 2};
-  Stream ys = {xy + 1, gxy + 1, 2 * H * LP, 2 * LP, 2};
-  Stream ws = {w, gw, H * LP, LP, 1};
+  const long long HLP = H * LP;
+  Stream xs = {xy, gxy, 2 * HLP * Q, 2 * HLP, 2 * LP, 2};
+  Stream ys = {xy + 1, gxy + 1, 2 * HLP * Q, 2 * HLP, 2 * LP, 2};
+  Stream ws = {w, gw, HLP * Q, HLP, LP, 1};
   return launch(dtype, value, grad_out, xs, ys, ws, (float*)grad_value, lv, bs,
-                K, Q, H, D, P, stream);
+                K, Q, H, D, P, false, stream);
+}
+
+// x, y, w and their gradients: q-minor (bs, H, L, P, Q) fp32 each.
+extern "C" int msda_qm_bwd(const void* value, const void* x, const void* y,
+                           const void* w, const void* grad_out,
+                           void* grad_value, void* grad_x, void* grad_y,
+                           void* grad_w, int dtype, int bs, int K, int Q,
+                           int H, int D, int L, int P, const int* level_h,
+                           const int* level_w, void* stream) {
+  Levels lv;
+  if (make_levels(&lv, L, level_h, level_w)) return -1;
+  const long long LPQ = (long long)L * P * Q;
+  Stream xs = {(const float*)x, (float*)grad_x, H * LPQ, 1, LPQ, Q};
+  Stream ys = {(const float*)y, (float*)grad_y, H * LPQ, 1, LPQ, Q};
+  Stream ws = {(const float*)w, (float*)grad_w, H * LPQ, 1, LPQ, Q};
+  return launch(dtype, value, grad_out, xs, ys, ws, (float*)grad_value, lv, bs,
+                K, Q, H, D, P, true, stream);
 }

@@ -1,14 +1,17 @@
 // Multi-scale deformable attention (MSDA) forward for Hopper (sm_90a).
 //
-// Replaces the TPU kernel K1, codetr_tpu/ops/msda_win.py:msda_win_lq_packed
-// (the windowed splat-matmul encoder kernel), and serves the decoder's
-// cross-attention too.  It computes the same function, exact MSDA: for each
+// Replaces two TPU kernels, codetr_tpu/ops/msda_win.py:msda_win_lq_packed
+// (K1, the windowed splat-matmul encoder kernel on packed coordinates) and
+// msda_win_lq (K3, the same kernel on q-minor coordinates, driven by
+// msda_win_qm), and serves the decoder's cross-attention too.  It computes
+// the same function, exact MSDA: for each
 // (batch, query, head) the sum over levels x points of
 //   attention_weight * bilinear_sample(value[level, head], loc)
 // with grid_sample's bilinear / zeros-padding / align_corners=False
 // semantics (a location maps to pixel loc * size - 0.5; corners outside the
-// level contribute zero).  Unlike the TPU kernel it is exact for every tap,
-// so it has no window envelope, no out-of-envelope count and no correction.
+// level contribute zero).  Unlike the TPU kernels it is exact for every tap,
+// so it has no window envelope, no out-of-envelope count (K3's with_count
+// would always be 0) and no correction.
 //
 // Design: a direct gather.  One warp per (batch, query, head); lanes run
 // over the head's d channels (d = 32 in the flagship: one lane each; any
@@ -26,15 +29,23 @@
 // queries of a level sample neighbouring rows), so device memory sees
 // close to one read of each row.
 //
-// Two C entry points read two coordinate layouts with the same kernel:
+// Three C entry points read three coordinate layouts with the same kernel,
+// each layout a set of element strides (Stream):
 //   msda_packed_fwd: the encoder's packed (bs, K, C) [x(HLP) | y(HLP) |
 //                    w(HLP) | pad] tensor, HLP = heads*levels*points in
 //                    (h, L, P) order (K1's contract).
 //   msda_fwd:        the reference layout, sampling_locations
 //                    (bs, Q, h, L, P, 2) and attention_weights
 //                    (bs, Q, h, L, P).
-// Both return cudaGetLastError() after the launch (or a negative code for
-// arguments the kernel does not take); neither synchronises.
+//   msda_qm_fwd:     q-minor x, y and w, each (bs, h, L, P, Q) (K3's
+//                    contract).  A warp's one-tap-per-lane coordinate loads
+//                    are Q elements apart here, so each touches its own
+//                    cache line where the packed layout's touch one; the
+//                    neighbouring queries' warps reuse those lines from L2.
+//                    Staging a tile of queries' coordinates through shared
+//                    memory would coalesce them, and is not done yet.
+// All return cudaGetLastError() after the launch (or a negative code for
+// arguments the kernel does not take); none synchronises.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,10 +65,23 @@ struct Levels {
 // Element strides of one coordinate stream (x, y or weights).
 struct Stream {
   const float* base;
-  long long q_stride;  // between consecutive (batch, query) rows
+  long long b_stride;  // between batch entries
+  long long q_stride;  // between queries
   long long h_stride;  // between heads
   long long t_stride;  // between taps (level-major, then point)
 };
+
+// Offset of one (batch, query, head) row in a stream.  Only a layout whose
+// batch stride is not Q * q_stride (q-minor) splits bq = batch * Q + query:
+// the split puts a second 64-bit division in front of the coordinate loads,
+// which cost the packed encoder call ~3% on the card (PERF.md).
+template <bool kSplitBatch>
+__device__ __forceinline__ long long row_offset(const Stream& s, long long bq,
+                                                long long b, int Q, int head) {
+  const long long r =
+      kSplitBatch ? b * s.b_stride + (bq - b * Q) * s.q_stride : bq * s.q_stride;
+  return r + head * s.h_stride;
+}
 
 __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
@@ -68,7 +92,7 @@ __device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-template <typename T>
+template <typename T, bool kSplitBatch>
 __global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK)
 msda_fwd_kernel(const T* __restrict__ value,  // (bs, K, H, D)
                 Stream xs, Stream ys, Stream ws,
@@ -86,9 +110,9 @@ msda_fwd_kernel(const T* __restrict__ value,  // (bs, K, H, D)
   const long long b = bq / Q;
   const int LP = lv.n * P;
 
-  const float* xrow = xs.base + bq * xs.q_stride + head * xs.h_stride;
-  const float* yrow = ys.base + bq * ys.q_stride + head * ys.h_stride;
-  const float* wrow = ws.base + bq * ws.q_stride + head * ws.h_stride;
+  const float* xrow = xs.base + row_offset<kSplitBatch>(xs, bq, b, Q, head);
+  const float* yrow = ys.base + row_offset<kSplitBatch>(ys, bq, b, Q, head);
+  const float* wrow = ws.base + row_offset<kSplitBatch>(ws, bq, b, Q, head);
   // row k of this (batch, head) starts at vbase + k * row_pitch
   const T* vbase = value + (b * K * H + head) * (long long)D;
   const long long row_pitch = (long long)H * D;
@@ -172,9 +196,19 @@ static int make_levels(Levels* lv, int L, const int* level_h, const int* level_w
   return 0;
 }
 
+template <typename T>
+static void launch_typed(bool split_batch, dim3 grid, dim3 block, cudaStream_t s,
+                         const void* value, Stream xs, Stream ys, Stream ws,
+                         void* out, const Levels& lv, int K, int Q, int H, int D,
+                         int P, long long n_items) {
+  auto kernel = split_batch ? msda_fwd_kernel<T, true> : msda_fwd_kernel<T, false>;
+  kernel<<<grid, block, 0, s>>>((const T*)value, xs, ys, ws, (T*)out, lv, K, Q,
+                                H, D, P, n_items);
+}
+
 static int launch(int dtype, const void* value, Stream xs, Stream ys, Stream ws,
                   void* out, const Levels& lv, int bs, int K, int Q, int H, int D,
-                  int P, void* stream) {
+                  int P, bool split_batch, void* stream) {
   if (D < 1 || D > 32 * MSDA_MAX_SLICES) return -2;
   const long long n_items = (long long)bs * Q * H;
   if (n_items == 0) return 0;
@@ -184,12 +218,11 @@ static int launch(int dtype, const void* value, Stream xs, Stream ys, Stream ws,
   const dim3 grid((unsigned)blocks), block(32 * MSDA_WARPS_PER_BLOCK);
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
-    msda_fwd_kernel<float><<<grid, block, 0, s>>>(
-        (const float*)value, xs, ys, ws, (float*)out, lv, K, Q, H, D, P, n_items);
+    launch_typed<float>(split_batch, grid, block, s, value, xs, ys, ws, out, lv,
+                        K, Q, H, D, P, n_items);
   } else if (dtype == 1) {
-    msda_fwd_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        (const __nv_bfloat16*)value, xs, ys, ws, (__nv_bfloat16*)out, lv, K, Q,
-        H, D, P, n_items);
+    launch_typed<__nv_bfloat16>(split_batch, grid, block, s, value, xs, ys, ws,
+                                out, lv, K, Q, H, D, P, n_items);
   } else {
     return -4;
   }
@@ -207,10 +240,11 @@ extern "C" int msda_packed_fwd(const void* value, const void* cpk, void* out,
   if (C < 3 * HLP) return -5;
   const float* c = (const float*)cpk;
   const long long LP = (long long)L * P;
-  Stream xs = {c, C, LP, 1};
-  Stream ys = {c + HLP, C, LP, 1};
-  Stream ws = {c + 2 * HLP, C, LP, 1};
-  return launch(dtype, value, xs, ys, ws, out, lv, bs, K, K, H, D, P, stream);
+  const long long row = (long long)K * C;  // one batch entry
+  Stream xs = {c, row, C, LP, 1};
+  Stream ys = {c + HLP, row, C, LP, 1};
+  Stream ws = {c + 2 * HLP, row, C, LP, 1};
+  return launch(dtype, value, xs, ys, ws, out, lv, bs, K, K, H, D, P, false, stream);
 }
 
 extern "C" int msda_fwd(const void* value, const void* loc, const void* attn,
@@ -222,8 +256,24 @@ extern "C" int msda_fwd(const void* value, const void* loc, const void* attn,
   const long long LP = (long long)L * P;
   const float* xy = (const float*)loc;
   const float* w = (const float*)attn;
-  Stream xs = {xy, 2 * H * LP, 2 * LP, 2};
-  Stream ys = {xy + 1, 2 * H * LP, 2 * LP, 2};
-  Stream ws = {w, H * LP, LP, 1};
-  return launch(dtype, value, xs, ys, ws, out, lv, bs, K, Q, H, D, P, stream);
+  const long long HLP = H * LP;
+  Stream xs = {xy, 2 * HLP * Q, 2 * HLP, 2 * LP, 2};
+  Stream ys = {xy + 1, 2 * HLP * Q, 2 * HLP, 2 * LP, 2};
+  Stream ws = {w, HLP * Q, HLP, LP, 1};
+  return launch(dtype, value, xs, ys, ws, out, lv, bs, K, Q, H, D, P, false, stream);
+}
+
+// x, y, w: q-minor (bs, H, L, P, Q) fp32 each.
+extern "C" int msda_qm_fwd(const void* value, const void* x, const void* y,
+                           const void* w, void* out, int dtype, int bs, int K,
+                           int Q, int H, int D, int L, int P,
+                           const int* level_h, const int* level_w,
+                           void* stream) {
+  Levels lv;
+  if (make_levels(&lv, L, level_h, level_w)) return -1;
+  const long long LPQ = (long long)L * P * Q;
+  Stream xs = {(const float*)x, H * LPQ, 1, LPQ, Q};
+  Stream ys = {(const float*)y, H * LPQ, 1, LPQ, Q};
+  Stream ws = {(const float*)w, H * LPQ, 1, LPQ, Q};
+  return launch(dtype, value, xs, ys, ws, out, lv, bs, K, Q, H, D, P, true, stream);
 }

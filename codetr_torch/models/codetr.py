@@ -1,4 +1,5 @@
-"""Top-level CoDETR model: Swin backbone -> ChannelMapper neck -> CoDINO head.
+"""Top-level CoDETR model: Swin or ResNet backbone -> ChannelMapper neck ->
+CoDINO head.
 
 The public image layout stays NHWC: ``batch_inputs`` is (bs, H, W, 3)
 normalised images and ``img_masks`` is (bs, H, W) with 1.0 in the padded
@@ -19,18 +20,20 @@ from codetr_torch.config import CoDETRConfig
 from codetr_torch.models.channel_mapper import ChannelMapper
 from codetr_torch.models.co_dino_head import CoDINOHead
 from codetr_torch.models.msda_module import MultiScaleDeformableAttention, grid_offset_bias
+from codetr_torch.models.resnet import FrozenBatchNorm2d, ResNet
 from codetr_torch.models.swin import SwinTransformer, WindowMSA
 
 
 class CoDETR(nn.Module):
     def __init__(self, cfg: CoDETRConfig):
         super().__init__()
-        if cfg.backbone_type != "swin":
-            raise NotImplementedError(
-                f"backbone {cfg.backbone_type!r} is not ported yet (only Swin)"
-            )
+        if cfg.backbone_type == "swin":
+            self.backbone = SwinTransformer(cfg.swin)
+        elif cfg.backbone_type == "resnet":
+            self.backbone = ResNet(cfg.resnet)
+        else:
+            raise ValueError(f"unknown backbone {cfg.backbone_type!r}")
         self.cfg = cfg
-        self.backbone = SwinTransformer(cfg.swin)
         self.neck = ChannelMapper(cfg.neck)
         self.query_head = CoDINOHead(cfg.head)
 
@@ -70,8 +73,9 @@ def check_device(device) -> torch.device:
 @torch.no_grad()
 def init_weights(model: CoDETR, seed: int = 0) -> CoDETR:
     """Seeded random init, drawn on the CPU from one ``torch.Generator``:
-    Linear/Conv weights ~ N(0, 1/fan_in), biases ~ U(-0.05, 0.05), norms at
-    identity, bias tables ~ N(0, 0.02), embeddings ~ N(0, 1).  MSDA gets
+    Linear/Conv weights ~ N(0, 1/fan_in), biases ~ U(-0.05, 0.05), norms
+    (frozen BatchNorm included) at identity, bias tables ~ N(0, 0.02),
+    embeddings ~ N(0, 1).  MSDA gets
     mmdet's grid offset bias and small random offset/weight projections,
     so sampling locations vary per query."""
     g = torch.Generator().manual_seed(seed)
@@ -84,6 +88,9 @@ def init_weights(model: CoDETR, seed: int = 0) -> CoDETR:
         elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
+        elif isinstance(m, FrozenBatchNorm2d):
+            for t, v in ((m.weight, 1.0), (m.bias, 0.0), (m.running_mean, 0.0), (m.running_var, 1.0)):
+                t.fill_(v)
         elif isinstance(m, nn.Embedding):
             m.weight.copy_(torch.randn(m.weight.shape, generator=g))
     for m in model.modules():

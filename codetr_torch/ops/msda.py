@@ -6,25 +6,30 @@ padding_mode='zeros', align_corners=False``: a normalised location ``loc``
 maps to pixel ``loc * size - 0.5``; of the four bilinear corners, those
 outside the level contribute zero.  Results are exact for any offset.
 
-Two public entry points keep the JAX package's signatures and layouts:
+Three public entry points keep the JAX package's signatures and layouts:
 
 - ``msda_grid_packed(value, spatial_shapes, cpk, num_points)``: the
   encoder's packed coordinates ``cpk`` (bs, K, C) = [x(HLP) | y(HLP) |
   w(HLP) | pad], HLP = heads*levels*points in (h, L, P) order.
+- ``msda_grid_qm(value, spatial_shapes, x, y, w)``: grid queries on
+  q-minor coordinates, x, y and w each (bs, h, L, P, K).
 - ``multi_scale_deformable_attention(value, spatial_shapes,
-  sampling_locations, attention_weights)``: the reference layout, locations
-  (bs, Q, h, L, P, 2) and weights (bs, Q, h, L, P) (the decoder).
+  sampling_locations, attention_weights, grid_queries=False)``: the
+  reference layout, locations (bs, Q, h, L, P, 2) and weights
+  (bs, Q, h, L, P) (the decoder); with ``grid_queries=True`` they are moved
+  to q-minor for ``msda_grid_qm``.
 
 ``value`` is (bs, K, h, d) in float32 or bfloat16, coordinates and weights
 are float32, and the result is (bs, Q, h*d) in the value's dtype, with fp32
-accumulation.  Both are differentiable in the value, the coordinates and the
+accumulation.  All are differentiable in the value, the coordinates and the
 weights.  For CPU tensors they run the plain version (``msda_plain``, whose
 gradient is autograd's); for CUDA tensors they launch the hand-written
 forward kernel (``csrc/msda_fwd.cu``) inside a ``torch.autograd.Function``
 whose backward launches the backward kernel (``csrc/msda_bwd.cu``), or
 raise.  ``msda_backward_plain`` is the backward's plain version.
-``launches`` and ``launches_bwd`` count kernel launches (callers reset them
-to 0 and read them).
+``launches`` counts the packed and reference-layout forward launches,
+``launches_qm`` the q-minor ones and ``launches_bwd`` every backward launch
+(callers reset them to 0 and read them).
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from codetr_torch.ops import _build
 Shapes = Sequence[Tuple[int, int]]
 
 launches = 0
+launches_qm = 0
 launches_bwd = 0
 
 _MAX_LEVELS = 8
@@ -122,10 +128,29 @@ def _unpack(cpk: torch.Tensor, h: int, L: int, P: int):
     return tuple(cpk[..., i * HLP:(i + 1) * HLP].reshape(bs, K, h, L, P) for i in range(3))
 
 
+def unpack_coords_qmajor(cpk: torch.Tensor, num_heads: int, num_levels: int, num_points: int):
+    """(bs, K, C) packed q-major coordinates -> q-minor (x, y, w), each a
+    (bs, h, L, P, K) view."""
+    return tuple(a.permute(0, 2, 3, 4, 1) for a in _unpack(cpk, num_heads, num_levels, num_points))
+
+
+def pack_coords_qmajor(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """q-minor (bs, h, L, P, K) coordinates -> packed q-major (bs, K, 3*HLP)
+    fp32 (no pad columns)."""
+    bs, K = x.shape[0], x.shape[-1]
+    return torch.cat([a.reshape(bs, -1, K) for a in (x, y, w)], 1).transpose(1, 2).float().contiguous()
+
+
 def msda_grid_packed_plain(value, spatial_shapes, cpk, num_points):
     """Plain PyTorch version of ``msda_grid_packed`` on any device."""
     h = value.shape[2]
     return msda_plain(value, spatial_shapes, *_unpack(cpk, h, len(spatial_shapes), num_points))
+
+
+def msda_reference_qm(value, spatial_shapes, x, y, w):
+    """Plain PyTorch version of ``msda_grid_qm`` on any device: x, y and w
+    (bs, h, L, P, Q) fp32 -> (bs, Q, h*d)."""
+    return msda_plain(value, spatial_shapes, *(a.permute(0, 4, 1, 2, 3) for a in (x, y, w)))
 
 
 def multi_scale_deformable_attention_plain(
@@ -163,6 +188,8 @@ def _fwd_lib() -> ctypes.CDLL:
     lib.msda_packed_fwd.restype = i
     lib.msda_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ip, ip, p]
     lib.msda_fwd.restype = i
+    lib.msda_qm_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, ip, ip, p]
+    lib.msda_qm_fwd.restype = i
     return lib
 
 
@@ -176,6 +203,8 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.msda_packed_bwd.restype = i
     lib.msda_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, ip, ip, p]
     lib.msda_bwd.restype = i
+    lib.msda_qm_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, ip, ip, p]
+    lib.msda_qm_bwd.restype = i
     return lib
 
 
@@ -296,6 +325,49 @@ def _launch_reference_bwd(value, spatial_shapes, loc, attn, grad_out):
     return grad_value.to(value.dtype), grad_loc, grad_attn
 
 
+def _launch_qm(value, spatial_shapes, x, y, w):
+    global launches_qm
+    _kernel_checks(value, spatial_shapes, x, y, w)
+    bs, K, h, d = value.shape
+    L, P, Q = x.shape[2], x.shape[3], x.shape[4]
+    lib = _fwd_lib()
+    out = torch.empty(bs, Q, h * d, dtype=value.dtype, device=value.device)
+    hs, ws = _level_arrays(spatial_shapes)
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.msda_qm_fwd(
+            value.data_ptr(), x.data_ptr(), y.data_ptr(), w.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[value.dtype], bs, K, Q, h, d, L, P, hs, ws, stream,
+        )
+    _raise_on(err, "msda_qm_fwd")
+    launches_qm += 1
+    return out
+
+
+def _launch_qm_bwd(value, spatial_shapes, x, y, w, grad_out):
+    """-> (grad_value in the value's dtype, grad_x, grad_y, grad_w), fp32
+    coordinate gradients in the q-minor layout."""
+    global launches_bwd
+    bs, K, h, d = value.shape
+    L, P, Q = x.shape[2], x.shape[3], x.shape[4]
+    g = _grad_rows(value, grad_out, Q)
+    _kernel_checks(value, spatial_shapes, x, y, w, g)
+    lib = _bwd_lib()
+    grad_value = torch.zeros(bs, K, h, d, dtype=torch.float32, device=value.device)
+    grads = [torch.empty_like(a) for a in (x, y, w)]
+    hs, ws = _level_arrays(spatial_shapes)
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.msda_qm_bwd(
+            value.data_ptr(), x.data_ptr(), y.data_ptr(), w.data_ptr(), g.data_ptr(),
+            grad_value.data_ptr(), *(a.data_ptr() for a in grads),
+            _DTYPE_CODE[value.dtype], bs, K, Q, h, d, L, P, hs, ws, stream,
+        )
+    _raise_on(err, "msda_qm_bwd")
+    launches_bwd += 1
+    return (grad_value.to(value.dtype), *grads)
+
+
 class _PackedMSDA(torch.autograd.Function):
     """The packed-layout kernel with the backward kernel as its gradient."""
 
@@ -330,6 +402,23 @@ class _ReferenceMSDA(torch.autograd.Function):
         return (*_launch_reference_bwd(value, ctx.spatial_shapes, loc, attn, grad_out), None)
 
 
+class _QmMSDA(torch.autograd.Function):
+    """The q-minor kernel (K3's counterpart) with the backward kernel on
+    q-minor strides as its gradient."""
+
+    @staticmethod
+    def forward(ctx, value, x, y, w, spatial_shapes):
+        ctx.save_for_backward(value, x, y, w)
+        ctx.spatial_shapes = spatial_shapes
+        return _launch_qm(value, spatial_shapes, x, y, w)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        value, x, y, w = ctx.saved_tensors
+        return (*_launch_qm_bwd(value, ctx.spatial_shapes, x, y, w, grad_out), None)
+
+
 def _route(t: torch.Tensor) -> str:
     if t.device.type in ("cpu", "cuda"):
         return t.device.type
@@ -353,13 +442,48 @@ def msda_grid_packed(
     return _PackedMSDA.apply(value, cpk, spatial_shapes, num_points)
 
 
+def msda_grid_qm(
+    value: torch.Tensor,  # (bs, K, h, d)
+    spatial_shapes: Shapes,
+    x: torch.Tensor,  # (bs, h, L, P, K) fp32 normalised x
+    y: torch.Tensor,  # (bs, h, L, P, K)
+    w: torch.Tensor,  # (bs, h, L, P, K) attention weights
+    *,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Grid-query MSDA on q-minor coordinates -> (bs, K, h*d), exact for any
+    offset.  ``impl="auto"`` runs the plain version on the CPU and the
+    kernel on the card; ``"reference"`` the plain version on any device.
+    The JAX package's window envelope (``radius``, ``envelope``,
+    ``correction_budget``) does not exist for an exact kernel."""
+    if impl in ("grid", "grid_pallas"):
+        item = 9 if impl == "grid" else 7
+        raise NotImplementedError(f"impl={impl!r} is not ported yet (ROADMAP item {item})")
+    if impl not in ("auto", "reference"):
+        raise ValueError(f"unknown grid impl {impl!r}")
+    _check(value, spatial_shapes, x, y, w)
+    bs, K, h, _ = value.shape
+    want = (bs, h, len(spatial_shapes))
+    if x.dim() != 5 or x.shape[:3] != want or x.shape[4] != K or not x.shape == y.shape == w.shape:
+        raise ValueError(
+            f"x, y, w must be ({bs}, {h}, {len(spatial_shapes)}, P, {K}), got "
+            f"{tuple(x.shape)}, {tuple(y.shape)}, {tuple(w.shape)}"
+        )
+    if impl == "reference" or _route(value) == "cpu":
+        return msda_reference_qm(value, spatial_shapes, x, y, w)
+    return _QmMSDA.apply(value, x, y, w, spatial_shapes)
+
+
 def multi_scale_deformable_attention(
     value: torch.Tensor,  # (bs, K, h, d)
     spatial_shapes: Shapes,
     sampling_locations: torch.Tensor,  # (bs, Q, h, L, P, 2) fp32
     attention_weights: torch.Tensor,  # (bs, Q, h, L, P) fp32
+    grid_queries: bool = False,
 ) -> torch.Tensor:
-    """Reference-layout MSDA -> (bs, Q, h*d)."""
+    """Reference-layout MSDA -> (bs, Q, h*d).  With ``grid_queries`` (Q = K,
+    the level-concatenated pixel grid) the coordinates move to q-minor for
+    ``msda_grid_qm``."""
     _check(value, spatial_shapes, sampling_locations, attention_weights)
     bs, _, h, _ = value.shape
     L = len(spatial_shapes)
@@ -372,6 +496,10 @@ def multi_scale_deformable_attention(
             f"sampling_locations {tuple(loc.shape)} / attention_weights "
             f"{tuple(attn.shape)} do not match value {tuple(value.shape)} and {L} levels"
         )
+    if grid_queries:
+        qm = loc.permute(0, 2, 3, 4, 5, 1)  # (bs, h, L, P, 2, Q)
+        return msda_grid_qm(value, spatial_shapes, qm[..., 0, :].contiguous(),
+                            qm[..., 1, :].contiguous(), attn.permute(0, 2, 3, 4, 1).contiguous())
     if _route(value) == "cpu":
         return multi_scale_deformable_attention_plain(value, spatial_shapes, loc, attn)
     return _ReferenceMSDA.apply(value, loc, attn, spatial_shapes)

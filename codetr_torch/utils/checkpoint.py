@@ -6,7 +6,9 @@ and returns ``{mmdet key: numpy array}`` for ``CoDETR.load_state_dict``.
 It is the inverse of the JAX package's ``convert_state_dict``:
 
 - Dense kernels (in, out) -> Linear weights (out, in); conv HWIO -> OIHW;
-  norm ``scale`` -> ``weight``;
+  norm ``scale`` -> ``weight``; the ResNet's frozen BatchNorm ``scale``,
+  ``bias``, ``mean``, ``var`` -> ``weight``, ``bias``, ``running_mean``,
+  ``running_var``, and its ``layer{s}_{b}`` blocks -> ``layer{s}.{b}``;
 - leaves stacked on a leading axis (the scanned Swin block pairs, encoder
   and decoder layers, and the decoder's cls/reg branch banks) are unstacked
   into per-index keys; branch 6 (the encoder stage) is separate already;
@@ -123,6 +125,27 @@ def _swin(out: _Out, p, cfg: CoDETRConfig):
         out.norm(f"backbone.norm{i}", bb[f"norm{i}"])
 
 
+def _resnet(out: _Out, p, cfg: CoDETRConfig):
+    bb = p["backbone"]
+
+    def bn(key, q):
+        for src, dst in (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"),
+                         ("var", "running_var")):
+            out.sd[f"{key}.{dst}"] = _np(q[src])
+
+    out.sd["backbone.conv1.weight"] = _conv(bb["conv1"]["kernel"])
+    bn("backbone.bn1", bb["bn1"])
+    for stage, num_blocks in enumerate(cfg.resnet.stage_blocks):
+        for b in range(num_blocks):
+            blk, key = bb[f"layer{stage + 1}_{b}"], f"backbone.layer{stage + 1}.{b}"
+            for j in (1, 2, 3):
+                out.sd[f"{key}.conv{j}.weight"] = _conv(blk[f"conv{j}"]["kernel"])
+                bn(f"{key}.bn{j}", blk[f"bn{j}"])
+            if b == 0:
+                out.sd[f"{key}.downsample.0.weight"] = _conv(blk["downsample_conv"]["kernel"])
+                bn(f"{key}.downsample.1", blk["downsample_bn"])
+
+
 def _neck(out: _Out, p, cfg: CoDETRConfig):
     neck = p["neck"]
     blocks = [(f"convs_{i}", f"convs.{i}") for i in range(len(cfg.neck.in_channels))]
@@ -187,10 +210,11 @@ def _head(out: _Out, p, cfg: CoDETRConfig):
 def state_dict_from_jax(params, cfg: CoDETRConfig) -> Dict[str, np.ndarray]:
     """JAX-package params tree -> {mmdet key: numpy array}."""
     p = params["params"] if "params" in params else params
-    if cfg.backbone_type != "swin":
-        raise NotImplementedError(f"backbone {cfg.backbone_type!r} is not ported yet")
+    backbones = {"swin": _swin, "resnet": _resnet}
+    if cfg.backbone_type not in backbones:
+        raise ValueError(f"unknown backbone {cfg.backbone_type!r}")
     out = _Out()
-    _swin(out, p, cfg)
+    backbones[cfg.backbone_type](out, p, cfg)
     _neck(out, p, cfg)
     _head(out, p, cfg)
     return out.sd

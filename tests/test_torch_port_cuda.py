@@ -1,5 +1,6 @@
-"""The MSDA CUDA kernels (forward and backward) against their plain PyTorch
-versions, on the card.
+"""The MSDA CUDA kernels (forward and backward, each through its packed,
+reference-layout and q-minor entries) against their plain PyTorch versions,
+and the tiny Swin and narrow R50 models against the CPU, on the card.
 
 The kernels have no CPU mode, so these tests are marked ``gpu`` and skip
 where there is no card.  This file imports neither JAX nor the JAX package
@@ -216,6 +217,94 @@ def test_tiny_model_on_card_matches_cpu(cuda_device):
         c_boxes, c_scores, c_labels = cpu(img, mask)
         g_boxes, g_scores, g_labels = gpu(img.to(cuda_device), mask.to(cuda_device))
     assert port_msda.launches - before == 4  # 2 encoder + 2 decoder layers
+    torch.testing.assert_close(g_scores.cpu(), c_scores, rtol=0, atol=2e-4)
+    torch.testing.assert_close(g_boxes.cpu(), c_boxes, rtol=0, atol=0.1)
+    assert torch.equal(g_labels.cpu(), c_labels)
+
+
+def batch_of_two(seed, shapes):
+    """``make_inputs`` at the flagship's head width, two draws stacked on
+    the batch axis (so the kernels' batch strides are exercised)."""
+    draws = [make_inputs(np.random.default_rng(seed + i), shapes, h=8, d=32, P=4) for i in range(2)]
+    return tuple(np.concatenate(a, 0) for a in zip(*draws))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_qm_kernel_and_batch_strides_match_plain(cuda_device, dtype):
+    """Batch 2 through all three forward entries (packed, reference layout,
+    q-minor) and the q-minor backward, against the plain versions on the
+    card: fp32 to 1e-5 of scale, bf16 within its rounding; the q-minor
+    forward counts in ``launches_qm`` and not in ``launches``."""
+    for i, shapes in enumerate(SHAPES):
+        value, loc, w = batch_of_two(40 + 2 * i, shapes)
+        v = torch.from_numpy(value).to(cuda_device, dtype)
+        loc_t, w_t = torch.from_numpy(loc).to(cuda_device), torch.from_numpy(w).to(cuda_device)
+        cpk = torch.from_numpy(pack(loc, w)).to(cuda_device)
+        qm = [a.permute(0, 2, 3, 4, 1).contiguous() for a in (loc_t[..., 0], loc_t[..., 1], w_t)]
+        before, before_qm = port_msda.launches, port_msda.launches_qm
+        outs = (port_msda.msda_grid_packed(v, shapes, cpk, 4),
+                port_msda.multi_scale_deformable_attention(v, shapes, loc_t, w_t),
+                port_msda.msda_grid_qm(v, shapes, *qm),
+                port_msda.multi_scale_deformable_attention(v, shapes, loc_t, w_t, grid_queries=True))
+        torch.cuda.synchronize()
+        assert (port_msda.launches - before, port_msda.launches_qm - before_qm) == (2, 2)
+        want = port_msda.multi_scale_deformable_attention_plain(v.float(), shapes, loc_t, w_t)
+        for got in outs:
+            assert got.dtype == dtype
+            if dtype == torch.float32:
+                assert_close(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5)
+            else:
+                assert_within_bf16_rounding(got, want)
+
+        g = torch.from_numpy(np.random.default_rng(i).standard_normal(want.shape).astype(np.float32))
+        g = g.to(cuda_device, dtype)
+        plain = port_msda.msda_backward_plain(v.float(), shapes, loc_t[..., 0], loc_t[..., 1], w_t, g.float())
+        plain_qm = (plain[0], *(a.permute(0, 2, 3, 4, 1) for a in plain[1:]))
+        leaves = [v.clone().requires_grad_(), *(a.clone().requires_grad_() for a in qm)]
+        before_bwd = port_msda.launches_bwd
+        port_msda.msda_grid_qm(leaves[0], shapes, *leaves[1:]).backward(g)
+        torch.cuda.synchronize()
+        assert port_msda.launches_bwd == before_bwd + 1
+        assert_grads_match_plain([t.grad for t in leaves], plain_qm, dtype == torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_cuda_qm_kernel_rejects_what_it_cannot_take(cuda_device):
+    """A CUDA tensor the kernel cannot take raises; nothing falls back."""
+    shapes = SHAPES[0]
+    value, loc, w = batch_of_two(50, shapes)
+    v = torch.from_numpy(value).to(cuda_device)
+    x = torch.from_numpy(loc[..., 0]).to(cuda_device).permute(0, 2, 3, 4, 1)  # not contiguous
+    y, ww = (torch.from_numpy(a).to(cuda_device).permute(0, 2, 3, 4, 1).contiguous() for a in (loc[..., 1], w))
+    with pytest.raises(ValueError, match="contiguous"):
+        port_msda.msda_grid_qm(v, shapes, x, y, ww)
+
+
+@pytest.mark.gpu
+def test_narrow_r50_on_card_matches_cpu(cuda_device):
+    """A full-depth R50 of widths 32..256 under the tiny head on the card
+    against the same weights on the CPU (scores 2e-4, boxes 0.1 px at
+    128x128); 4 forward launches (2 encoder + 2 decoder layers)."""
+    from dataclasses import replace
+
+    from codetr_torch import build_codetr, tiny_test_config
+    from codetr_torch.config import NeckConfig, ResNetConfig
+
+    cfg = replace(tiny_test_config(), backbone_type="resnet", swin=None,
+                  resnet=ResNetConfig(stem_channels=8, base_channels=8),
+                  neck=NeckConfig(in_channels=(32, 64, 128, 256), out_channels=32, num_outs=5))
+    cpu = build_codetr(cfg, device="cpu", seed=4)
+    gpu = build_codetr(cfg, device=cuda_device, seed=4)
+    rng = np.random.default_rng(4)
+    img = torch.from_numpy(rng.standard_normal((1, 128, 128, 3)).astype(np.float32))
+    mask = torch.zeros(1, 128, 128)
+    mask[:, 100:] = 1.0
+    before = port_msda.launches
+    with torch.no_grad():
+        c_boxes, c_scores, c_labels = cpu(img, mask)
+        g_boxes, g_scores, g_labels = gpu(img.to(cuda_device), mask.to(cuda_device))
+    assert port_msda.launches - before == 4
     torch.testing.assert_close(g_scores.cpu(), c_scores, rtol=0, atol=2e-4)
     torch.testing.assert_close(g_boxes.cpu(), c_boxes, rtol=0, atol=0.1)
     assert torch.equal(g_labels.cpu(), c_labels)

@@ -34,10 +34,11 @@ REPO = Path(__file__).resolve().parent.parent
 H = W = 128
 
 
-def perturbed_jax_params(seed: int = 0):
-    """JAX-package init of the tiny model, every leaf + 0.05 N(0, 1)."""
-    _, params = jax_build_codetr(jax_tiny_test_config(), msda_impl="reference",
-                                 input_shape=(64, 64), seed=seed)
+def perturbed_jax_params(seed: int = 0, cfg=None, input_shape=(64, 64)):
+    """JAX-package init of a model (the tiny one by default), every leaf
+    + 0.05 N(0, 1)."""
+    _, params = jax_build_codetr(cfg or jax_tiny_test_config(), msda_impl="reference",
+                                 input_shape=input_shape, seed=seed)
     rng = np.random.default_rng(seed)
     return jax.tree.map(
         lambda a: np.asarray(a, np.float32) + 0.05 * rng.standard_normal(a.shape).astype(np.float32),
@@ -79,14 +80,18 @@ def jax_params():
     return perturbed_jax_params()
 
 
-def test_tiny_slice_matches_jax(jax_params):
-    rng = np.random.default_rng(1)
-    img = rng.standard_normal((1, H, W, 3)).astype(np.float32)
-    masks = np.zeros((1, H, W), np.float32)
-    masks[:, int(H * 0.75):, :] = 1.0
-    masks[:, :, int(W * 0.875):] = 1.0
+def assert_model_matches_jax(jax_cfg, port_cfg, params, h, w, seed=1):
+    """The JAX ``CoDETR`` (``msda_impl="auto"``: K1 in interpret mode) and
+    the port carrying the same params, on one seeded image with a padded
+    mask: neck features, encoder memory, class logits and decoder states
+    1e-4 relative, scores 2e-4, boxes 0.1 px set-wise."""
+    rng = np.random.default_rng(seed)
+    img = rng.standard_normal((1, h, w, 3)).astype(np.float32)
+    masks = np.zeros((1, h, w), np.float32)
+    masks[:, int(h * 0.75):, :] = 1.0
+    masks[:, :, int(w * 0.875):] = 1.0
 
-    model = JaxCoDETR(cfg=jax_tiny_test_config(), msda_impl="auto")
+    model = JaxCoDETR(cfg=jax_cfg, msda_impl="auto")
 
     def run(m, x, mk):
         feats = m.features(x)
@@ -98,11 +103,11 @@ def test_tiny_slice_matches_jax(jax_params):
             p, x, mk, method=run, mutable=["intermediates"],
             capture_intermediates=lambda mdl, _: mdl.name == "encoder_layers",
         )
-    )(jax_params, jnp.asarray(img), jnp.asarray(masks))
+    )(params, jnp.asarray(img), jnp.asarray(masks))
     # per-layer encoder outputs (n_layers, bs, K, C); the last one is the memory
     j_memory = state["intermediates"]["query_head"]["transformer"]["encoder_layers"]["__call__"][0][0][-1]
 
-    port = port_from_jax(jax_params)
+    port = port_from_jax(params, port_cfg)
     with torch.no_grad():
         x, mk = torch.from_numpy(img), torch.from_numpy(masks)
         t_feats = port.features(x)
@@ -124,6 +129,10 @@ def test_tiny_slice_matches_jax(jax_params):
     assert unmatched <= max(1, t_boxes.shape[1] // 100), f"{unmatched} detections unmatched"
 
 
+def test_tiny_slice_matches_jax(jax_params):
+    assert_model_matches_jax(jax_tiny_test_config(), tiny_test_config(), jax_params, H, W)
+
+
 def _assert_trees_equal(got, want, path=""):
     assert isinstance(got, dict) == isinstance(want, dict), path
     if isinstance(want, dict):
@@ -141,16 +150,14 @@ def test_weight_round_trip_tiny_is_exact(jax_params):
     assert sorted(sd) == sorted(CoDETR(tiny_test_config()).state_dict())
 
 
-def test_swin_l_key_schema_round_trip():
-    """Swin-L schema, shapes only on the JAX side (no Swin-L forward runs on
-    the CPU): the port's seeded state dict through convert_state_dict has
-    exactly the JAX model's param shapes (traced at 256x256, which gives the
-    900 proposals enough keys), and state_dict_from_jax inverts it."""
-    port_sd = {
-        k: v.numpy() for k, v in init_weights(CoDETR(co_dino_swin_l()), seed=0).state_dict().items()
-    }
-    params = convert_state_dict(port_sd, jax_co_dino_swin_l())
-    model = JaxCoDETR(cfg=jax_co_dino_swin_l(), msda_impl="reference")
+def assert_key_schema_round_trip(port_cfg, jax_cfg):
+    """Shapes only on the JAX side: the port's seeded state dict through
+    convert_state_dict has exactly the JAX model's param shapes (traced at
+    256x256, which gives the 900 proposals enough keys), and
+    state_dict_from_jax inverts it."""
+    port_sd = {k: v.numpy() for k, v in init_weights(CoDETR(port_cfg), seed=0).state_dict().items()}
+    params = convert_state_dict(port_sd, jax_cfg)
+    model = JaxCoDETR(cfg=jax_cfg, msda_impl="reference")
     want = jax.eval_shape(
         model.init, jax.random.PRNGKey(0),
         jax.ShapeDtypeStruct((1, 256, 256, 3), jnp.float32),
@@ -160,10 +167,15 @@ def test_swin_l_key_schema_round_trip():
         jax.tree.map(lambda a: np.asarray(a.shape), params),
         jax.tree.map(lambda a: np.asarray(a.shape), want),
     )
-    back = state_dict_from_jax(params, co_dino_swin_l())
+    back = state_dict_from_jax(params, port_cfg)
     assert sorted(back) == sorted(port_sd)
     for k, v in port_sd.items():
         np.testing.assert_array_equal(back[k], v, err_msg=k)
+
+
+def test_swin_l_key_schema_round_trip():
+    """Swin-L schema (no Swin-L forward runs on the CPU)."""
+    assert_key_schema_round_trip(co_dino_swin_l(), jax_co_dino_swin_l())
 
 
 def test_build_codetr_defaults_to_cuda_and_raises_without_a_card():

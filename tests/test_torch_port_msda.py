@@ -5,8 +5,10 @@ gradient is autograd's); the JAX side runs its exact oracle
 ``msda_reference_qm``, its production encoder entry
 ``msda_grid_packed(impl="auto")`` (the Pallas kernel in interpret mode plus
 its exactness correction, differentiated through kernel K2 and the
-correction tiers), K2 itself (``msda_win_qm_packed_bwd`` in interpret mode)
-and the decoder's ``msda_pair_gather``.  The same float32 inputs, made from
+correction tiers), K2 itself (``msda_win_qm_packed_bwd`` in interpret mode),
+the q-minor entry ``msda_grid_qm(impl="auto")`` (K3 in interpret mode plus
+its correction, differentiated through the pair-gather VJP), K3 through
+``msda_win_qm`` on in-envelope taps, and the decoder's ``msda_pair_gather``.  The same float32 inputs, made from
 a seed with numpy, go to both; locations include far-out taps and taps on
 grid lines (see ``agree_with_fused_rounding`` for the gradient tests).
 Tolerance: 1e-5 relative to each output's scale (fp32 reassociation only).
@@ -25,16 +27,26 @@ from codetr_tpu.config import MSDAConfig as JaxMSDAConfig
 from codetr_tpu.models.msda_module import MultiScaleDeformableAttention as JaxMSDA
 from codetr_tpu.ops.msda import (
     msda_grid_packed as jax_msda_grid_packed,
+    msda_grid_qm as jax_msda_grid_qm,
     msda_pair_gather,
     msda_reference_qm,
+    multi_scale_deformable_attention as jax_multi_scale_deformable_attention,
 )
-from codetr_tpu.ops.msda_win import _tile_shape_for_level, pack_coords_qmajor, unpack_coords_qmajor
+from codetr_tpu.ops.msda_win import (
+    _tile_shape_for_level,
+    msda_win_qm,
+    pack_coords_qmajor,
+    unpack_coords_qmajor,
+    win_envelope_mask,
+)
 from codetr_tpu.ops.msda_win_bwd import msda_win_qm_packed_bwd
+from codetr_torch import bench as port_bench
 from codetr_torch.config import MSDAConfig
 from codetr_torch.models.msda_module import MultiScaleDeformableAttention
 from codetr_torch.ops import msda as port_msda
 from codetr_torch.utils.checkpoint import _Out
 
+from test_msda_grid import grid_inputs
 from test_msda_win_bwd import SHAPES as WIN_SHAPES, _grid_coords
 from test_torch_port_cuda import SHAPES, assert_close, assert_within_bf16_rounding, make_inputs, pack
 
@@ -316,3 +328,162 @@ def test_msda_module_matches_jax(grid_queries):
         got = mod(torch.from_numpy(query), torch.from_numpy(value), torch.from_numpy(pos),
                   torch.from_numpy(mask), torch.from_numpy(ref), shapes)
     assert_close(got.numpy(), want, rtol=1e-5)
+
+
+def qm_arrays(loc, w):
+    """Reference layout -> contiguous q-minor (bs, h, L, P, Q) numpy x, y, w."""
+    return tuple(np.ascontiguousarray(np.moveaxis(a, 1, -1)) for a in (loc[..., 0], loc[..., 1], w))
+
+
+def port_qm(value, shapes, x, y, w, **kw):
+    return port_msda.msda_grid_qm(*(torch.from_numpy(np.asarray(a)) for a in (value,)), shapes,
+                                  *(torch.from_numpy(np.asarray(a)) for a in (x, y, w)), **kw)
+
+
+@pytest.mark.parametrize("shapes,radius,jitter", [
+    (((8, 8), (4, 4), (2, 2)), 4, 3.0),
+    (((6, 10), (3, 5)), 4, 3.0),
+    (((19, 13), (10, 7), (5, 4)), 4, 3.0),
+    (((8, 8),), 3, 2.0),
+])
+def test_qm_matches_win_kernel_in_envelope(shapes, radius, jitter):
+    """K3 (``msda_win_qm``, interpret mode) on the taps inside its window
+    envelope (the others' weights zeroed), the shapes of the JAX suite's
+    own K3 test; the finest level's 16x16 query tiles run K3's
+    ``pallas_call``, not the coarse-level gather fallback."""
+    assert np.prod(_tile_shape_for_level(0, len(shapes))) >= 16
+    rng = np.random.default_rng(0)
+    value, loc, w = grid_inputs(rng, shapes, radius=radius, jitter=jitter)
+    x, y, attw = qm_arrays(loc, w)
+    mask = win_envelope_mask(shapes, jnp.asarray(x), jnp.asarray(y), radius=radius)
+    w_in = np.where(np.asarray(mask), attw, 0).astype(np.float32)
+    want = msda_win_qm(jnp.asarray(value), shapes, jnp.asarray(x), jnp.asarray(y), jnp.asarray(w_in),
+                       radius=radius, interpret=True)
+    assert_close(port_qm(value, shapes, x, y, w_in).numpy(), want)
+    ref = port_msda.msda_reference_qm(*(torch.from_numpy(a) for a in (value,)), shapes,
+                                      *(torch.from_numpy(a) for a in (x, y, w_in)))
+    assert_close(ref.numpy(), want)
+
+
+@pytest.mark.parametrize("shapes", SHAPES[:2])
+def test_qm_matches_jax_auto_dispatch(shapes):
+    """Arbitrary offsets (far-out and grid-line taps): K3 plus its
+    out-of-envelope correction on the JAX side."""
+    rng = np.random.default_rng(60 + len(shapes))
+    value, loc, w = make_inputs(rng, shapes)
+    x, y, attw = qm_arrays(loc, w)
+    want = jax_msda_grid_qm(jnp.asarray(value), shapes, *(jnp.asarray(a) for a in (x, y, attw)), impl="auto")
+    assert_close(port_qm(value, shapes, x, y, attw).numpy(), want)
+    assert_close(port_qm(value, shapes, x, y, attw, impl="reference").numpy(), want)
+
+
+@pytest.mark.parametrize("shapes", SHAPES[:2])
+def test_qm_grads_match_jax_auto_vjp(shapes):
+    """The gradient in the value, x, y and w (q-minor) against ``jax.vjp``
+    of ``msda_grid_qm(impl="auto")``; taps within an ulp of a grid line
+    moved as ``agree_with_fused_rounding`` says."""
+    rng = np.random.default_rng(70 + len(shapes))
+    value, loc, w = jax_safe_inputs(rng, shapes)
+    x, y, attw = qm_arrays(loc, w)
+    g = rng.standard_normal((1, value.shape[1], value.shape[2] * value.shape[3])).astype(np.float32)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (value, x, y, attw)]
+    port_msda.msda_grid_qm(leaves[0], shapes, *leaves[1:]).backward(torch.from_numpy(g))
+    want = jax.vjp(lambda *a: jax_msda_grid_qm(a[0], shapes, *a[1:], impl="auto"),
+                   *(jnp.asarray(a) for a in (value, x, y, attw)))[1](jnp.asarray(g))
+    for t, wt in zip(leaves, want):
+        assert_close_to_scale(t.grad.numpy(), wt)
+
+
+def test_grid_queries_entry_matches_jax():
+    """``multi_scale_deformable_attention(grid_queries=True)``, which moves
+    the locations to q-minor for ``msda_grid_qm``, against the JAX entry;
+    its gradient in the reference layout equals the plain path's."""
+    shapes = SHAPES[0]
+    rng = np.random.default_rng(80)
+    value, loc, w = jax_safe_inputs(rng, shapes)
+    want = jax_multi_scale_deformable_attention(
+        *(jnp.asarray(a) for a in (value, )), shapes, jnp.asarray(loc), jnp.asarray(w), grid_queries=True)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (value, loc, w)]
+    got = port_msda.multi_scale_deformable_attention(leaves[0], shapes, *leaves[1:], grid_queries=True)
+    assert_close(got.detach().numpy(), want)
+    g = torch.from_numpy(rng.standard_normal(got.shape).astype(np.float32))
+    got.backward(g)
+    plain = port_msda.msda_backward_plain(leaves[0].detach(), shapes, *(torch.from_numpy(a) for a in (
+        loc[..., 0], loc[..., 1], w)), g)
+    # the value gradient is a scatter-add, whose order varies between runs
+    # on a multi-threaded CPU
+    assert_close_to_scale(leaves[0].grad.numpy(), plain[0].numpy(), rtol=1e-6)
+    torch.testing.assert_close(leaves[1].grad, torch.stack(plain[1:3], -1), rtol=0, atol=0)
+    torch.testing.assert_close(leaves[2].grad, plain[3], rtol=0, atol=0)
+
+
+def test_qm_autograd_function_routes_gradients(monkeypatch):
+    """``_QmMSDA`` run with plain launchers in place of the CUDA ones: each
+    input gets the q-minor gradient the backward launcher returns (the
+    value gradient to 1e-6 of its scale: the plain backward's scatter-add
+    order varies between runs on a multi-threaded CPU), and one backward
+    launch is counted."""
+    shapes = SHAPES[0]
+    rng = np.random.default_rng(9)
+    value, loc, w = make_inputs(rng, shapes)
+    value = torch.from_numpy(value)
+    x, y, attw = (torch.from_numpy(a) for a in qm_arrays(loc, w))
+
+    def fake_qm_bwd(v, sh, xx, yy, ww, g):
+        port_msda.launches_bwd += 1
+        grads = port_msda.msda_backward_plain(v, sh, *(a.permute(0, 4, 1, 2, 3) for a in (xx, yy, ww)), g)
+        return (grads[0], *(a.permute(0, 2, 3, 4, 1) for a in grads[1:]))
+
+    monkeypatch.setattr(port_msda, "_launch_qm",
+                        lambda v, sh, xx, yy, ww: port_msda.msda_reference_qm(v, sh, xx, yy, ww))
+    monkeypatch.setattr(port_msda, "_launch_qm_bwd", fake_qm_bwd)
+    monkeypatch.setattr(port_msda, "launches_bwd", 0)
+    leaves = [t.clone().requires_grad_() for t in (value, x, y, attw)]
+    out = port_msda._QmMSDA.apply(*leaves, shapes)
+    g = torch.from_numpy(rng.standard_normal(out.shape).astype(np.float32))
+    out.backward(g)
+    assert port_msda.launches_bwd == 1
+    want = fake_qm_bwd(value, shapes, x, y, attw, g)
+    assert_close_to_scale(leaves[0].grad.numpy(), want[0].numpy(), rtol=1e-6)
+    for leaf, wt in zip(leaves[1:], want[1:]):
+        torch.testing.assert_close(leaf.grad, wt, rtol=0, atol=0)
+
+
+def test_qm_pack_and_wrapper_checks():
+    """The q-minor <-> packed copies agree with the JAX package's (no pad
+    columns), and the q-minor entry rejects what it does not take."""
+    rng = np.random.default_rng(11)
+    x, y, w = (rng.random((2, 4, 3, 2, 30)).astype(np.float32) for _ in range(3))
+    cpk = port_msda.pack_coords_qmajor(*(torch.from_numpy(a) for a in (x, y, w)))
+    want = pack_coords_qmajor(*(jnp.asarray(a) for a in (x, y, w)), interpret=True)
+    np.testing.assert_array_equal(cpk.numpy(), np.asarray(want))
+    for got, a in zip(port_msda.unpack_coords_qmajor(cpk, 4, 3, 2), (x, y, w)):
+        np.testing.assert_array_equal(got.numpy(), a)
+
+    shapes = ((5, 6),)
+    v = torch.zeros(2, 30, 4, 8)
+    xt = torch.zeros(2, 4, 1, 2, 30)
+    for impl, err in (("grid", NotImplementedError), ("grid_pallas", NotImplementedError),
+                      ("shift", ValueError)):
+        with pytest.raises(err):
+            port_msda.msda_grid_qm(v, shapes, xt, xt, xt, impl=impl)
+    with pytest.raises(ValueError):  # not grid queries: Q != K
+        port_msda.msda_grid_qm(v, shapes, xt[..., :29], xt[..., :29], xt[..., :29])
+    with pytest.raises(ValueError):
+        port_msda.msda_grid_qm(v, shapes, xt, xt, xt[:, :, :, :1])
+    with pytest.raises(TypeError):
+        port_msda.msda_grid_qm(v, shapes, xt, xt.double(), xt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_verify_gate_inputs_through_jax(dtype):
+    """The on-card gate's inputs (``bench.verify_inputs``, here at 48x64 on
+    the CPU) through the JAX oracle and the port's q-minor entry; the gate
+    itself passes on the CPU's plain versions."""
+    value, shapes, x, y, w = port_bench.verify_inputs(48, 64, torch.float32, device="cpu")
+    assert shapes == ((12, 16), (6, 8), (3, 4), (2, 2), (1, 1))
+    want = msda_reference_qm(jnp.asarray(value.numpy()), shapes, *(jnp.asarray(a.numpy()) for a in (x, y, w)))
+    assert_close(port_msda.msda_grid_qm(value, shapes, x, y, w).numpy(), want)
+    errs = port_bench.verify_msda_on_card(48, 64, dtype, device="cpu")
+    assert errs["max_abs_err"] == errs["max_abs_err_packed"] == 0.0
+    assert 0.01 < errs["mean_abs_out"] < 1.0
