@@ -9,8 +9,11 @@ Phases (any failure raises, and the script exits non-zero without a result):
    once (build seconds and ``-Xptxas -v`` printed);
 3. hold the MSDA forward and backward kernels against their plain PyTorch
    versions at the 768x1152 main-path shapes (encoder: 5 levels, K = 73,656
-   queries, packed and q-minor layouts; decoder: 900 queries with
-   4-coordinate references), value in fp32 and in bf16;
+   queries, packed and q-minor layouts, the latter also through
+   ``multi_scale_deformable_attention(grid_queries=True)``; decoder: 900
+   queries with 4-coordinate references), and the forward's packed and
+   reference entries at R50's 608x608 shapes too (K = 30,785), value in
+   fp32 and in bf16;
 4. check the full-width Swin-L model's inference forward on the card
    against the same model run on the CPU through the plain versions, at a
    small input;
@@ -291,6 +294,31 @@ def check_backward(name, value, grad_out, kernel_fn, plain_fn, stamp):
     return res
 
 
+def forward_checks(hw, stamp, points=4):
+    """The forward kernel's packed (encoder, Q = K) and reference-layout
+    (decoder, Q = 900) entries against their plain versions at an input
+    size's level shapes -> ((encoder errors, decoder errors), (shapes,
+    value, loc_e, w_e, cpk, loc_d, w_d))."""
+    shapes = level_shapes(*hw)
+    K = sum(h * w for h, w in shapes)
+    size = f"{hw[0]}x{hw[1]}"
+    print(f"levels at {size}: {shapes}, K = {K}")
+    value, loc_e, w_e = msda_inputs(shapes, K)
+    cpk = pack(loc_e, w_e)
+    _, loc_d, w_d = msda_inputs(shapes, 900, decoder=True)
+    enc = check_kernel(
+        f"encoder MSDA {size} (packed, Q={K})", value,
+        lambda v: msda.msda_grid_packed(v, shapes, cpk, points),
+        lambda v: msda.msda_grid_packed_plain(v, shapes, cpk, points), stamp,
+    )
+    dec = check_kernel(
+        f"decoder MSDA {size} (reference layout, Q=900)", value,
+        lambda v: msda.multi_scale_deformable_attention(v, shapes, loc_d, w_d),
+        lambda v: msda.multi_scale_deformable_attention_plain(v, shapes, loc_d, w_d), stamp,
+    )
+    return (enc, dec), (shapes, value, loc_e, w_e, cpk, loc_d, w_d)
+
+
 def upstream_grads(num_keys):
     """Seeded upstream gradients (1, Q, 256) of the encoder (Q = K) and
     decoder (Q = 900) calls."""
@@ -481,7 +509,9 @@ def run_training(cfg, batch, timed=3, split=False):
     warm-up + ``timed`` steps, and with ``split`` the predictions, the loss
     forward and forward+backward first (1 warm-up + 3 timed each); every
     timed step must launch the forward and the backward kernel once per
-    MSDA layer and give a finite loss."""
+    MSDA layer and give a finite loss.  Reads the bytes allocated on entry
+    (what earlier phases left) and just before the timed steps' peak."""
+    held_at_start = torch.cuda.memory_allocated()
     x, mask, targets = train_batch(cfg, batch)
     model = build_codetr(cfg, device=DEVICE, seed=SEED)
     opt = adamw(model)
@@ -513,11 +543,12 @@ def run_training(cfg, batch, timed=3, split=False):
             times.append((time.perf_counter() - t0) * 1e3)
         return times
 
-    res = {}
+    res = {"held_at_start": held_at_start}
     if split:
         res.update(predict_ms=host_ms(predict), fwd_ms=host_ms(fwd), fwd_bwd_ms=host_ms(fwd_bwd))
     step(x, mask, *targets)  # warm-up step: the optimizer's state
     torch.cuda.synchronize()
+    res["held"] = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     per = launches_per_forward(cfg)
     msda.launches = msda.launches_bwd = 0
@@ -541,8 +572,19 @@ def run_training(cfg, batch, timed=3, split=False):
           f"losses {losses}")
     del model, opt, step
     torch.cuda.empty_cache()
-    res.update(step_ms=step_ms, losses=losses, peak_bytes=peak, launches=launches)
+    # the peak of the bytes callers asked for, before the allocator rounds
+    # them to its blocks (a rounding that depends on what earlier phases
+    # left in its cache)
+    requested = torch.cuda.memory_stats()["requested_bytes.all.peak"]
+    res.update(step_ms=step_ms, losses=losses, peak_bytes=peak, requested_peak=requested,
+               launches=launches)
     return res
+
+
+def held_text(r) -> str:
+    return (f"of which {r['held'] / 2**30:.3f} GiB held before the timed steps "
+            f"({r['held_at_start'] / 2**30:.3f} GiB left by earlier phases), requested "
+            f"peak {r['requested_peak'] / 2**30:.3f} GiB")
 
 
 def fwd_bwd_peak(cfg, batch):
@@ -723,24 +765,17 @@ def main() -> int:
         print(f"built {built.path.name} in {built.build_seconds:.1f} s; nvcc -Xptxas -v:")
         print(built.log.strip())
 
-    # 3. kernel vs plain at the main path's shapes
-    shapes = level_shapes(HEIGHT, WIDTH)
-    K = sum(h * w for h, w in shapes)
-    print(f"levels at {HEIGHT}x{WIDTH}: {shapes}, K = {K}")
+    # 3. kernel vs plain at the main paths' shapes: the forward at every
+    # serving size (Swin-L and R50 at 768x1152, R50 at 608x608), the rest
+    # at 768x1152
     P = 4
-    value, loc_e, w_e = msda_inputs(shapes, K)
-    cpk = pack(loc_e, w_e)
-    _, loc_d, w_d = msda_inputs(shapes, 900, decoder=True)
-    enc = check_kernel(
-        f"encoder MSDA (packed, Q={K})", value,
-        lambda v: msda.msda_grid_packed(v, shapes, cpk, P),
-        lambda v: msda.msda_grid_packed_plain(v, shapes, cpk, P), stamp,
-    )
-    dec = check_kernel(
-        "decoder MSDA (reference layout, Q=900)", value,
-        lambda v: msda.multi_scale_deformable_attention(v, shapes, loc_d, w_d),
-        lambda v: msda.multi_scale_deformable_attention_plain(v, shapes, loc_d, w_d), stamp,
-    )
+    fwd_errs = {}
+    for hw in sorted({(HEIGHT, WIDTH)} | {(h, w) for h, w, _ in R50_SERVING}, reverse=True):
+        fwd_errs[hw], inputs = forward_checks(hw, stamp)
+        if hw == (HEIGHT, WIDTH):
+            shapes, value, loc_e, w_e, cpk, loc_d, w_d = inputs
+        del inputs
+    K = value.shape[1]
 
     # the backward kernel against the plain backward, same shapes; its
     # inputs are freed before the serving path, whose peak memory is read
@@ -756,13 +791,24 @@ def main() -> int:
             *msda._launch_reference_bwd(v, shapes, loc_d, w_d, g)),
         lambda v, g: plain_backward(v, shapes, loc_d, w_d, g), stamp,
     )
-    # the q-minor entry (K3's counterpart) on the same encoder taps
+    # the q-minor entry (K3's counterpart) on the same encoder taps, called
+    # directly and through multi_scale_deformable_attention(grid_queries=True):
+    # each call launches the q-minor kernel and no other forward
     qm = to_qm(loc_e, w_e)
+    before = (msda.launches, msda.launches_qm)
     enc_qm = check_kernel(
         f"encoder MSDA (q-minor, Q={K})", value,
         lambda v: msda.msda_grid_qm(v, shapes, *qm),
         lambda v: msda.msda_reference_qm(v, shapes, *qm), stamp,
     )
+    enc_gq = check_kernel(
+        f"encoder MSDA (grid_queries=True, Q={K})", value,
+        lambda v: msda.multi_scale_deformable_attention(v, shapes, loc_e, w_e, grid_queries=True),
+        lambda v: msda.multi_scale_deformable_attention_plain(v, shapes, loc_e, w_e), stamp,
+    )
+    qm_launches = (msda.launches - before[0], msda.launches_qm - before[1])
+    if qm_launches != (0, 4):
+        fail(f"the q-minor checks launched (forward, q-minor) kernels {qm_launches}, not (0, 4)")
     enc_qm_b = check_backward(
         f"encoder MSDA backward (q-minor, Q={K})", value, g_e,
         lambda v, g: msda._launch_qm_bwd(v, shapes, *qm, g),
@@ -785,6 +831,10 @@ def main() -> int:
           f"({launches_per_forward(cfg)} per forward), kept detections {swin['kept']}")
     swin_bf16 = serve(cfg, HEIGHT, WIDTH, torch.bfloat16, images[1:2], images[0])
 
+    # bytes left allocated after each phase from here to training, whose
+    # peak memory they count in
+    held = {"after Swin-L serving": torch.cuda.memory_allocated()}
+
     # the on-card MSDA gate (the JAX bench.py --verify), which runs the
     # q-minor kernel (K3's counterpart) and the packed one
     msda.launches = msda.launches_qm = msda.launches_bwd = 0
@@ -797,13 +847,19 @@ def main() -> int:
               f"{errs['max_abs_err']:.3e}, packed {errs['max_abs_err_packed']:.3e} (tol "
               f"{1e-4 if dt == torch.float32 else 1e-2}), mean |out| {errs['mean_abs_out']:.4f} [{stamp}]")
 
+    held["after the gate"] = torch.cuda.memory_allocated()
+
     # the R50 family: the full-width model against the CPU, then serving
     cfg_r50 = co_dino_r50()
     compare_models(cfg_r50, CHECK_HW, stamp, label="R50")
+    held["after R50 card vs CPU"] = torch.cuda.memory_allocated()
     r50 = {(h, w, dt): serve(cfg_r50, h, w, dt, images, images[0]) for h, w, dt in R50_SERVING}
+    held["after R50 serving"] = torch.cuda.memory_allocated()
     for (h, w, dt), r in r50.items():
         print(f"R50 {h}x{w} {dt}: {len(images)} images, kernel launches {r['launches']} "
               f"({launches_per_forward(cfg_r50)} per forward), kept detections {r['kept']}")
+    print("memory allocated, GiB: " + ", ".join(f"{k} {v / 2**30:.4f}" for k, v in held.items())
+          + f" [{stamp}]")
 
     # 6. one train step on the card against the CPU, then the training path,
     # without and with SwinConfig.with_cp; at CP_BATCH images a step needs it
@@ -888,13 +944,14 @@ def main() -> int:
     print(f"train fp32 {HEIGHT}x{WIDTH} batch 1: predictions (train_outputs) "
           f"{fmt_ms(train['predict_ms'])}, loss forward {fmt_ms(train['fwd_ms'])}, "
           f"forward+backward {fmt_ms(train['fwd_bwd_ms'])}, step {fmt_ms(train['step_ms'])} ms; "
-          f"peak memory allocated over the steps {train['peak_bytes'] / 2**30:.3f} GiB; "
-          f"losses {train['losses']} [{stamp}]")
+          f"peak memory allocated over the steps {train['peak_bytes'] / 2**30:.3f} GiB, "
+          f"{held_text(train)}; losses {train['losses']} [{stamp}]")
     total = torch.cuda.get_device_properties(0).total_memory
     print(f"train fp32 {HEIGHT}x{WIDTH} with_cp, batch 1: step {fmt_ms(train_cp['step_ms'])} ms, "
-          f"peak {train_cp['peak_bytes'] / 2**30:.3f} GiB; batch {CP_BATCH}: step "
-          f"{fmt_ms(train_cp_big['step_ms'])} ms, peak {train_cp_big['peak_bytes'] / 2**30:.3f} "
-          f"GiB, losses {train_cp_big['losses']}; batch {CP_BATCH} without with_cp, forward+"
+          f"peak {train_cp['peak_bytes'] / 2**30:.3f} GiB, {held_text(train_cp)}; batch {CP_BATCH}: "
+          f"step {fmt_ms(train_cp_big['step_ms'])} ms, peak {train_cp_big['peak_bytes'] / 2**30:.3f} "
+          f"GiB, {held_text(train_cp_big)}, losses {train_cp_big['losses']}; batch {CP_BATCH} "
+          f"without with_cp, forward+"
           f"backward alone: "
           + ("out of memory" if no_cp_peak is None else f"peak {no_cp_peak / 2**30:.3f} GiB")
           + f" (card {total / 2**30:.1f} GiB) [{stamp}]")
@@ -908,7 +965,9 @@ def main() -> int:
         "source": "codetr_torch/csrc/msda_fwd.cu",
         "replaces": "codetr_tpu/ops/msda_win.py:637",
         "launches": main_launches,
-        "max_abs_err": max(enc["max_abs_err_fp32"], dec["max_abs_err_fp32"]),
+        # over the checks at every serving size
+        "max_abs_err": max(e["max_abs_err_fp32"] for pair in fwd_errs.values() for e in pair),
+        "checked_at": [f"{h}x{w}" for h, w in fwd_errs],
         # one fp32 forward's work: 6 encoder calls + 6 decoder calls
         "ms": n_enc * enc_r["ms"] + n_dec * dec_r["ms"],
         "plain_ms": n_enc * enc_r["plain_ms"] + n_dec * dec_r["plain_ms"],
@@ -916,7 +975,7 @@ def main() -> int:
         "bound_by": enc_r["bound_by"],
         "library_ms": None,
         "per_call": per_call,
-        "max_abs_err_bf16": max(enc["max_abs_err_bf16"], dec["max_abs_err_bf16"]),
+        "max_abs_err_bf16": max(e["max_abs_err_bf16"] for pair in fwd_errs.values() for e in pair),
         "card": stamp,
     }, {
         "name": "msda_qm_fwd",
@@ -924,7 +983,8 @@ def main() -> int:
         "source": "codetr_torch/csrc/msda_fwd.cu",
         "replaces": "codetr_tpu/ops/msda_win.py:605",
         "launches": gate_launches[0],  # the gate's fp32 and bf16 calls
-        "max_abs_err": max(enc_qm["max_abs_err_fp32"], gate[torch.float32]["max_abs_err"]),
+        "max_abs_err": max(enc_qm["max_abs_err_fp32"], enc_gq["max_abs_err_fp32"],
+                           gate[torch.float32]["max_abs_err"]),
         # one fp32 call of the gate's path, at 1280x1920
         "ms": per_call_qm["gate"]["ms"],
         "plain_ms": per_call_qm["gate"]["plain_ms"],
@@ -932,7 +992,8 @@ def main() -> int:
         "bound_by": per_call_qm["gate"]["bound_by"],
         "library_ms": None,
         "per_call": per_call_qm,
-        "max_abs_err_bf16": max(enc_qm["max_abs_err_bf16"], gate[torch.bfloat16]["max_abs_err"]),
+        "max_abs_err_bf16": max(enc_qm["max_abs_err_bf16"], enc_gq["max_abs_err_bf16"],
+                                gate[torch.bfloat16]["max_abs_err"]),
         "out_of_envelope_count": "n/a: exact kernel",
         "card": stamp,
     }, {

@@ -448,19 +448,12 @@ def msda_grid_qm(
     x: torch.Tensor,  # (bs, h, L, P, K) fp32 normalised x
     y: torch.Tensor,  # (bs, h, L, P, K)
     w: torch.Tensor,  # (bs, h, L, P, K) attention weights
-    *,
-    impl: str = "auto",
 ) -> torch.Tensor:
     """Grid-query MSDA on q-minor coordinates -> (bs, K, h*d), exact for any
-    offset.  ``impl="auto"`` runs the plain version on the CPU and the
-    kernel on the card; ``"reference"`` the plain version on any device.
-    The JAX package's window envelope (``radius``, ``envelope``,
-    ``correction_budget``) does not exist for an exact kernel."""
-    if impl in ("grid", "grid_pallas"):
-        item = 9 if impl == "grid" else 7
-        raise NotImplementedError(f"impl={impl!r} is not ported yet (ROADMAP item {item})")
-    if impl not in ("auto", "reference"):
-        raise ValueError(f"unknown grid impl {impl!r}")
+    offset: the JAX ``impl="auto"``.  Its plain version is
+    ``msda_reference_qm``.  The JAX package's window envelope (``radius``,
+    ``envelope``, ``correction_budget``) does not exist for an exact
+    kernel."""
     _check(value, spatial_shapes, x, y, w)
     bs, K, h, _ = value.shape
     want = (bs, h, len(spatial_shapes))
@@ -469,7 +462,7 @@ def msda_grid_qm(
             f"x, y, w must be ({bs}, {h}, {len(spatial_shapes)}, P, {K}), got "
             f"{tuple(x.shape)}, {tuple(y.shape)}, {tuple(w.shape)}"
         )
-    if impl == "reference" or _route(value) == "cpu":
+    if _route(value) == "cpu":
         return msda_reference_qm(value, spatial_shapes, x, y, w)
     return _QmMSDA.apply(value, x, y, w, spatial_shapes)
 

@@ -335,9 +335,9 @@ def qm_arrays(loc, w):
     return tuple(np.ascontiguousarray(np.moveaxis(a, 1, -1)) for a in (loc[..., 0], loc[..., 1], w))
 
 
-def port_qm(value, shapes, x, y, w, **kw):
+def port_qm(value, shapes, x, y, w):
     return port_msda.msda_grid_qm(*(torch.from_numpy(np.asarray(a)) for a in (value,)), shapes,
-                                  *(torch.from_numpy(np.asarray(a)) for a in (x, y, w)), **kw)
+                                  *(torch.from_numpy(np.asarray(a)) for a in (x, y, w)))
 
 
 @pytest.mark.parametrize("shapes,radius,jitter", [
@@ -374,7 +374,9 @@ def test_qm_matches_jax_auto_dispatch(shapes):
     x, y, attw = qm_arrays(loc, w)
     want = jax_msda_grid_qm(jnp.asarray(value), shapes, *(jnp.asarray(a) for a in (x, y, attw)), impl="auto")
     assert_close(port_qm(value, shapes, x, y, attw).numpy(), want)
-    assert_close(port_qm(value, shapes, x, y, attw, impl="reference").numpy(), want)
+    ref = port_msda.msda_reference_qm(torch.from_numpy(value), shapes,
+                                      *(torch.from_numpy(a) for a in (x, y, attw)))
+    assert_close(ref.numpy(), want)
 
 
 @pytest.mark.parametrize("shapes", SHAPES[:2])
@@ -463,10 +465,6 @@ def test_qm_pack_and_wrapper_checks():
     shapes = ((5, 6),)
     v = torch.zeros(2, 30, 4, 8)
     xt = torch.zeros(2, 4, 1, 2, 30)
-    for impl, err in (("grid", NotImplementedError), ("grid_pallas", NotImplementedError),
-                      ("shift", ValueError)):
-        with pytest.raises(err):
-            port_msda.msda_grid_qm(v, shapes, xt, xt, xt, impl=impl)
     with pytest.raises(ValueError):  # not grid queries: Q != K
         port_msda.msda_grid_qm(v, shapes, xt[..., :29], xt[..., :29], xt[..., :29])
     with pytest.raises(ValueError):
