@@ -25,7 +25,16 @@ Phases (any failure raises, and the script exits non-zero without a result):
    --verify``) at 1280x1920 in fp32 and bf16, which launches the q-minor
    kernel; then the R50 family: its full-width model on the card against
    the CPU at a small input, and the ``Inferencer`` at 608x608 fp32 and at
-   768x1152 bf16 (3 images each, 12 forward launches per image);
+   768x1152 bf16 (3 images each, 12 forward launches per image); then the
+   shift-window MSDA kernel (K4) against its plain version at the 768x1152
+   and 608x608 encoder shapes (radius 5 and 4, and a window limit that
+   sends every cross-level pair through the coarse-pair escape), the
+   corrected ``msda_grid_qm(impl="grid_pallas" | "grid")`` against the
+   exact function with its launch counts and its gradient, the Swin-L
+   encoder stage with ``msda_impl="grid_pallas"`` against ``"auto"`` (one
+   K4 launch per layer, one K3 correction per layer with taps outside the
+   envelope, no K1), and the gather microbenchmarks (K5) against their
+   plain versions, then their sweep;
 6. one full-width Swin-L train step on the card against the CPU at a small
    input (loss and every gradient, each leaf held against its own measured
    sensitivity); then the training path: Swin-L train steps at 768x1152,
@@ -61,7 +70,7 @@ import torch
 from codetr_torch import Inferencer, build_codetr, co_dino_r50, co_dino_swin_l
 from codetr_torch.bench import verify_inputs, verify_msda_on_card
 from codetr_torch.ops import _build
-from codetr_torch.ops import msda
+from codetr_torch.ops import msda, msda_grid
 from codetr_torch.parallel.losses import dino_detection_loss
 from codetr_torch.parallel.train import adamw, make_train_step
 
@@ -72,7 +81,7 @@ CHECK_HW = (384, 384)  # small input for the card-vs-CPU model check
 TRAIN_CHECK_HW = (256, 256)  # small input for the card-vs-CPU train-step check (K = 5,456)
 PERTURBATIONS = 3  # seeded 1e-7 weight perturbations that measure each gradient's spread
 CP_BATCH = 6  # a train batch whose step does not fit the card without SwinConfig.with_cp
-KERNELS = ("msda_fwd", "msda_bwd")
+KERNELS = ("msda_fwd", "msda_bwd", "msda_shift_fwd", "gatherbench")
 SEED = 0
 DEVICE = "cuda"
 CONFIG = co_dino_swin_l
@@ -742,6 +751,220 @@ def print_serving(label, r, images, stamp):
           f"{r['held'] / 2**30:.3f} GiB held before the serving path [{stamp}]")
 
 
+def shift_inputs(hw, far=0.1):
+    """The gate's geometry (``verify_inputs``: each tap at its query's anchor
+    on its target level plus up to 3 px of jitter, 8 heads, 4 points, head
+    dim 32, 5 levels) at an input size, value fp32, with a share ``far`` of
+    the taps moved 8-12 px on both axes (out of every window of radius 5)."""
+    value, shapes, x, y, w = verify_inputs(*hw, torch.float32)
+    if far:
+        g = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+        L = len(shapes)
+        moved = torch.rand(x.shape, generator=g, device=DEVICE) < far
+
+        def step(sizes):
+            mag = torch.rand(x.shape, generator=g, device=DEVICE) * 4 + 8
+            sign = torch.where(torch.rand(x.shape, generator=g, device=DEVICE) < 0.5, -1.0, 1.0)
+            return mag * sign / torch.tensor(sizes, dtype=torch.float32, device=DEVICE).view(1, 1, L, 1, 1)
+
+        x = torch.where(moved, x + step([ww for _, ww in shapes]), x).contiguous()
+        y = torch.where(moved, y + step([hh for hh, _ in shapes]), y).contiguous()
+    return value, shapes, x, y, w
+
+
+# (radius, max_window) of the K4 checks: the module's default radius (5) and
+# the op's (4) at the Pallas kernel's window limit, then a limit of 13 that
+# sends every cross-level pair (W = 17) through the coarse-pair escape
+SHIFT_CASES = ((5, 31), (4, 31), (5, 13))
+GRID_RADIUS = 5  # MSDAConfig.grid_radius
+
+
+def shift_checks(stamp):
+    """The shift-window kernel (K4) against its plain version, unchecked
+    (truncated) function with far taps, at the 768x1152 and R50 608x608
+    encoder shapes, fp32 and bf16 values, for each of ``SHIFT_CASES``."""
+    errs = {}
+    for hw in ((HEIGHT, WIDTH), R50_SERVING[0][:2]):
+        value, shapes, x, y, w = shift_inputs(hw)
+        for radius, max_window in SHIFT_CASES:
+            coarse = sum(p.coarse for row in msda_grid.pair_plans(shapes, radius, max_window) for p in row)
+            errs[(hw, radius, max_window)] = check_kernel(
+                f"shift-window MSDA {hw[0]}x{hw[1]} radius {radius} max_window {max_window} "
+                f"({coarse} coarse pairs, Q={value.shape[1]})", value,
+                lambda v: msda_grid.msda_grid_shift_qm(v, shapes, x, y, w, radius=radius,
+                                                       max_window=max_window),
+                lambda v: msda_grid.msda_shift_plain(v, shapes, x, y, w, radius, max_window), stamp,
+            )
+        del value, x, y, w
+    return errs
+
+
+def rel_to_scale(got, want) -> float:
+    return ((got.float() - want.float()).abs().max() / max(want.abs().max().item(), 1.0)).item()
+
+
+def dispatch_checks(stamp):
+    """The corrected ``msda_grid_qm(impl="grid_pallas" | "grid")`` at
+    768x1152 (radius 5), fp32, against the exact ``msda_reference_qm``: with far taps
+    each call launches K4 once and K3 once for the out-of-envelope taps; on
+    the jitter-only taps (none out) K4 alone.  Then the gradient of the
+    ``"grid_pallas"`` call against the plain backward (the exact VJP): the
+    backward kernel on q-minor strides, once for the window part and once
+    for the correction.  Tolerance 1e-5 of each result's scale."""
+    value, shapes, x, y, w = shift_inputs((HEIGHT, WIDTH))
+    want = msda.msda_reference_qm(value, shapes, x, y, w)
+    res = {"out_of_envelope": {}}
+    for impl in ("grid_pallas", "grid"):
+        msda.launches_shift = msda.launches_qm = 0
+        got = msda.msda_grid_qm(value, shapes, x, y, w, impl=impl, radius=GRID_RADIUS)
+        torch.cuda.synchronize()
+        launched = (msda.launches_shift, msda.launches_qm)
+        count = res["out_of_envelope"][impl] = msda.last_out_of_envelope
+        err = res[impl] = rel_to_scale(got, want)
+        print(f"corrected {impl} dispatch {HEIGHT}x{WIDTH} radius {GRID_RADIUS}, far taps: {count} of "
+              f"{w.numel()} taps out of the envelope; (K4, K3) launches {launched}; error "
+              f"{err:.3e} of scale (tol 1e-5) [{stamp}]")
+        if count == 0 or launched != (1, 1) or not err < 1e-5:
+            fail(f"corrected {impl} dispatch: {count} out, launches {launched}, error {err}")
+
+    value0, _, x0, y0, w0 = shift_inputs((HEIGHT, WIDTH), far=0.0)
+    msda.launches_shift = msda.launches_qm = 0
+    got = msda.msda_grid_qm(value0, shapes, x0, y0, w0, impl="grid_pallas", radius=GRID_RADIUS)
+    torch.cuda.synchronize()
+    launched, count = (msda.launches_shift, msda.launches_qm), msda.last_out_of_envelope
+    err = rel_to_scale(got, msda.msda_reference_qm(value0, shapes, x0, y0, w0))
+    print(f"corrected grid_pallas dispatch, jitter-only taps: {count} out; (K4, K3) launches "
+          f"{launched}; error {err:.3e} of scale (tol 1e-5) [{stamp}]")
+    if count != 0 or launched != (1, 0) or not err < 1e-5:
+        fail(f"jitter-only dispatch: {count} out, launches {launched}, error {err}")
+    del value0, x0, y0, w0, got
+
+    g = torch.randn(want.shape, generator=torch.Generator(device=DEVICE).manual_seed(SEED + 8),
+                    device=DEVICE)
+    leaves = [t.clone().requires_grad_() for t in (value, x, y, w)]
+    msda.launches_bwd = 0
+    msda.msda_grid_qm(leaves[0], shapes, *leaves[1:], impl="grid_pallas", radius=GRID_RADIUS).backward(g)
+    torch.cuda.synchronize()
+    plain = plain_backward_qm(value, shapes, x, y, w, g)
+    grad_errs = [rel_to_scale(t.grad, p) for t, p in zip(leaves, plain)]
+    print(f"corrected grid_pallas dispatch gradient: backward launches {msda.launches_bwd}; "
+          f"(value, x, y, w) errors {', '.join(f'{e:.3e}' for e in grad_errs)} of scale "
+          f"(tol 1e-5) [{stamp}]")
+    if msda.launches_bwd != 2 or not max(grad_errs) < 1e-5:
+        fail("the corrected dispatch's gradient disagrees with the plain backward")
+    res["grad"] = max(grad_errs)
+    return res
+
+
+def encoder_stage(cfg, image, stamp, reps=3):
+    """The flagship's encoder stage with the shift-window impl: the Swin-L
+    model (seed-0 weights, fp32) on one image at 768x1152, its six encoder
+    layers run by ``CoDinoTransformer.encode`` through a
+    ``DetrTransformerEncoder(msda_impl="grid_pallas")`` carrying the same
+    weights, against the model's own (``"auto"``) encoder: memory within
+    1e-4 of its scale.  The launch counts are set to 0 just before the
+    grid_pallas run and read just after: one K4 launch per layer, one K3
+    launch per layer with taps out of the envelope, no K1.  Returns the
+    per-layer out-of-envelope counts, the launches and both impls' times."""
+    from codetr_torch.models.transformer import DetrTransformerEncoder
+    from codetr_torch.utils.preprocess import preprocess
+
+    model = build_codetr(cfg, device=DEVICE, seed=SEED)
+    head, tf = model.query_head, model.query_head.transformer
+    grid_enc = DetrTransformerEncoder(tf.cfg, "grid_pallas").to(DEVICE)
+    grid_enc.load_state_dict(tf.encoder.state_dict())
+    counts = []
+    for layer in grid_enc.layers:
+        layer.attentions[0].register_forward_hook(lambda *_: counts.append(msda.last_out_of_envelope))
+    with torch.no_grad():
+        pre = preprocess(image, HEIGHT, WIDTH, cfg.preprocess, device=DEVICE)
+        feats = model.features(pre[0][None])
+        masks, pos = head.level_masks_and_pos(feats, pre[1][None])
+        torch.cuda.synchronize()
+        msda.launches = msda.launches_qm = msda.launches_shift = 0
+        mem_grid = tf.encode(feats, masks, pos, encoder=grid_enc)[0]
+        torch.cuda.synchronize()
+        launches = {"msda_shift_fwd": msda.launches_shift, "msda_qm_fwd": msda.launches_qm,
+                    "msda_fwd": msda.launches}
+        layer_counts = list(counts)
+        mem_auto = tf.encode(feats, masks, pos)[0]
+        err = rel_to_scale(mem_grid, mem_auto)
+        times = {}
+        for impl, enc in (("grid_pallas", grid_enc), ("auto", None)):
+            times[impl] = []
+            for _ in range(reps):
+                _, t = timed(lambda: tf.encode(feats, masks, pos, encoder=enc))
+                times[impl].append(t)
+    n_layers, attn = len(grid_enc.layers), tf.cfg.encoder_layer.attn
+    n_taps = mem_grid.shape[1] * attn.num_heads * attn.num_levels * attn.num_points
+    corrected = sum(c > 0 for c in layer_counts)
+    print(f"Swin-L encoder stage {HEIGHT}x{WIDTH} fp32, grid_pallas vs auto: memory error "
+          f"{err:.3e} of scale (tol 1e-4); launches {launches}; out-of-envelope taps per layer "
+          f"{layer_counts} of {n_taps}; encoder stage ms grid_pallas "
+          f"{fmt_ms(times['grid_pallas'])}, auto {fmt_ms(times['auto'])} [{stamp}]")
+    want = {"msda_shift_fwd": n_layers, "msda_qm_fwd": corrected, "msda_fwd": 0}
+    if launches != want or not err < 1e-4 or not torch.isfinite(mem_grid).all():
+        fail(f"encoder stage: launches {launches} (want {want}), memory error {err}")
+    del model, grid_enc, feats, mem_grid, mem_auto
+    torch.cuda.empty_cache()
+    return {"launches": launches, "out_of_envelope": layer_counts, "err": err, "ms": times}
+
+
+def shift_timings(stamp):
+    """K4 per call at 768x1152 (radius 5, the jitter-only taps: every tap in
+    its window, so the truncated function is the exact one and the bytes
+    bound counts the rows the taps touch), fp32 and bf16, beside its plain
+    version and K3 on the same taps."""
+    value, shapes, x, y, w = shift_inputs((HEIGHT, WIDTH), far=0.0)
+    per_call = {}
+    for name, v in (("encoder", value), ("encoder_bf16", value.to(torch.bfloat16))):
+        b_ms, b_by, nbytes, flops = bound_ms(v, shapes, *from_qm(x, y, w), v.dtype)
+        r = per_call[name] = {
+            "ms": cuda_ms(functools.partial(msda_grid.msda_grid_shift_qm, v, shapes, x, y, w,
+                                            radius=GRID_RADIUS), 20),
+            "plain_ms": cuda_ms(functools.partial(msda_grid.msda_shift_plain, v, shapes, x, y, w,
+                                                  GRID_RADIUS), 3),
+            "k3_ms": cuda_ms(functools.partial(msda.msda_grid_qm, v, shapes, x, y, w), 20),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+        }
+        print(f"msda_shift_fwd {name} (K = {v.shape[1]}, radius {GRID_RADIUS}): kernel "
+              f"{r['ms']:.4f} ms/call, plain {r['plain_ms']:.4f} ms/call, K3 on the same taps "
+              f"{r['k3_ms']:.4f} ms/call, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP) [{stamp}]")
+    return per_call
+
+
+def gatherbench_phase(stamp):
+    """K5: each op's kernel against its plain version at every size of the
+    sweep (the gathers and idxadd bit for bit; fma1 and splat2, whose
+    kernels round differently, within 1e-6 of the checksum's scale), then
+    the sweep itself, with the launch count set to 0 just before and read
+    just after."""
+    from codetr_torch.tools import gatherbench as gb
+
+    errs = {}
+    for key, op, size, dtype in gb.cases():
+        inputs = gb.make_inputs(op, size, dtype)
+        got, want = gb.KERNEL[op](*inputs), gb.PLAIN[op](*inputs)
+        torch.cuda.synchronize()
+        err = errs[key] = (got - want).abs().max().item()
+        tol = 0.0 if op in ("gather_sub", "gather_lane", "idxadd") else 1e-6 * want.abs().max().item()
+        if got.shape != (8, 128) or not err <= tol:
+            fail(f"gatherbench {key}: checksum off by {err} (tol {tol})")
+    print(f"gatherbench: {len(errs)} checksums against their plain versions, largest error "
+          f"{max(errs.values()):.3e} (gathers and idxadd exact; fma1, splat2 1e-6 of scale) [{stamp}]")
+    gb.launches = 0
+    results = gb.sweep()
+    torch.cuda.synchronize()
+    launches = gb.launches
+    for key, r in results.items():
+        print(f"gatherbench {key}: {r['us_per_op']:.4f} us per op and iteration ({r['ms']:.4f} ms "
+              f"per call), bound {r['bound_ms'] * 1e3 / gb.R:.4f} us ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.4f} ms per call, one PyTorch call per plane {r['library_us']:.2f} us "
+              f"[{stamp}]")
+    return {"errs": errs, "results": results, "launches": launches, "R": gb.R}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
@@ -858,6 +1081,15 @@ def main() -> int:
     for (h, w, dt), r in r50.items():
         print(f"R50 {h}x{w} {dt}: {len(images)} images, kernel launches {r['launches']} "
               f"({launches_per_forward(cfg_r50)} per forward), kept detections {r['kept']}")
+
+    # the shift-window path (K4): the kernel against its plain version, the
+    # corrected dispatch, then the flagship's encoder stage through it; and
+    # the gather microbenchmarks (K5)
+    shift_errs = shift_checks(stamp)
+    dispatch = dispatch_checks(stamp)
+    enc_stage = encoder_stage(cfg, images[-1], stamp)
+    gbench = gatherbench_phase(stamp)
+    held["after the shift-window and gatherbench phases"] = torch.cuda.memory_allocated()
     print("memory allocated, GiB: " + ", ".join(f"{k} {v / 2**30:.4f}" for k, v in held.items())
           + f" [{stamp}]")
 
@@ -910,6 +1142,7 @@ def main() -> int:
               f"{r['plain_ms']:.4f} ms/call, bound {r['bound_ms']:.4f} ms ({b_by}: "
               f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) [{stamp}]")
     del gate_in
+    per_call_shift = shift_timings(stamp)
 
     g_e, g_d = upstream_grads(K)
     for name, v_dtype in (("encoder", torch.float32), ("encoder_bf16", torch.bfloat16),
@@ -1015,6 +1248,44 @@ def main() -> int:
         "per_call": per_call_bwd,
         "max_abs_err_bf16": max(enc_b["max_abs_err_bf16"], dec_b["max_abs_err_bf16"]),
         "max_abs_err_qm": enc_qm_b["max_abs_err_fp32"],
+        "card": stamp,
+    }, {
+        "name": "msda_shift_fwd",
+        "route": "cuda",
+        "source": "codetr_torch/csrc/msda_shift_fwd.cu",
+        "replaces": "codetr_tpu/ops/msda_pallas.py:466",
+        "launches": enc_stage["launches"]["msda_shift_fwd"],  # the encoder stage's
+        "max_abs_err": max(e["max_abs_err_fp32"] for e in shift_errs.values()),
+        "checked_at": [f"{h}x{w} radius {r} max_window {m}" for (h, w), r, m in shift_errs],
+        # one fp32 encoder stage's work: one call per encoder layer
+        "ms": n_enc * per_call_shift["encoder"]["ms"],
+        "plain_ms": n_enc * per_call_shift["encoder"]["plain_ms"],
+        "bound_ms": n_enc * per_call_shift["encoder"]["bound_ms"],
+        "bound_by": per_call_shift["encoder"]["bound_by"],
+        "library_ms": None,
+        "per_call": per_call_shift,
+        "max_abs_err_bf16": max(e["max_abs_err_bf16"] for e in shift_errs.values()),
+        "dispatch_rel_err": {k: v for k, v in dispatch.items() if k != "out_of_envelope"},
+        "out_of_envelope_count": {"dispatch": dispatch["out_of_envelope"],
+                                  "encoder_layers": enc_stage["out_of_envelope"]},
+        "encoder_stage_ms": enc_stage["ms"],
+        "card": stamp,
+    }, {
+        "name": "gatherbench",
+        "route": "cuda",
+        "source": "codetr_torch/csrc/gatherbench.cu",
+        "replaces": "tools/gatherbench.py:48",
+        "launches": gbench["launches"],  # the sweep's
+        "max_abs_err": max(gbench["errs"].values()),
+        "checked_at": sorted(gbench["errs"]),
+        # the whole sweep: one call of each case
+        "ms": sum(r["ms"] for r in gbench["results"].values()),
+        "plain_ms": sum(r["plain_ms"] for r in gbench["results"].values()),
+        "bound_ms": sum(r["bound_ms"] for r in gbench["results"].values()),
+        "bound_by": max(gbench["results"].values(), key=lambda r: r["bound_ms"])["bound_by"],
+        # R one-plane PyTorch calls per case
+        "library_ms": sum(r["library_us"] for r in gbench["results"].values()) * gbench["R"] / 1e3,
+        "per_case": gbench["results"],
         "card": stamp,
     }]}
     print(json.dumps(kernels))

@@ -13,7 +13,6 @@ script's timing, canary and sane-window search are not.
 
 from __future__ import annotations
 
-import math
 from typing import Dict
 
 import numpy as np
@@ -21,22 +20,12 @@ import torch
 
 from codetr_torch.models.codetr import check_device
 from codetr_torch.ops import msda
+from codetr_torch.ops.msda_grid import _anchor
 
 STRIDES = (4, 8, 16, 32, 64)  # the 5-scale neck's levels
 HEADS, POINTS, HEAD_DIM = 8, 4, 32
 JITTER_PX = 3.0
 TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # max abs error
-
-
-def _ideal_scale(nq: int, nt: int) -> int:
-    """Signed power-of-2 scale between two pyramid axes."""
-    return round(math.log2(nt / nq)) if nt != nq else 0
-
-
-def _anchor(i: np.ndarray, nq: int, nt: int) -> np.ndarray:
-    """Anchor of query index ``i`` on a target axis: floor((i + 0.5) *
-    2^k - 0.5) for the power-of-2 scale k between the axes."""
-    return np.floor((i + 0.5) * 2.0 ** _ideal_scale(nq, nt) - 0.5).astype(np.int64)
 
 
 def verify_inputs(height: int, width: int, dtype=torch.float32, device="cuda"):

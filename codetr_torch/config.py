@@ -92,6 +92,12 @@ class MSDAConfig:
     num_levels: int = 5
     num_points: int = 4
     value_proj_ratio: float = 1.0
+    # window halo, in target-level px, of the shift-window encoder impls
+    # ("grid", "grid_pallas"): 5 keeps every tap of mmdet's offset init
+    # (|offset| <= num_points = 4) inside its window.  The JAX package's
+    # correction_budget sizes its windowed kernel's sparse correction tier;
+    # an exact kernel has no such tier, so the port has no such field.
+    grid_radius: int = 5
 
 
 @dataclass(frozen=True)

@@ -17,7 +17,7 @@ from codetr_torch.models.transformer import CoDinoTransformer
 
 
 class CoDINOHead(nn.Module):
-    def __init__(self, cfg: HeadConfig):
+    def __init__(self, cfg: HeadConfig, msda_impl: str = "auto"):
         super().__init__()
         if not cfg.use_sigmoid:
             raise ValueError("only the sigmoid classification head is implemented")
@@ -28,15 +28,22 @@ class CoDINOHead(nn.Module):
         self.reg_branches = nn.ModuleList(
             mlp(E, E, 4, cfg.num_reg_fcs + 1) for _ in range(num_pred)
         )
-        self.transformer = CoDinoTransformer(cfg.transformer)
+        self.transformer = CoDinoTransformer(cfg.transformer, msda_impl)
 
-    def run_transformer(self, mlvl_feats: Sequence[torch.Tensor], img_masks: torch.Tensor):
+    def level_masks_and_pos(self, mlvl_feats: Sequence[torch.Tensor], img_masks: torch.Tensor):
+        """Per level: the padding mask (bs, h, w) bool and its sine
+        positional encoding (bs, h, w, C), the transformer's inputs beside
+        the features."""
         dtype = mlvl_feats[0].dtype
         masks, pos = [], []
         for feat in mlvl_feats:
             m = nearest_resize_mask(img_masks, feat.shape[2], feat.shape[3]) != 0
             masks.append(m)
             pos.append(sine_positional_encoding(m, self.cfg.positional_encoding, dtype=dtype))
+        return masks, pos
+
+    def run_transformer(self, mlvl_feats: Sequence[torch.Tensor], img_masks: torch.Tensor):
+        masks, pos = self.level_masks_and_pos(mlvl_feats, img_masks)
         return self.transformer(mlvl_feats, masks, pos, self.reg_branches, self.cls_branches)
 
     def raw_predictions(self, mlvl_feats: Sequence[torch.Tensor], img_masks: torch.Tensor):

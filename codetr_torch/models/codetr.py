@@ -25,7 +25,7 @@ from codetr_torch.models.swin import SwinTransformer, WindowMSA
 
 
 class CoDETR(nn.Module):
-    def __init__(self, cfg: CoDETRConfig):
+    def __init__(self, cfg: CoDETRConfig, msda_impl: str = "auto"):
         super().__init__()
         if cfg.backbone_type == "swin":
             self.backbone = SwinTransformer(cfg.swin)
@@ -35,7 +35,7 @@ class CoDETR(nn.Module):
             raise ValueError(f"unknown backbone {cfg.backbone_type!r}")
         self.cfg = cfg
         self.neck = ChannelMapper(cfg.neck)
-        self.query_head = CoDINOHead(cfg.head)
+        self.query_head = CoDINOHead(cfg.head, msda_impl)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -117,10 +117,13 @@ def build_codetr(
     dtype: torch.dtype = torch.float32,
     device="cuda",
     seed: int = 0,
+    msda_impl: str = "auto",
 ) -> CoDETR:
     """Build the model with seeded random weights, in eval mode, on
     ``device`` (CUDA by default; raises if there is no card) in ``dtype``.
-    Load real weights afterwards with ``load_state_dict``."""
+    Load real weights afterwards with ``load_state_dict``.  ``msda_impl``
+    goes to every MSDA layer; the grid impls raise in the decoder, as the
+    JAX package's ``build_codetr`` does."""
     device = check_device(device)
-    model = init_weights(CoDETR(cfg), seed)
+    model = init_weights(CoDETR(cfg, msda_impl), seed)
     return model.to(device=device, dtype=dtype).eval()

@@ -6,11 +6,17 @@ checkpoints.  Coordinates, offsets and attention weights are float32 in every
 compute dtype (bf16 locations would quantise to ~0.6 px at stride 4).
 
 With ``grid_queries=True`` (encoder self-attention, queries = the
-level-concatenated pixel grid) the coordinates are packed into one
-(bs, K, 3*HLP) tensor [x(HLP) | y(HLP) | w(HLP)] for ``msda_grid_packed``;
-otherwise (decoder cross-attention, 4-coordinate reference boxes) they go
-through the reference-layout ``multi_scale_deformable_attention``.  Both
-reach the same CUDA kernel on the card.
+level-concatenated pixel grid) and ``impl="auto"`` the coordinates are
+packed into one (bs, K, 3*HLP) tensor [x(HLP) | y(HLP) | w(HLP)] for
+``msda_grid_packed``; otherwise (decoder cross-attention, 4-coordinate
+reference boxes) they go through the reference-layout
+``multi_scale_deformable_attention``.  Both reach the same CUDA kernel on
+the card.  With grid queries and ``impl="grid"`` or ``"grid_pallas"`` (the
+JAX package's research shift-window paths) they take the JAX module's
+q-minor pipeline into ``msda_grid_qm(impl=...)``: offsets divided by the
+level sizes, the softmax over each head's taps on the q-minor layout, the
+window radius ``grid_radius`` (None: ``cfg.grid_radius``).  Those impls
+need grid queries: a module built with one and without them raises.
 """
 
 from __future__ import annotations
@@ -22,7 +28,12 @@ import torch
 from torch import nn
 
 from codetr_torch.config import MSDAConfig
-from codetr_torch.ops.msda import msda_grid_packed, multi_scale_deformable_attention
+from codetr_torch.ops.msda import (
+    GRID_MAX_WINDOW,
+    msda_grid_packed,
+    msda_grid_qm,
+    multi_scale_deformable_attention,
+)
 
 
 def grid_offset_bias(num_heads: int, num_levels: int, num_points: int) -> torch.Tensor:
@@ -37,10 +48,17 @@ def grid_offset_bias(num_heads: int, num_levels: int, num_points: int) -> torch.
 
 
 class MultiScaleDeformableAttention(nn.Module):
-    def __init__(self, cfg: MSDAConfig, grid_queries: bool = False):
+    def __init__(self, cfg: MSDAConfig, grid_queries: bool = False, impl: str = "auto",
+                 grid_radius: Optional[int] = None):
         super().__init__()
+        if impl != "auto" and impl not in GRID_MAX_WINDOW:
+            raise ValueError(f"unknown MSDA impl {impl!r}")
+        if impl != "auto" and not grid_queries:
+            raise ValueError(f"impl={impl!r} requires grid queries")
         self.cfg = cfg
         self.grid_queries = grid_queries
+        self.impl = impl
+        self.grid_radius = cfg.grid_radius if grid_radius is None else grid_radius
         E = cfg.embed_dims
         n = cfg.num_heads * cfg.num_levels * cfg.num_points
         self.sampling_offsets = nn.Linear(E, 2 * n)
@@ -71,10 +89,25 @@ class MultiScaleDeformableAttention(nn.Module):
         v = v.reshape(bs, nk, h, -1).contiguous()
 
         off = self.sampling_offsets(query).float().reshape(bs, nq, h, L, P, 2)
-        attn = self.attention_weights(query).float().reshape(bs, nq, h, L * P)
-        attn = attn.softmax(-1).reshape(bs, nq, h, L, P)
+        raw_attn = self.attention_weights(query).float()
         ref = reference_points.float()
 
+        if self.grid_queries and self.impl != "auto":
+            if ref.shape != (bs, nq, L, 2):
+                raise ValueError(f"grid queries take (bs, K, L, 2) refs, got {tuple(ref.shape)}")
+            # q-minor: the query axis last in every coordinate tensor
+            off_qm = off.permute(0, 2, 3, 4, 5, 1)  # (bs, h, L, P, 2, K)
+            attn_qm = raw_attn.transpose(1, 2).reshape(bs, h, L * P, nq).softmax(2)
+            ref_qm = ref.permute(0, 2, 3, 1)  # (bs, L, 2, K)
+            norm = torch.tensor(spatial_shapes, dtype=torch.float32, device=query.device)  # (L, hw)
+            x = ref_qm[:, None, :, 0, None, :] + off_qm[..., 0, :] / norm[:, 1].view(1, 1, L, 1, 1)
+            y = ref_qm[:, None, :, 1, None, :] + off_qm[..., 1, :] / norm[:, 0].view(1, 1, L, 1, 1)
+            out = msda_grid_qm(v, spatial_shapes, x.contiguous(), y.contiguous(),
+                               attn_qm.reshape(bs, h, L, P, nq).contiguous(),
+                               impl=self.impl, radius=self.grid_radius)
+            return self.output_proj(out.to(query.dtype)) + identity
+
+        attn = raw_attn.reshape(bs, nq, h, L * P).softmax(-1).reshape(bs, nq, h, L, P)
         if self.grid_queries:
             if ref.shape != (bs, nq, L, 2):
                 raise ValueError(f"grid queries take (bs, K, L, 2) refs, got {tuple(ref.shape)}")

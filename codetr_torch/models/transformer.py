@@ -12,7 +12,7 @@ turn into nan*0.  Reference points and box refinement stay float32.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -78,11 +78,11 @@ def _layer_norm(dims: int) -> nn.LayerNorm:
 
 
 class DetrTransformerEncoderLayer(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, msda_impl: str = "auto"):
         super().__init__()
         E = cfg.embed_dims
         self.attentions = nn.ModuleList(
-            [MultiScaleDeformableAttention(cfg.encoder_layer.attn, grid_queries=True)]
+            [MultiScaleDeformableAttention(cfg.encoder_layer.attn, grid_queries=True, impl=msda_impl)]
         )
         self.norms = nn.ModuleList([_layer_norm(E) for _ in range(2)])
         self.ffns = nn.ModuleList([FFN(E, cfg.encoder_layer.feedforward_channels)])
@@ -97,10 +97,10 @@ class DetrTransformerEncoderLayer(nn.Module):
 
 
 class DetrTransformerEncoder(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, msda_impl: str = "auto"):
         super().__init__()
         self.layers = nn.ModuleList(
-            DetrTransformerEncoderLayer(cfg) for _ in range(cfg.num_encoder_layers)
+            DetrTransformerEncoderLayer(cfg, msda_impl) for _ in range(cfg.num_encoder_layers)
         )
 
     def forward(self, query, query_pos, key_padding_mask, reference_points, spatial_shapes):
@@ -110,12 +110,13 @@ class DetrTransformerEncoder(nn.Module):
 
 
 class DetrTransformerDecoderLayer(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, msda_impl: str = "auto"):
         super().__init__()
         E = cfg.embed_dims
         self.attentions = nn.ModuleList([
             MultiheadAttention(E, cfg.decoder_layer.self_attn_heads),
-            MultiScaleDeformableAttention(cfg.decoder_layer.cross_attn),
+            # a grid impl raises here: the decoder's queries are not the grid
+            MultiScaleDeformableAttention(cfg.decoder_layer.cross_attn, impl=msda_impl),
         ])
         self.norms = nn.ModuleList([_layer_norm(E) for _ in range(3)])
         self.ffns = nn.ModuleList([FFN(E, cfg.decoder_layer.feedforward_channels)])
@@ -133,12 +134,12 @@ class DinoTransformerDecoder(nn.Module):
     """Iterative box refinement in unactivated space, per-layer
     intermediates, and the shared final LayerNorm applied to each of them."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, msda_impl: str = "auto"):
         super().__init__()
         E = cfg.embed_dims
         self.cfg = cfg
         self.layers = nn.ModuleList(
-            DetrTransformerDecoderLayer(cfg) for _ in range(cfg.num_decoder_layers)
+            DetrTransformerDecoderLayer(cfg, msda_impl) for _ in range(cfg.num_decoder_layers)
         )
         self.ref_point_head = mlp(2 * E, E, E, 2)
         self.norm = _layer_norm(E)
@@ -164,18 +165,51 @@ class DinoTransformerDecoder(nn.Module):
 
 
 class CoDinoTransformer(nn.Module):
-    """Flatten levels -> encoder -> two-stage top-k proposals -> decoder."""
+    """Flatten levels -> encoder -> two-stage top-k proposals -> decoder.
 
-    def __init__(self, cfg: TransformerConfig):
+    ``msda_impl`` goes to every MSDA layer.  The grid impls ("grid",
+    "grid_pallas") need grid queries, so only the encoder can take them:
+    as in the JAX package, a transformer built with one raises in its
+    decoder.  ``encode`` runs the encoder stage alone, optionally through
+    another ``DetrTransformerEncoder`` (e.g. one with a grid impl carrying
+    this encoder's weights)."""
+
+    def __init__(self, cfg: TransformerConfig, msda_impl: str = "auto"):
         super().__init__()
         E = cfg.embed_dims
         self.cfg = cfg
         self.level_embeds = nn.Parameter(torch.empty(cfg.num_feature_levels, E))
-        self.encoder = DetrTransformerEncoder(cfg)
-        self.decoder = DinoTransformerDecoder(cfg)
+        self.encoder = DetrTransformerEncoder(cfg, msda_impl)
+        self.decoder = DinoTransformerDecoder(cfg, msda_impl)
         self.enc_output = nn.Linear(E, E)
         self.enc_output_norm = _layer_norm(E)
         self.query_embed = nn.Embedding(cfg.two_stage_num_proposals, E)
+
+    def encode(
+        self,
+        mlvl_feats: Sequence[torch.Tensor],  # NCHW per level
+        mlvl_masks: Sequence[torch.Tensor],  # (bs, h, w) bool, True = pad
+        mlvl_pos_embeds: Sequence[torch.Tensor],  # (bs, h, w, C)
+        encoder: Optional[DetrTransformerEncoder] = None,
+    ):
+        """The encoder stage: flatten the levels, add the level embeddings
+        to the positional ones, valid ratios, per-level reference points,
+        then the encoder (``self.encoder`` unless one is given) -> (memory
+        (bs, K, C), mask_flat (bs, K), spatial_shapes, valid_ratios
+        (bs, L, 2), reference_points (bs, K, 2))."""
+        spatial_shapes: Shapes = tuple((f.shape[2], f.shape[3]) for f in mlvl_feats)
+        feat_flat = torch.cat([f.flatten(2).transpose(1, 2) for f in mlvl_feats], dim=1)
+        mask_flat = torch.cat([m.flatten(1) for m in mlvl_masks], dim=1)
+        pos_flat = torch.cat(
+            [p.flatten(1, 2) + self.level_embeds[lvl] for lvl, p in enumerate(mlvl_pos_embeds)],
+            dim=1,
+        )
+        valid_ratios = torch.stack([get_valid_ratio(m) for m in mlvl_masks], dim=1)  # (bs, L, 2)
+        reference_points = get_reference_points(spatial_shapes, valid_ratios)  # (bs, K, 2)
+        ref_by_level = reference_points[:, :, None, :] * valid_ratios[:, None, :, :]
+        encoder = self.encoder if encoder is None else encoder
+        memory = encoder(feat_flat, pos_flat, mask_flat, ref_by_level, spatial_shapes)
+        return memory, mask_flat, spatial_shapes, valid_ratios, reference_points
 
     def forward(
         self,
@@ -187,18 +221,8 @@ class CoDinoTransformer(nn.Module):
     ):
         c = self.cfg
         bs = mlvl_feats[0].shape[0]
-        spatial_shapes: Shapes = tuple((f.shape[2], f.shape[3]) for f in mlvl_feats)
-        feat_flat = torch.cat([f.flatten(2).transpose(1, 2) for f in mlvl_feats], dim=1)
-        mask_flat = torch.cat([m.flatten(1) for m in mlvl_masks], dim=1)
-        pos_flat = torch.cat(
-            [p.flatten(1, 2) + self.level_embeds[lvl] for lvl, p in enumerate(mlvl_pos_embeds)],
-            dim=1,
-        )
-        valid_ratios = torch.stack([get_valid_ratio(m) for m in mlvl_masks], dim=1)  # (bs, L, 2)
-        reference_points = get_reference_points(spatial_shapes, valid_ratios)  # (bs, K, 2)
-        ref_by_level = reference_points[:, :, None, :] * valid_ratios[:, None, :, :]
-
-        memory = self.encoder(feat_flat, pos_flat, mask_flat, ref_by_level, spatial_shapes)
+        memory, mask_flat, spatial_shapes, valid_ratios, reference_points = self.encode(
+            mlvl_feats, mlvl_masks, mlvl_pos_embeds)
 
         output_proposals = make_encoder_output_proposals(reference_points, spatial_shapes)
         output_proposals, output_memory = apply_mask_to_proposal_and_memory(

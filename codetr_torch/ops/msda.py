@@ -11,8 +11,11 @@ Three public entry points keep the JAX package's signatures and layouts:
 - ``msda_grid_packed(value, spatial_shapes, cpk, num_points)``: the
   encoder's packed coordinates ``cpk`` (bs, K, C) = [x(HLP) | y(HLP) |
   w(HLP) | pad], HLP = heads*levels*points in (h, L, P) order.
-- ``msda_grid_qm(value, spatial_shapes, x, y, w)``: grid queries on
-  q-minor coordinates, x, y and w each (bs, h, L, P, K).
+- ``msda_grid_qm(value, spatial_shapes, x, y, w, impl="auto")``: grid
+  queries on q-minor coordinates, x, y and w each (bs, h, L, P, K);
+  ``impl="grid"`` / ``"grid_pallas"`` take the shift-window function of
+  ``ops/msda_grid.py`` (kernel ``csrc/msda_shift_fwd.cu``) plus an exact
+  correction of the taps outside its window.
 - ``multi_scale_deformable_attention(value, spatial_shapes,
   sampling_locations, attention_weights, grid_queries=False)``: the
   reference layout, locations (bs, Q, h, L, P, 2) and weights
@@ -28,8 +31,9 @@ forward kernel (``csrc/msda_fwd.cu``) inside a ``torch.autograd.Function``
 whose backward launches the backward kernel (``csrc/msda_bwd.cu``), or
 raise.  ``msda_backward_plain`` is the backward's plain version.
 ``launches`` counts the packed and reference-layout forward launches,
-``launches_qm`` the q-minor ones and ``launches_bwd`` every backward launch
-(callers reset them to 0 and read them).
+``launches_qm`` the q-minor ones, ``launches_shift`` the shift-window ones
+and ``launches_bwd`` every backward launch (callers reset them to 0 and
+read them).
 """
 
 from __future__ import annotations
@@ -47,6 +51,9 @@ Shapes = Sequence[Tuple[int, int]]
 launches = 0
 launches_qm = 0
 launches_bwd = 0
+launches_shift = 0
+# out-of-envelope taps of the last corrected grid-impl msda_grid_qm call
+last_out_of_envelope = 0
 
 _MAX_LEVELS = 8
 _MAX_HEAD_DIM = 128
@@ -442,18 +449,7 @@ def msda_grid_packed(
     return _PackedMSDA.apply(value, cpk, spatial_shapes, num_points)
 
 
-def msda_grid_qm(
-    value: torch.Tensor,  # (bs, K, h, d)
-    spatial_shapes: Shapes,
-    x: torch.Tensor,  # (bs, h, L, P, K) fp32 normalised x
-    y: torch.Tensor,  # (bs, h, L, P, K)
-    w: torch.Tensor,  # (bs, h, L, P, K) attention weights
-) -> torch.Tensor:
-    """Grid-query MSDA on q-minor coordinates -> (bs, K, h*d), exact for any
-    offset: the JAX ``impl="auto"``.  Its plain version is
-    ``msda_reference_qm``.  The JAX package's window envelope (``radius``,
-    ``envelope``, ``correction_budget``) does not exist for an exact
-    kernel."""
+def _check_qm(value, spatial_shapes, x, y, w) -> None:
     _check(value, spatial_shapes, x, y, w)
     bs, K, h, _ = value.shape
     want = (bs, h, len(spatial_shapes))
@@ -462,9 +458,72 @@ def msda_grid_qm(
             f"x, y, w must be ({bs}, {h}, {len(spatial_shapes)}, P, {K}), got "
             f"{tuple(x.shape)}, {tuple(y.shape)}, {tuple(w.shape)}"
         )
-    if _route(value) == "cpu":
-        return msda_reference_qm(value, spatial_shapes, x, y, w)
-    return _QmMSDA.apply(value, x, y, w, spatial_shapes)
+
+
+# the shift-window impls and their coarse-pair escape (ops/msda_grid.py)
+GRID_MAX_WINDOW = {"grid": None, "grid_pallas": 31}
+
+
+def msda_grid_qm(
+    value: torch.Tensor,  # (bs, K, h, d)
+    spatial_shapes: Shapes,
+    x: torch.Tensor,  # (bs, h, L, P, K) fp32 normalised x
+    y: torch.Tensor,  # (bs, h, L, P, K)
+    w: torch.Tensor,  # (bs, h, L, P, K) attention weights
+    *,
+    impl: str = "auto",
+    radius: int = 4,
+    envelope: str = "correct",
+) -> torch.Tensor:
+    """Grid-query MSDA on q-minor coordinates -> (bs, K, h*d).
+
+    ``impl="auto"``: the exact q-minor kernel (K3's counterpart), exact for
+    any offset; its plain version is ``msda_reference_qm``.
+
+    ``impl="grid"`` / ``"grid_pallas"``: the shift-window function of
+    ``ops/msda_grid.py`` (K4's counterpart; ``"grid"`` without the
+    coarse-pair escape, ``"grid_pallas"`` with it at ``max_window=31``),
+    exact for taps inside its window envelope of ``radius`` px.  With
+    ``envelope="correct"`` the taps outside it are masked out of the window
+    call and their exact contribution is added back by the ``"auto"`` path
+    (K3 on the card), so the result is exact for any offset; the correction
+    runs only when one on-device count of those taps, read once on the
+    host, is above 0 (the count is kept in ``last_out_of_envelope``).
+    ``envelope="unchecked"`` returns the truncated window function.
+
+    ``impl="win"`` is the JAX package's windowed TPU kernel, whose envelope
+    is its own: n/a here.  With ``envelope="correct"`` its result is the
+    exact function, so it maps to ``"auto"``; ``"unchecked"`` raises.  The
+    JAX ``correction_budget`` sizes that kernel's sparse tier and does not
+    exist here."""
+    global last_out_of_envelope
+    _check_qm(value, spatial_shapes, x, y, w)
+    if envelope not in ("correct", "unchecked"):
+        raise ValueError(f"envelope must be 'correct' or 'unchecked', got {envelope!r}")
+    if impl == "win":
+        if envelope == "unchecked":
+            raise ValueError("impl='win' is the TPU windowed kernel's envelope, n/a in the port; "
+                             "its corrected form is impl='auto'")
+        impl = "auto"
+    if impl == "auto":
+        if _route(value) == "cpu":
+            return msda_reference_qm(value, spatial_shapes, x, y, w)
+        return _QmMSDA.apply(value, x, y, w, spatial_shapes)
+    if impl not in GRID_MAX_WINDOW:
+        raise ValueError(f"unknown grid impl {impl!r}")
+    from codetr_torch.ops import msda_grid  # it builds on this module
+
+    max_window = GRID_MAX_WINDOW[impl]
+    if envelope == "unchecked":
+        return msda_grid.msda_grid_shift_qm(value, spatial_shapes, x, y, w,
+                                            radius=radius, max_window=max_window)
+    mask = msda_grid.envelope_mask(spatial_shapes, x, y, radius=radius, max_window=max_window)
+    out = msda_grid.msda_grid_shift_qm(value, spatial_shapes, x, y, torch.where(mask, w, 0.0),
+                                       radius=radius, max_window=max_window)
+    last_out_of_envelope = int((~mask).sum().item())
+    if last_out_of_envelope:
+        out = out + msda_grid_qm(value, spatial_shapes, x, y, torch.where(mask, 0.0, w))
+    return out
 
 
 def multi_scale_deformable_attention(
@@ -473,10 +532,17 @@ def multi_scale_deformable_attention(
     sampling_locations: torch.Tensor,  # (bs, Q, h, L, P, 2) fp32
     attention_weights: torch.Tensor,  # (bs, Q, h, L, P) fp32
     grid_queries: bool = False,
+    *,
+    impl: str = "auto",
+    grid_radius: int = 4,
+    envelope: str = "correct",
 ) -> torch.Tensor:
     """Reference-layout MSDA -> (bs, Q, h*d).  With ``grid_queries`` (Q = K,
     the level-concatenated pixel grid) the coordinates move to q-minor for
-    ``msda_grid_qm``."""
+    ``msda_grid_qm(impl=impl, radius=grid_radius, envelope=envelope)``; the
+    grid impls need grid queries and raise without them."""
+    if impl != "auto" and not grid_queries:
+        raise ValueError(f"impl={impl!r} requires grid queries")
     _check(value, spatial_shapes, sampling_locations, attention_weights)
     bs, _, h, _ = value.shape
     L = len(spatial_shapes)
@@ -492,7 +558,8 @@ def multi_scale_deformable_attention(
     if grid_queries:
         qm = loc.permute(0, 2, 3, 4, 5, 1)  # (bs, h, L, P, 2, Q)
         return msda_grid_qm(value, spatial_shapes, qm[..., 0, :].contiguous(),
-                            qm[..., 1, :].contiguous(), attn.permute(0, 2, 3, 4, 1).contiguous())
+                            qm[..., 1, :].contiguous(), attn.permute(0, 2, 3, 4, 1).contiguous(),
+                            impl=impl, radius=grid_radius, envelope=envelope)
     if _route(value) == "cpu":
         return multi_scale_deformable_attention_plain(value, spatial_shapes, loc, attn)
     return _ReferenceMSDA.apply(value, loc, attn, spatial_shapes)

@@ -1,0 +1,1 @@
+"""Tools of the port that run on the card."""

@@ -308,3 +308,87 @@ def test_narrow_r50_on_card_matches_cpu(cuda_device):
     torch.testing.assert_close(g_scores.cpu(), c_scores, rtol=0, atol=2e-4)
     torch.testing.assert_close(g_boxes.cpu(), c_boxes, rtol=0, atol=0.1)
     assert torch.equal(g_labels.cpu(), c_labels)
+
+
+def grid_qm(value, loc, w, device, dtype=torch.float32):
+    """``make_inputs`` draws (Q = K, grid queries) on the card: the value in
+    ``dtype`` and q-minor x, y, w, each (bs, h, L, P, K) fp32 contiguous."""
+    v = torch.from_numpy(value).to(device, dtype)
+    loc_t, w_t = torch.from_numpy(loc).to(device), torch.from_numpy(w).to(device)
+    return v, [a.permute(0, 2, 3, 4, 1).contiguous() for a in (loc_t[..., 0], loc_t[..., 1], w_t)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_shift_kernel_matches_plain(cuda_device, dtype):
+    """The shift-window kernel (K4) against its plain version, the truncated
+    function, on the card at the flagship's head width: idealised anchors
+    (``max_window`` 31) and the coarse-pair escape (radius 1 with
+    ``max_window`` 7: the cross-level pairs' W = 9 takes it); fp32 to 1e-5
+    of scale, bf16 within its rounding; one ``launches_shift`` per call."""
+    from codetr_torch.ops import msda_grid
+
+    for i, shapes in enumerate(SHAPES):
+        value, loc, w = batch_of_two(60 + 2 * i, shapes)
+        v, qm = grid_qm(value, loc, w, cuda_device, dtype)
+        for radius, max_window in ((2, 31), (1, 7)):
+            before = port_msda.launches_shift
+            got = msda_grid.msda_grid_shift_qm(v, shapes, *qm, radius=radius, max_window=max_window)
+            torch.cuda.synchronize()
+            assert port_msda.launches_shift == before + 1
+            want = msda_grid.msda_shift_plain(v.float(), shapes, *qm, radius, max_window)
+            assert got.dtype == dtype
+            if dtype == torch.float32:
+                assert_close(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5)
+            else:
+                assert_within_bf16_rounding(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["grid", "grid_pallas"])
+def test_cuda_corrected_dispatch_matches_exact(cuda_device, impl):
+    """``msda_grid_qm(impl=...)`` on the card against the exact
+    ``msda_reference_qm`` (1e-5 of scale): K4 on the taps inside the
+    envelope, K3 on the rest (these draws leave taps on both sides); its
+    gradient is the exact VJP, two backward launches, 1e-5 of scale."""
+    for i, shapes in enumerate(SHAPES):
+        value, loc, w = batch_of_two(70 + 2 * i, shapes)
+        v, qm = grid_qm(value, loc, w, cuda_device)
+        before = (port_msda.launches_shift, port_msda.launches_qm)
+        got = port_msda.msda_grid_qm(v, shapes, *qm, impl=impl, radius=2)
+        torch.cuda.synchronize()
+        assert port_msda.last_out_of_envelope > 0
+        assert (port_msda.launches_shift - before[0], port_msda.launches_qm - before[1]) == (1, 1)
+        assert_close(got.cpu().numpy(), port_msda.msda_reference_qm(v, shapes, *qm).cpu().numpy(), rtol=1e-5)
+
+        g = torch.from_numpy(np.random.default_rng(i).standard_normal(got.shape).astype(np.float32))
+        g = g.to(cuda_device)
+        leaves = [v.clone().requires_grad_(), *(a.clone().requires_grad_() for a in qm)]
+        before_bwd = port_msda.launches_bwd
+        port_msda.msda_grid_qm(leaves[0], shapes, *leaves[1:], impl=impl, radius=2).backward(g)
+        torch.cuda.synchronize()
+        assert port_msda.launches_bwd == before_bwd + 2
+        plain = port_msda.msda_backward_plain(v, shapes, *(a.permute(0, 4, 1, 2, 3) for a in qm), g)
+        plain_qm = (plain[0], *(a.permute(0, 2, 3, 4, 1) for a in plain[1:]))
+        assert_grads_match_plain([t.grad for t in leaves], plain_qm, False)
+
+
+@pytest.mark.gpu
+def test_cuda_gatherbench_matches_plain(cuda_device):
+    """Each K5 op at every size of the sweep against its plain version on the
+    card: the gathers and idxadd bit for bit, fma1 and splat2 (fused or
+    separately rounded products) within 1e-6 of the checksum's scale; one
+    launch per call."""
+    from codetr_torch.tools import gatherbench as gb
+
+    for key, op, size, dtype in gb.cases():
+        inputs = gb.make_inputs(op, size, dtype, device=cuda_device)
+        before = gb.launches
+        got = gb.KERNEL[op](*inputs)
+        torch.cuda.synchronize()
+        assert gb.launches == before + 1
+        want = gb.PLAIN[op](*inputs)
+        if op in ("fma1", "splat2"):
+            assert (got - want).abs().max() <= 1e-6 * want.abs().max(), key
+        else:
+            assert torch.equal(got, want), key

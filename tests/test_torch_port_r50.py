@@ -85,6 +85,75 @@ def test_r50_key_schema_round_trip():
         assert k in keys, k
 
 
+def test_narrow_r50_train_step_matches_jax_and_keeps_bn_frozen(r50_params):
+    """One train step of the narrow R50 in both packages from the carried
+    weights, at 96x96 with a padded mask, the JAX side differentiating its
+    exact MSDA oracle: the loss within 1e-5 relative and every gradient
+    leaf that is not frozen BatchNorm within 1e-4 of its scale (the train
+    tolerances of ``test_torch_port_train.py``).
+
+    The frozen BatchNorm tensors are where the two packages part, and the
+    port follows mmdet (``norm_eval``, frozen stages' BN never trained): the
+    JAX ``FrozenBatchNorm`` declares scale, bias, mean and var as trainable
+    ``params``, so its step moves them; the port holds them as buffers, so
+    its step leaves them bit-identical."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    import torch
+
+    from codetr_tpu.models.codetr import CoDETR as JaxCoDETR
+    from codetr_tpu.parallel import losses as jl
+    from codetr_torch.parallel.train import adamw, make_train_step
+    from test_torch_port_model import port_from_jax
+    from test_torch_port_train import LR, assert_grads_match, rel
+
+    jax_cfg, port_cfg = narrow_r50_configs()
+    rng = np.random.default_rng(12)
+    img = rng.standard_normal((1, H, W, 3)).astype(np.float32)
+    mask = np.zeros((1, H, W), np.float32)
+    mask[:, int(H * 0.75):, :] = 1.0
+    max_gt = 8
+    boxes = np.concatenate([rng.uniform(0.2, 0.7, (1, max_gt, 2)), rng.uniform(0.05, 0.3, (1, max_gt, 2))],
+                           -1).astype(np.float32)
+    labels = rng.integers(0, jax_cfg.head.num_classes, (1, max_gt)).astype(np.int32)
+    valid = np.arange(max_gt)[None] < 3
+    boxes[~valid] = 0.0
+
+    model = JaxCoDETR(cfg=jax_cfg, msda_impl="reference")
+    tx = optax.adamw(LR)
+
+    def loss_fn(p):
+        out = model.apply(p, *(jnp.asarray(a) for a in (img, mask)), method=model.train_outputs)
+        return jl.dino_detection_loss(out, *(jnp.asarray(a) for a in (boxes, labels, valid)))[0]
+
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(r50_params)
+    updates, _ = tx.update(grads, tx.init(r50_params), r50_params)
+    moved = optax.apply_updates(r50_params, updates)
+
+    port = port_from_jax(r50_params, port_cfg)
+    buffers = {n: b.clone() for n, b in port.named_buffers()}
+    port_loss = make_train_step(port, adamw(port, LR))(
+        *(torch.from_numpy(a) for a in (img, mask, boxes)), torch.from_numpy(labels).long(),
+        torch.from_numpy(valid)).item()
+    assert rel(port_loss, loss) < 1e-5
+
+    # the port's gradients on the flax paths; the buffers' leaves marked NaN
+    sd = {n: p.grad.numpy() for n, p in port.named_parameters()}
+    sd.update({n: np.full(b.shape, np.nan, np.float32) for n, b in buffers.items()})
+    got = convert_state_dict(sd, jax_cfg)
+    leaves = jax.tree_util.tree_leaves_with_path
+    bn = {jax.tree_util.keystr(k) for k, v in leaves(got) if np.isnan(v).any()}
+    assert len(bn) == len(buffers)  # each BN tensor is one flax leaf
+    assert_grads_match(jax.tree.map(lambda a: np.nan_to_num(a, nan=0.0), got),
+                       jax.tree.map(lambda a: np.asarray(a), grads), skip=bn)
+    before, after = (dict((jax.tree_util.keystr(k), np.asarray(v)) for k, v in leaves(t))
+                     for t in (r50_params, moved))
+    assert all(not np.array_equal(before[k], after[k]) for k in bn)  # JAX moves every BN leaf
+    for n, b in port.named_buffers():
+        assert torch.equal(b, buffers[n]), n  # the port moves none
+
+
 def _assert_kept_fields_equal(port, jax, path="cfg"):
     """Every field of the port's config dataclass equals the JAX one's."""
     if not dataclasses.is_dataclass(port):
