@@ -6,14 +6,18 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
 Phases (any failure raises, and the script exits non-zero without a result):
 1. identify the card (nvidia-smi name and power limit, torch/CUDA versions);
 2. build the CUDA kernels from ``codetr_torch/csrc``, one nvcc each, all at
-   once (build seconds and ``-Xptxas -v`` printed);
+   once (build seconds and ``-Xptxas -v`` printed), and print the encoder
+   kernels' tile plans (``ops/msda_tiles.py``: tiles, windows, staged
+   pairs, shared memory per block) with the tiled kernels' registers;
 3. hold the MSDA forward and backward kernels against their plain PyTorch
    versions at the 768x1152 main-path shapes (encoder: 5 levels, K = 73,656
    queries, packed and q-minor layouts, the latter also through
    ``multi_scale_deformable_attention(grid_queries=True)``; decoder: 900
    queries with 4-coordinate references), and the forward's packed and
    reference entries at R50's 608x608 shapes too (K = 30,785), value in
-   fp32 and in bf16;
+   fp32 and in bf16; then the tiled encoder entries (forward and backward)
+   on taps placed against their shared-memory windows (edges, one pixel
+   out, halo + 1, grid lines, far), batch 2, at both sizes;
 4. check the full-width Swin-L model's inference forward on the card
    against the same model run on the CPU through the plain versions, at a
    small input;
@@ -33,8 +37,10 @@ Phases (any failure raises, and the script exits non-zero without a result):
    exact function with its launch counts and its gradient, the Swin-L
    encoder stage with ``msda_impl="grid_pallas"`` against ``"auto"`` (one
    K4 launch per layer, one K3 correction per layer with taps outside the
-   envelope, no K1), and the gather microbenchmarks (K5) against their
-   plain versions, then their sweep;
+   envelope, no K1; the ``"auto"`` run counts the share of the model's own
+   corner reads that the tiled kernel serves from shared memory, at least
+   0.7), and the gather microbenchmarks (K5) against their plain versions,
+   then their sweep;
 6. one full-width Swin-L train step on the card against the CPU at a small
    input (loss and every gradient, each leaf held against its own measured
    sensitivity); then the training path: Swin-L train steps at 768x1152,
@@ -42,9 +48,11 @@ Phases (any failure raises, and the script exits non-zero without a result):
    at a batch that does not fit the card without it, checking that each
    step launched the forward and the backward kernel 12 times each and that
    the loss stays finite;
-7. time the kernels, their plain versions, the end-to-end latency and the
-   train step, and print them beside the card's name and power limit, then
-   the ``kernels`` line and, last, the result line.
+7. time the kernels, their plain versions (the encoder entries also beside
+   the direct-gather entries on the same taps, with those taps' staged
+   share), the end-to-end latency and the train step, and print them
+   beside the card's name and power limit, then the ``kernels`` line and,
+   last, the result line.
 
 All comparisons run with TF32 off (``allow_tf32 = False`` for matmul and
 cuDNN), so fp32 means fp32 on both sides; the latency and step figures are
@@ -70,7 +78,7 @@ import torch
 from codetr_torch import Inferencer, build_codetr, co_dino_r50, co_dino_swin_l
 from codetr_torch.bench import verify_inputs, verify_msda_on_card
 from codetr_torch.ops import _build
-from codetr_torch.ops import msda, msda_grid
+from codetr_torch.ops import msda, msda_grid, msda_tiles
 from codetr_torch.parallel.losses import dino_detection_loss
 from codetr_torch.parallel.train import adamw, make_train_step
 
@@ -326,6 +334,110 @@ def forward_checks(hw, stamp, points=4):
         lambda v: msda.multi_scale_deformable_attention_plain(v, shapes, loc_d, w_d), stamp,
     )
     return (enc, dec), (shapes, value, loc_e, w_e, cpk, loc_d, w_d)
+
+
+def print_plans(builds, stamp):
+    """The encoder kernels' tile plans at each serving size (tiles, windows,
+    staged pairs, shared memory per block) and the tiled kernels' registers
+    and spills from ``-Xptxas -v``."""
+    for hw in ((HEIGHT, WIDTH), R50_SERVING[0][:2]):
+        shapes = level_shapes(*hw)
+        for dtype in (torch.float32, torch.bfloat16):
+            for backward in (False, True):
+                plan = msda_tiles.encoder_tile_plan(shapes, dtype, backward=backward)
+                staged = sum(map(sum, plan.staged))
+                print(f"tile plan {hw[0]}x{hw[1]} {'bwd' if backward else 'fwd'} "
+                      f"{str(dtype).split('.')[-1]}: tiles {plan.tiles}, blocks per head "
+                      f"{plan.n_tiles}, windows per (lq, lt) {plan.windows}, {staged} of "
+                      f"{len(shapes) ** 2} pairs staged {plan.staged}, shared memory "
+                      f"{plan.smem_bytes} bytes per block [{stamp}]")
+    for built in builds:
+        lines = built.log.splitlines()
+        for i, line in enumerate(lines):
+            if "msda_tile_" in line and "Compiling entry" in line:
+                print(f"{built.path.name}: {line.strip()} -> "
+                      + " / ".join(m.strip() for m in lines[i + 2:i + 4]))
+
+
+def adversarial_taps(shapes, batch=2, heads=8, dim=32, points=4):
+    """Tile-adversarial taps of the encoder kernels, batch ``batch``: on each
+    axis, at random, corner 00 on its window's first or last pixel, one
+    pixel before the window or corner 10 one past it, halo + 1 pixels from
+    the query's reference point, or a grid line near it; 10% of the taps
+    far (anywhere within half a level of it).  Each location is nudged by an
+    ulp where needed so that the kernels' rounded ``loc * size - 0.5`` lands
+    exactly on the intended integer pixel.  Returns value (batch, K, h, d)
+    fp32, locations (batch, K, h, L, P, 2), weights (batch, K, h, L, P)."""
+    plan = msda_tiles.encoder_tile_plan(shapes, torch.float32)
+    wy0, wx0, wh, ww, _ = msda_tiles.query_windows(plan, DEVICE)  # (K, L)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    K, L = wy0.shape
+    shape = (batch, K, heads, L, points)
+    refs = torch.cat([
+        torch.stack(torch.meshgrid(
+            (torch.arange(w, device=DEVICE) + 0.5) / w, (torch.arange(h, device=DEVICE) + 0.5) / h,
+            indexing="xy"), -1).reshape(-1, 2)
+        for h, w in shapes
+    ])  # (K, 2) xy
+
+    def axis(start, size, ref, n):
+        n = torch.tensor(n, dtype=torch.float32, device=DEVICE).view(1, 1, 1, L, 1)
+        s, z = (a.float().view(1, K, 1, L, 1) for a in (start, size))
+        r = ref.view(1, K, 1, 1, 1) * n - 0.5  # the reference's pixel on each level
+        u = torch.rand(shape, generator=g, device=DEVICE) * 0.98 + 0.01
+        sign = torch.where(torch.rand(shape, generator=g, device=DEVICE) < 0.5, -1.0, 1.0)
+        choices = torch.stack(torch.broadcast_tensors(
+            s, s + z - 1, s - 1 + u, s + z - 1 + u,
+            r + sign * (msda_tiles.HALO + 1), torch.round(r + sign * u * 3)))
+        kind = torch.randint(0, len(choices), shape, generator=g, device=DEVICE)
+        px = choices.gather(0, kind[None])[0]
+        far = torch.rand(shape, generator=g, device=DEVICE) < 0.1
+        px = torch.where(far, (torch.rand(shape, generator=g, device=DEVICE) * 2 - 0.5) * n, px)
+        loc = (px + 0.5) / n
+        for _ in range(2):  # land loc * n - 0.5 on px where fp32 allows
+            back = loc * n - 0.5
+            loc = torch.where(back < px, torch.nextafter(loc, loc + 1),
+                              torch.where(back > px, torch.nextafter(loc, loc - 1), loc))
+        return loc
+
+    wl = [w for _, w in shapes]
+    hl = [h for h, _ in shapes]
+    loc = torch.stack([axis(wx0, ww, refs[:, 0], wl), axis(wy0, wh, refs[:, 1], hl)], -1)
+    w = torch.randn(batch, K, heads, L * points, generator=g, device=DEVICE).softmax(-1)
+    value = torch.randn(batch, K, heads, dim, generator=g, device=DEVICE)
+    return value, loc.contiguous(), w.reshape(shape).contiguous()
+
+
+def adversarial_checks(stamp):
+    """The tiled encoder kernels (packed forward and backward) against their
+    plain versions on ``adversarial_taps`` at both serving sizes, batch 2,
+    with the tolerances of ``check_kernel`` / ``check_backward``."""
+    res = {}
+    for hw in ((HEIGHT, WIDTH), R50_SERVING[0][:2]):
+        shapes = level_shapes(*hw)
+        value, loc, w = adversarial_taps(shapes)
+        cpk, P, L = pack(loc, w), w.shape[4], len(shapes)
+        size = f"{hw[0]}x{hw[1]}"
+        share = msda_tiles.staged_share(msda_tiles.encoder_tile_plan(shapes, torch.float32),
+                                        loc[..., 0], loc[..., 1], w)
+        print(f"tile-adversarial taps {size}, batch 2: {share[0]} of {share[1]} corner reads in a "
+              f"staged window ({share[0] / share[1]:.4f})")
+        fwd = check_kernel(
+            f"encoder MSDA {size} tile-adversarial (packed, batch 2)", value,
+            lambda v: msda.msda_grid_packed(v, shapes, cpk, P),
+            lambda v: msda.msda_grid_packed_plain(v, shapes, cpk, P), stamp,
+        )
+        g = torch.randn(value.shape[0], value.shape[1], 256,
+                        generator=torch.Generator(device=DEVICE).manual_seed(SEED + 10), device=DEVICE)
+        bwd = check_backward(
+            f"encoder MSDA backward {size} tile-adversarial (packed, batch 2)", value, g,
+            lambda v, gg: split_packed(*msda._launch_packed_bwd(v, shapes, cpk, P, gg), 8, L, P),
+            lambda v, gg: plain_backward(v, shapes, loc, w, gg), stamp,
+        )
+        res[size] = {"fwd": fwd, "bwd": bwd, "staged_share": share[0] / share[1]}
+        del value, loc, w, cpk, g
+    torch.cuda.empty_cache()
+    return res
 
 
 def upstream_grads(num_keys):
@@ -864,8 +976,12 @@ def encoder_stage(cfg, image, stamp, reps=3):
     weights, against the model's own (``"auto"``) encoder: memory within
     1e-4 of its scale.  The launch counts are set to 0 just before the
     grid_pallas run and read just after: one K4 launch per layer, one K3
-    launch per layer with taps out of the envelope, no K1.  Returns the
-    per-layer out-of-envelope counts, the launches and both impls' times."""
+    launch per layer with taps out of the envelope, no K1.  The ``"auto"``
+    run also counts, per layer, the corner reads of the model's own taps
+    that the tiled encoder kernel serves from shared memory (the staged
+    share; at least 0.7 overall).  Returns the per-layer out-of-envelope
+    counts and staged shares, the launches and both impls' times."""
+    from codetr_torch.models import msda_module
     from codetr_torch.models.transformer import DetrTransformerEncoder
     from codetr_torch.utils.preprocess import preprocess
 
@@ -887,7 +1003,19 @@ def encoder_stage(cfg, image, stamp, reps=3):
         launches = {"msda_shift_fwd": msda.launches_shift, "msda_qm_fwd": msda.launches_qm,
                     "msda_fwd": msda.launches}
         layer_counts = list(counts)
-        mem_auto = tf.encode(feats, masks, pos)[0]
+        shares, packed = [], msda_module.msda_grid_packed
+
+        def capture(value, shapes, cpk, points):  # the layer's taps under its tile plan
+            plan = msda_tiles.encoder_tile_plan(shapes, value.dtype, head_dim=value.shape[3])
+            shares.append(msda_tiles.staged_share(
+                plan, *msda._unpack(cpk, value.shape[2], len(shapes), points)))
+            return packed(value, shapes, cpk, points)
+
+        msda_module.msda_grid_packed = capture
+        try:
+            mem_auto = tf.encode(feats, masks, pos)[0]
+        finally:
+            msda_module.msda_grid_packed = packed
         err = rel_to_scale(mem_grid, mem_auto)
         times = {}
         for impl, enc in (("grid_pallas", grid_enc), ("auto", None)):
@@ -898,6 +1026,12 @@ def encoder_stage(cfg, image, stamp, reps=3):
     n_layers, attn = len(grid_enc.layers), tf.cfg.encoder_layer.attn
     n_taps = mem_grid.shape[1] * attn.num_heads * attn.num_levels * attn.num_points
     corrected = sum(c > 0 for c in layer_counts)
+    share = sum(a for a, _ in shares) / sum(b for _, b in shares)
+    print(f"Swin-L encoder's own taps {HEIGHT}x{WIDTH} (seed-0 weights, one 900x1600 image): "
+          f"staged share per layer {[round(a / b, 6) for a, b in shares]}, overall {share:.6f} "
+          f"(corner reads in a staged window of the tiled encoder kernel; at least 0.7) [{stamp}]")
+    if len(shares) != n_layers or not share >= 0.7:
+        fail(f"staged share {share} over {len(shares)} layers")
     print(f"Swin-L encoder stage {HEIGHT}x{WIDTH} fp32, grid_pallas vs auto: memory error "
           f"{err:.3e} of scale (tol 1e-4); launches {launches}; out-of-envelope taps per layer "
           f"{layer_counts} of {n_taps}; encoder stage ms grid_pallas "
@@ -907,7 +1041,8 @@ def encoder_stage(cfg, image, stamp, reps=3):
         fail(f"encoder stage: launches {launches} (want {want}), memory error {err}")
     del model, grid_enc, feats, mem_grid, mem_auto
     torch.cuda.empty_cache()
-    return {"launches": launches, "out_of_envelope": layer_counts, "err": err, "ms": times}
+    return {"launches": launches, "out_of_envelope": layer_counts, "err": err, "ms": times,
+            "staged_share": share, "staged_share_per_layer": [a / b for a, b in shares]}
 
 
 def shift_timings(stamp):
@@ -987,6 +1122,7 @@ def main() -> int:
     for built in builds:
         print(f"built {built.path.name} in {built.build_seconds:.1f} s; nvcc -Xptxas -v:")
         print(built.log.strip())
+    print_plans(builds, stamp)
 
     # 3. kernel vs plain at the main paths' shapes: the forward at every
     # serving size (Swin-L and R50 at 768x1152, R50 at 608x608), the rest
@@ -1038,6 +1174,8 @@ def main() -> int:
         lambda v, g: plain_backward_qm(v, shapes, *qm, g), stamp,
     )
     del g_e, g_d, qm
+    # the tiled encoder kernels on taps placed against their windows
+    adversarial = adversarial_checks(stamp)
 
     # 4. the whole model's inference forward on the card against the CPU
     # reference (the train step's check follows the serving path, so that
@@ -1121,9 +1259,24 @@ def main() -> int:
             "ms": cuda_ms(kern, reps[0]), "plain_ms": cuda_ms(plain, reps[1]),
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
         }
+        direct = ""
+        if name.startswith("encoder"):
+            # the direct-gather design on the same taps: the reference-layout entry
+            r["direct_gather_ms"] = cuda_ms(functools.partial(
+                msda.multi_scale_deformable_attention, v, shapes, loc_e, w_e), reps[0])
+            direct = (f", direct gather (msda_fwd) on the same taps {r['direct_gather_ms']:.4f} "
+                      f"ms/call ({r['direct_gather_ms'] / r['ms']:.2f}x the tiled kernel)")
         print(f"msda_fwd {name}: kernel {r['ms']:.4f} ms/call, plain {r['plain_ms']:.4f} ms/call, "
               f"bound {r['bound_ms']:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.2f} GFLOP) [{stamp}]")
+              f"{flops / 1e9:.2f} GFLOP){direct} [{stamp}]")
+    share_fwd = msda_tiles.staged_share(msda_tiles.encoder_tile_plan(shapes, torch.float32),
+                                        loc_e[..., 0], loc_e[..., 1], w_e)
+    share_bwd = msda_tiles.staged_share(msda_tiles.encoder_tile_plan(shapes, torch.float32, backward=True),
+                                        loc_e[..., 0], loc_e[..., 1], w_e)
+    bench_share = {"fwd": share_fwd[0] / share_fwd[1], "bwd": share_bwd[0] / share_bwd[1]}
+    print(f"staged share of the microbenchmark's encoder taps {HEIGHT}x{WIDTH}: forward "
+          f"{share_fwd[0]} of {share_fwd[1]} corner reads ({bench_share['fwd']:.6f}), backward "
+          f"{share_bwd[0]} ({bench_share['bwd']:.6f}) [{stamp}]")
     # the q-minor kernel (K3's counterpart): at the encoder shapes above
     # and at the gate's 1280x1920 shapes, its own path's call
     per_call_qm = {}
@@ -1156,6 +1309,8 @@ def main() -> int:
         elif name.startswith("encoder"):
             g = g_e.to(v_dtype)
             kern = functools.partial(msda._launch_packed_bwd, v, shapes, cpk, P, g)
+            # the direct-gather design on the same taps: the reference-layout entry
+            direct = functools.partial(msda._launch_reference_bwd, v, shapes, loc_e, w_e, g)
             loc, w, reps = loc_e, w_e, (10, 2)
         else:
             g = g_d.to(v_dtype)
@@ -1167,9 +1322,14 @@ def main() -> int:
             "ms": cuda_ms(kern, reps[0]), "plain_ms": cuda_ms(plain, reps[1], warmup=1),
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
         }
+        note = ""
+        if name in ("encoder", "encoder_bf16"):
+            r["direct_gather_ms"] = cuda_ms(direct, reps[0])
+            note = (f", direct gather (msda_bwd) on the same taps {r['direct_gather_ms']:.4f} "
+                    f"ms/call ({r['direct_gather_ms'] / r['ms']:.2f}x the tiled kernel)")
         print(f"msda_bwd {name}: kernel {r['ms']:.4f} ms/call, plain {r['plain_ms']:.4f} ms/call, "
               f"bound {r['bound_ms']:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.2f} GFLOP) [{stamp}]")
+              f"{flops / 1e9:.2f} GFLOP){note} [{stamp}]")
     print_serving(f"Swin-L {HEIGHT}x{WIDTH} fp32", swin, images, stamp)
     print_serving(f"Swin-L {HEIGHT}x{WIDTH} bf16", swin_bf16, images[1:2], stamp)
     for (h, w, dt), r in r50.items():
@@ -1196,7 +1356,7 @@ def main() -> int:
         "name": "msda_fwd",
         "route": "cuda",
         "source": "codetr_torch/csrc/msda_fwd.cu",
-        "replaces": "codetr_tpu/ops/msda_win.py:637",
+        "replaces": "codetr_tpu/ops/msda_win.py:711",
         "launches": main_launches,
         # over the checks at every serving size
         "max_abs_err": max(e["max_abs_err_fp32"] for pair in fwd_errs.values() for e in pair),
@@ -1209,6 +1369,10 @@ def main() -> int:
         "library_ms": None,
         "per_call": per_call,
         "max_abs_err_bf16": max(e["max_abs_err_bf16"] for pair in fwd_errs.values() for e in pair),
+        "encoder_design": "shared-memory query tiles (msda_packed_fwd); decoder: direct gather",
+        "staged_share": {"microbenchmark": bench_share["fwd"], "swin_l_encoder": enc_stage["staged_share"],
+                         "tile_adversarial": {k: r["staged_share"] for k, r in adversarial.items()}},
+        "max_abs_err_tile_adversarial": {k: r["fwd"] for k, r in adversarial.items()},
         "card": stamp,
     }, {
         "name": "msda_qm_fwd",
@@ -1248,6 +1412,10 @@ def main() -> int:
         "per_call": per_call_bwd,
         "max_abs_err_bf16": max(enc_b["max_abs_err_bf16"], dec_b["max_abs_err_bf16"]),
         "max_abs_err_qm": enc_qm_b["max_abs_err_fp32"],
+        "encoder_design": ("shared-memory query tiles, the value gradient summed per window pixel "
+                           "(msda_packed_bwd); decoder, q-minor: direct gather"),
+        "staged_share": {"microbenchmark": bench_share["bwd"]},
+        "max_abs_err_tile_adversarial": {k: r["bwd"] for k, r in adversarial.items()},
         "card": stamp,
     }, {
         "name": "msda_shift_fwd",

@@ -3,8 +3,9 @@
 Each ``codetr_torch/csrc/<name>.cu`` has a plain C interface and is compiled
 by ``nvcc`` for Hopper (``sm_90a``) into a shared library that is loaded with
 ``ctypes``.  The library is built at first use into ``codetr_torch/_build/``
-(listed in ``.gitignore``) under a name keyed by the hash of the source and
-the flags, so an edited source is rebuilt and an unchanged one is reused.
+(listed in ``.gitignore``) under a name keyed by the hash of the source, the
+shared ``csrc/*.cuh`` headers and the flags, so an edited source is rebuilt
+and an unchanged one is reused.
 Nothing here runs at import time.
 """
 
@@ -63,7 +64,9 @@ def load(name: str) -> Built:
     if name in _loaded:
         return _loaded[name]
     src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the shared headers too: a source that includes an edited one is rebuilt
+    headers = b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     so = BUILD_DIR / f"{name}-{digest}.so"
     log_path = so.with_suffix(".log")
     seconds = 0.0

@@ -44,7 +44,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from codetr_torch.ops import _build
+from codetr_torch.ops import _build, msda_tiles
 
 Shapes = Sequence[Tuple[int, int]]
 
@@ -185,13 +185,29 @@ def msda_backward_plain(
         return torch.autograd.grad(out, leaves, grad_out.to(out.dtype))
 
 
+# the tile plan's arrays, then halo and smem_bytes
+_PLAN_ARRAYS = ("tile_h", "tile_w", "win_h", "win_w", "staged", "off_b", "off_acc")
+_PLAN_ARGTYPES = (*[ctypes.POINTER(ctypes.c_int)] * len(_PLAN_ARRAYS), ctypes.c_int, ctypes.c_int)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_arrays(plan: msda_tiles.TilePlan):
+    arrays = plan.c_arrays()
+    return tuple((ctypes.c_int * len(arrays[k]))(*arrays[k]) for k in _PLAN_ARRAYS)
+
+
+def _plan_args(plan: msda_tiles.TilePlan):
+    """The C entries' plan arguments for ``plan``."""
+    return (*_plan_arrays(plan), plan.halo, plan.smem_bytes)
+
+
 @functools.cache
 def _fwd_lib() -> ctypes.CDLL:
     """The built forward kernel library, with its C signatures declared."""
     lib = _build.load("msda_fwd").lib
     p, i = ctypes.c_void_p, ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.msda_packed_fwd.argtypes = [p, p, p, i, i, i, i, i, i, i, i, ip, ip, p]
+    lib.msda_packed_fwd.argtypes = [p, p, p, i, i, i, i, i, i, i, i, ip, ip, *_PLAN_ARGTYPES, p]
     lib.msda_packed_fwd.restype = i
     lib.msda_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ip, ip, p]
     lib.msda_fwd.restype = i
@@ -206,7 +222,7 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("msda_bwd").lib
     p, i = ctypes.c_void_p, ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.msda_packed_bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, ip, ip, p]
+    lib.msda_packed_bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, ip, ip, *_PLAN_ARGTYPES, p]
     lib.msda_packed_bwd.restype = i
     lib.msda_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, ip, ip, p]
     lib.msda_bwd.restype = i
@@ -242,13 +258,15 @@ def _launch_packed(value, spatial_shapes, cpk, num_points):
     _kernel_checks(value, spatial_shapes, cpk)
     bs, K, h, d = value.shape
     lib = _fwd_lib()
+    plan = msda_tiles.encoder_tile_plan(spatial_shapes, value.dtype, head_dim=d, points=num_points)
     out = torch.empty(bs, K, h * d, dtype=value.dtype, device=value.device)
     hs, ws = _level_arrays(spatial_shapes)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.msda_packed_fwd(
             value.data_ptr(), cpk.data_ptr(), out.data_ptr(), _DTYPE_CODE[value.dtype],
-            bs, K, h, d, len(spatial_shapes), num_points, cpk.shape[2], hs, ws, stream,
+            bs, K, h, d, len(spatial_shapes), num_points, cpk.shape[2], hs, ws,
+            *_plan_args(plan), stream,
         )
     _raise_on(err, "msda_packed_fwd")
     launches += 1
@@ -292,6 +310,8 @@ def _launch_packed_bwd(value, spatial_shapes, cpk, num_points, grad_out):
     _kernel_checks(value, spatial_shapes, cpk, g)
     L, C = len(spatial_shapes), cpk.shape[2]
     lib = _bwd_lib()
+    plan = msda_tiles.encoder_tile_plan(spatial_shapes, value.dtype, head_dim=d, points=num_points,
+                                        backward=True)
     # fp32 accumulator for the kernel's atomics, zeroed
     grad_value = torch.zeros(bs, K, h, d, dtype=torch.float32, device=value.device)
     grad_cpk = torch.zeros(bs, K, C, dtype=torch.float32, device=value.device)
@@ -301,7 +321,7 @@ def _launch_packed_bwd(value, spatial_shapes, cpk, num_points, grad_out):
         err = lib.msda_packed_bwd(
             value.data_ptr(), cpk.data_ptr(), g.data_ptr(), grad_value.data_ptr(),
             grad_cpk.data_ptr(), _DTYPE_CODE[value.dtype], bs, K, h, d, L, num_points, C,
-            hs, ws, stream,
+            hs, ws, *_plan_args(plan), stream,
         )
     _raise_on(err, "msda_packed_bwd")
     launches_bwd += 1

@@ -392,3 +392,106 @@ def test_cuda_gatherbench_matches_plain(cuda_device):
             assert (got - want).abs().max() <= 1e-6 * want.abs().max(), key
         else:
             assert torch.equal(got, want), key
+
+
+# odd level sets for the tiled encoder kernels; the later levels are smaller
+# than their query tiles (the 608x608 pyramid ends in a 10x10 level)
+TILED_SHAPES = [
+    ((37, 53), (19, 27), (10, 14), (5, 7)),
+    ((20, 30), (10, 15), (5, 8), (3, 4), (2, 2)),
+]
+
+
+def tiled_inputs(rng, shapes, bs=2, h=4, d=32, P=4, halo=5):
+    """Grid-query taps for the tiled encoder kernels: value (bs, K, h, d),
+    loc (bs, K, h, L, P, 2), w (bs, K, h, L, P), float32.  Each tap is its
+    query's reference point plus up to halo + 2 target pixels on each axis
+    (inside its tile's window and just outside it); 10% are far taps
+    (anywhere within a level size of the level) and 20% sit on exact pixel
+    centres (grid lines)."""
+    K, L = sum(hh * ww for hh, ww in shapes), len(shapes)
+    refs = np.concatenate([
+        np.stack(np.meshgrid((np.arange(ww) + 0.5) / ww, (np.arange(hh) + 0.5) / hh, indexing="xy"),
+                 -1).reshape(-1, 2)
+        for hh, ww in shapes
+    ])  # (K, 2) xy
+    size = np.asarray([[ww, hh] for hh, ww in shapes], np.float64)[:, None, :]  # (L, 1, xy)
+    off = rng.uniform(-(halo + 2), halo + 2, (bs, K, h, L, P, 2))
+    loc = refs[None, :, None, None, None, :] + off / size
+    far = rng.random((bs, K, h, L, P)) < 0.1
+    loc[far] = rng.uniform(-1.0, 2.0, (int(far.sum()), 2))
+    exact = rng.random((bs, K, h, L, P)) < 0.2
+    loc = np.where(exact[..., None], (np.round(loc * size - 0.5) + 0.5) / size, loc)
+    value = rng.standard_normal((bs, K, h, d))
+    w = rng.uniform(0, 1, (bs, K, h, L, P))
+    w = w / w.sum(axis=(-1, -2), keepdims=True)
+    return value.astype(np.float32), loc.astype(np.float32), w.astype(np.float32)
+
+
+def check_tiled(device, dtype, shapes, value, loc, w):
+    """The packed forward and backward (one launch each) against their plain
+    versions: fp32 to 1e-5 of scale, bf16 within its rounding; pad columns
+    of the packed gradient zero."""
+    bs, K, h, L, P = w.shape
+    d = value.shape[3]
+    v = torch.from_numpy(value).to(device, dtype)
+    loc_t, w_t = torch.from_numpy(loc).to(device), torch.from_numpy(w).to(device)
+    cpk = torch.from_numpy(pack(loc, w, pad_to=3 * h * L * P + 5)).to(device)
+    before = port_msda.launches
+    got = port_msda.msda_grid_packed(v, shapes, cpk, P)
+    torch.cuda.synchronize()
+    assert port_msda.launches == before + 1 and got.dtype == dtype
+    want = port_msda.multi_scale_deformable_attention_plain(v.float(), shapes, loc_t, w_t)
+    if dtype == torch.float32:
+        assert_close(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5)
+    else:
+        assert_within_bf16_rounding(got, want)
+
+    g = torch.from_numpy(np.random.default_rng(K).standard_normal((bs, K, h * d)).astype(np.float32))
+    g = g.to(device, dtype)
+    before = port_msda.launches_bwd
+    grad_value, grad_cpk = port_msda._launch_packed_bwd(v, shapes, cpk, P, g)
+    torch.cuda.synchronize()
+    assert port_msda.launches_bwd == before + 1
+    assert not grad_cpk[..., 3 * h * L * P:].any()
+    plain = port_msda.msda_backward_plain(v.float(), shapes, loc_t[..., 0], loc_t[..., 1], w_t, g.float())
+    assert_grads_match_plain((grad_value, *port_msda._unpack(grad_cpk, h, L, P)), plain,
+                             dtype == torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [30, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_tiled_packed_matches_plain(cuda_device, dtype, d):
+    """The tiled encoder kernels (``msda_packed_fwd`` / ``msda_packed_bwd``)
+    at small odd shapes, batch 2, taps in and just out of their windows,
+    far and on grid lines, at one, two and four channel slices a lane, and
+    at a head dim that is not a multiple of 4 (the window copies and the
+    backward's per-pixel sums without vector accesses); some levels are
+    smaller than their query tiles."""
+    from codetr_torch.ops import msda_tiles
+
+    for i, shapes in enumerate(TILED_SHAPES):
+        plan = msda_tiles.encoder_tile_plan(shapes, dtype, head_dim=d)
+        assert any(th > hh or tw > ww for (hh, ww), (th, tw) in zip(shapes, plan.tiles))
+        check_tiled(cuda_device, dtype, shapes, *tiled_inputs(np.random.default_rng(80 + i), shapes, d=d))
+
+
+# the 768x1152 serving pyramid (K = 73,656)
+SERVING_SHAPES = ((192, 288), (96, 144), (48, 72), (24, 36), (12, 18))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_tiled_packed_with_unstaged_pairs(cuda_device, dtype):
+    """The 768x1152 plans stage some pairs and read others directly (the
+    coarse query levels onto the finest target levels): the pairs read
+    directly are planned reads of the same kernel, and the result is the
+    same function."""
+    from codetr_torch.ops import msda_tiles
+
+    shapes = SERVING_SHAPES
+    for backward in (False, True):
+        staged = msda_tiles.encoder_tile_plan(shapes, dtype, head_dim=32, backward=backward).staged
+        assert all(staged[0]) and not all(map(all, staged))
+    check_tiled(cuda_device, dtype, shapes, *tiled_inputs(np.random.default_rng(90), shapes, h=2))
