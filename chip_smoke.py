@@ -15,9 +15,10 @@ Phases (any failure raises, and the script exits non-zero without a result):
    ``multi_scale_deformable_attention(grid_queries=True)``; decoder: 900
    queries with 4-coordinate references), and the forward's packed and
    reference entries at R50's 608x608 shapes too (K = 30,785), value in
-   fp32 and in bf16; then the tiled encoder entries (forward and backward)
-   on taps placed against their shared-memory windows (edges, one pixel
-   out, halo + 1, grid lines, far), batch 2, at both sizes;
+   fp32 and in bf16; then the tiled grid-query entries (the packed forward
+   and backward, K1 and K2, and the q-minor forward, K3) on taps placed
+   against their shared-memory windows (edges, one pixel out, halo + 1,
+   grid lines, far), batch 2, at both sizes;
 4. check the full-width Swin-L model's inference forward on the card
    against the same model run on the CPU through the plain versions, at a
    small input;
@@ -32,7 +33,9 @@ Phases (any failure raises, and the script exits non-zero without a result):
    768x1152 bf16 (3 images each, 12 forward launches per image); then the
    shift-window MSDA kernel (K4) against its plain version at the 768x1152
    and 608x608 encoder shapes (radius 5 and 4, and a window limit that
-   sends every cross-level pair through the coarse-pair escape), the
+   sends every cross-level pair through the coarse-pair escape), and on its
+   own tile-adversarial taps (window cells 0 and W - 1, one cell and more
+   outside, the edges of the tile's window, far; batch 2), the
    corrected ``msda_grid_qm(impl="grid_pallas" | "grid")`` against the
    exact function with its launch counts and its gradient, the Swin-L
    encoder stage with ``msda_impl="grid_pallas"`` against ``"auto"`` (one
@@ -48,15 +51,17 @@ Phases (any failure raises, and the script exits non-zero without a result):
    at a batch that does not fit the card without it, checking that each
    step launched the forward and the backward kernel 12 times each and that
    the loss stays finite;
-7. time the kernels, their plain versions (the encoder entries also beside
-   the direct-gather entries on the same taps, with those taps' staged
-   share), the end-to-end latency and the train step, and print them
-   beside the card's name and power limit, then the ``kernels`` line and,
-   last, the result line.
+7. time the kernels, their plain versions (the tiled entries also beside
+   the direct-gather design on the same taps, with those taps' staged
+   share; K3 beside packing its coordinates for K1 and running K1), the
+   end-to-end latency and the train step, and print them beside the card's
+   name and power limit, then the ``kernels`` line and, last, the result
+   line.
 
-All comparisons run with TF32 off (``allow_tf32 = False`` for matmul and
-cuDNN), so fp32 means fp32 on both sides; the latency and step figures are
-therefore full-fp32 figures too.
+The script leaves PyTorch's TF32 flags at their defaults (printed at the
+start), as a user's process has them: the port's fp32 forward and train
+step pin full fp32 themselves, so the fp32 comparisons, latencies and step
+times are full-fp32 figures.
 """
 
 from __future__ import annotations
@@ -77,6 +82,7 @@ import torch
 
 from codetr_torch import Inferencer, build_codetr, co_dino_r50, co_dino_swin_l
 from codetr_torch.bench import verify_inputs, verify_msda_on_card
+from codetr_torch.models.codetr import full_fp32
 from codetr_torch.ops import _build
 from codetr_torch.ops import msda, msda_grid, msda_tiles
 from codetr_torch.parallel.losses import dino_detection_loss
@@ -351,6 +357,18 @@ def print_plans(builds, stamp):
                       f"{plan.n_tiles}, windows per (lq, lt) {plan.windows}, {staged} of "
                       f"{len(shapes) ** 2} pairs staged {plan.staged}, shared memory "
                       f"{plan.smem_bytes} bytes per block [{stamp}]")
+    plan = msda_tiles.encoder_tile_plan(level_shapes(*VERIFY_HW), torch.float32)
+    print(f"tile plan {VERIFY_HW[0]}x{VERIFY_HW[1]} (the gate, K3) fwd float32: windows per (lq, lt) "
+          f"{plan.windows}, {sum(map(sum, plan.staged))} of 25 pairs staged {plan.staged}, shared memory "
+          f"{plan.smem_bytes} bytes per block [{stamp}]")
+    for hw in ((HEIGHT, WIDTH), R50_SERVING[0][:2]):
+        for radius, max_window in SHIFT_CASES:
+            for dtype in (torch.float32, torch.bfloat16):
+                plan = msda_grid.shift_tile_plan(level_shapes(*hw), dtype, radius, max_window)
+                print(f"K4 tile plan {hw[0]}x{hw[1]} radius {radius} max_window {max_window} "
+                      f"{str(dtype).split('.')[-1]}: windows per (lq, lt) {plan.windows}, "
+                      f"{sum(map(sum, plan.staged))} of 25 pairs staged {plan.staged}, shared memory "
+                      f"{plan.smem_bytes} bytes per block [{stamp}]")
     for built in builds:
         lines = built.log.splitlines()
         for i, line in enumerate(lines):
@@ -427,6 +445,12 @@ def adversarial_checks(stamp):
             lambda v: msda.msda_grid_packed(v, shapes, cpk, P),
             lambda v: msda.msda_grid_packed_plain(v, shapes, cpk, P), stamp,
         )
+        qm = to_qm(loc, w)
+        fwd_qm = check_kernel(
+            f"encoder MSDA {size} tile-adversarial (q-minor, K3, batch 2)", value,
+            lambda v: msda.msda_grid_qm(v, shapes, *qm),
+            lambda v: msda.msda_reference_qm(v, shapes, *qm), stamp,
+        )
         g = torch.randn(value.shape[0], value.shape[1], 256,
                         generator=torch.Generator(device=DEVICE).manual_seed(SEED + 10), device=DEVICE)
         bwd = check_backward(
@@ -434,8 +458,8 @@ def adversarial_checks(stamp):
             lambda v, gg: split_packed(*msda._launch_packed_bwd(v, shapes, cpk, P, gg), 8, L, P),
             lambda v, gg: plain_backward(v, shapes, loc, w, gg), stamp,
         )
-        res[size] = {"fwd": fwd, "bwd": bwd, "staged_share": share[0] / share[1]}
-        del value, loc, w, cpk, g
+        res[size] = {"fwd": fwd, "fwd_qm": fwd_qm, "bwd": bwd, "staged_share": share[0] / share[1]}
+        del value, loc, w, cpk, g, qm
     torch.cuda.empty_cache()
     return res
 
@@ -649,9 +673,10 @@ def run_training(cfg, batch, timed=3, split=False):
         with torch.no_grad():
             return model.train_outputs(x, mask)
 
-    def fwd_bwd():
+    def fwd_bwd():  # in full fp32, as the step runs it
         model.zero_grad(set_to_none=True)
-        loss().backward()
+        with full_fp32():
+            loss().backward()
 
     def host_ms(fn, reps=3):
         fn()
@@ -716,7 +741,8 @@ def fwd_bwd_peak(cfg, batch):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     try:
-        dino_detection_loss(model.train_outputs(x, mask), *targets)[0].backward()
+        with full_fp32():  # as the step runs it
+            dino_detection_loss(model.train_outputs(x, mask), *targets)[0].backward()
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
     except torch.cuda.OutOfMemoryError:
@@ -911,6 +937,79 @@ def shift_checks(stamp):
     return errs
 
 
+def shift_adversarial_taps(shapes, radius, max_window, batch=2, heads=8, dim=32, points=4):
+    """K4's tile-adversarial taps, q-minor, batch ``batch``: on each axis, at
+    random, the window coordinate ``t = pos - anchor + (R + 1)`` exactly on
+    cell 0 or on cell W - 1, one cell outside (a corner in, a corner out),
+    wholly outside (both corners out), on the first or last pixel of the
+    tile's window of the pair (``shift_tile_plan``), or inside; 10% of the
+    taps far (anywhere within half a level of it).  Each location is nudged
+    by an ulp where needed so that the kernel's rounded ``loc * size - 0.5``
+    lands exactly on the intended pixel.  Returns value (batch, K, h, d)
+    fp32, x, y, w (batch, h, L, P, K)."""
+    plan = msda_grid.shift_tile_plan(shapes, torch.float32, radius, max_window)
+    ax, ay, r1 = msda_grid._query_anchors(msda_grid._key(shapes), radius, max_window, DEVICE)
+    wy0, wx0, wh, ww, _ = msda_tiles.query_windows(plan, DEVICE)  # (K, L)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    K, L = ax.shape
+    shape = (batch, heads, L, points, K)
+
+    def axis(anchor, start, size, n):
+        n = torch.tensor(n, dtype=torch.float32, device=DEVICE).view(1, 1, L, 1, 1)
+        a, s0, z, c1 = (t.float().T.reshape(1, 1, L, 1, K) for t in (anchor, start, size, r1))
+        last = 2 * c1  # W - 1
+        u = torch.rand(shape, generator=g, device=DEVICE) * 0.98 + 0.01
+        t = torch.stack(torch.broadcast_tensors(
+            torch.zeros_like(u), last, -u, last + u, -1 - u, last + 1 + u,
+            s0 - a + c1, s0 + z - 1 - a + c1, u * last))
+        kind = torch.randint(0, len(t), shape, generator=g, device=DEVICE)
+        pos = t.gather(0, kind[None])[0] + a - c1
+        far = torch.rand(shape, generator=g, device=DEVICE) < 0.1
+        pos = torch.where(far, (torch.rand(shape, generator=g, device=DEVICE) * 2 - 0.5) * n, pos)
+        loc = (pos + 0.5) / n
+        for _ in range(2):  # land loc * n - 0.5 on pos where fp32 allows
+            back = loc * n - 0.5
+            loc = torch.where(back < pos, torch.nextafter(loc, loc + 1),
+                              torch.where(back > pos, torch.nextafter(loc, loc - 1), loc))
+        return loc.contiguous()
+
+    x = axis(ax, wx0, ww, [w_ for _, w_ in shapes])
+    y = axis(ay, wy0, wh, [h_ for h_, _ in shapes])
+    w = torch.randn(batch, K, heads, L * points, generator=g, device=DEVICE).softmax(-1)
+    w = w.reshape(batch, K, heads, L, points).permute(0, 2, 3, 4, 1).contiguous()
+    value = torch.randn(batch, K, heads, dim, generator=g, device=DEVICE)
+    return value, x, y, w
+
+
+def shift_adversarial_checks(stamp):
+    """K4 against its plain version on ``shift_adversarial_taps`` at both
+    serving sizes, batch 2, radius 5 with idealised anchors (``max_window``
+    31) and with every cross-level pair on the coarse-pair escape (13), fp32
+    and bf16 values, with the tolerances of ``check_kernel``; prints the
+    share of the truncated function's corner reads that the plan serves
+    from shared memory."""
+    res = {}
+    for hw in ((HEIGHT, WIDTH), R50_SERVING[0][:2]):
+        shapes = level_shapes(*hw)
+        for radius, max_window in ((5, 31), (5, 13)):
+            value, x, y, w = shift_adversarial_taps(shapes, radius, max_window)
+            plan = msda_grid.shift_tile_plan(shapes, torch.float32, radius, max_window)
+            served, total = msda_grid.shift_staged_share(plan, shapes, x, y, w, radius, max_window)
+            key = f"{hw[0]}x{hw[1]} radius {radius} max_window {max_window}"
+            print(f"K4 tile-adversarial taps {key}, batch 2: {served} of {total} corner reads in a "
+                  f"staged window ({served / total:.4f})")
+            errs = check_kernel(
+                f"shift-window MSDA {key} tile-adversarial (batch 2)", value,
+                lambda v: msda_grid.msda_grid_shift_qm(v, shapes, x, y, w, radius=radius,
+                                                       max_window=max_window),
+                lambda v: msda_grid.msda_shift_plain(v, shapes, x, y, w, radius, max_window), stamp,
+            )
+            res[key] = {**errs, "staged_share": served / total}
+            del value, x, y, w
+    torch.cuda.empty_cache()
+    return res
+
+
 def rel_to_scale(got, want) -> float:
     return ((got.float() - want.float()).abs().max() / max(want.abs().max().item(), 1.0)).item()
 
@@ -1045,13 +1144,32 @@ def encoder_stage(cfg, image, stamp, reps=3):
             "staged_share": share, "staged_share_per_layer": [a / b for a, b in shares]}
 
 
+def unstaged(plan):
+    """``plan`` with no pair staged: every corner read from global memory."""
+    return replace(plan, staged=tuple(tuple(False for _ in row) for row in plan.staged))
+
+
+def shift_direct_ms(v, shapes, x, y, w, reps):
+    """K4's kernel with no pair staged (the direct gather through the same
+    kernel): the plan swapped for the timing only."""
+    plan_fn = msda_grid.shift_tile_plan
+    msda_grid.shift_tile_plan = lambda *a, **k: unstaged(plan_fn(*a, **k))
+    try:
+        return cuda_ms(functools.partial(msda_grid.msda_grid_shift_qm, v, shapes, x, y, w,
+                                         radius=GRID_RADIUS), reps)
+    finally:
+        msda_grid.shift_tile_plan = plan_fn
+
+
 def shift_timings(stamp):
     """K4 per call at 768x1152 (radius 5, the jitter-only taps: every tap in
     its window, so the truncated function is the exact one and the bytes
     bound counts the rows the taps touch), fp32 and bf16, beside its plain
-    version and K3 on the same taps."""
+    version, K3 on the same taps and the kernel with no pair staged."""
     value, shapes, x, y, w = shift_inputs((HEIGHT, WIDTH), far=0.0)
-    per_call = {}
+    plan = msda_grid.shift_tile_plan(shapes, torch.float32, GRID_RADIUS)
+    served, total = msda_grid.shift_staged_share(plan, shapes, x, y, w, GRID_RADIUS)
+    per_call = {"staged_share": served / total}
     for name, v in (("encoder", value), ("encoder_bf16", value.to(torch.bfloat16))):
         b_ms, b_by, nbytes, flops = bound_ms(v, shapes, *from_qm(x, y, w), v.dtype)
         r = per_call[name] = {
@@ -1060,12 +1178,14 @@ def shift_timings(stamp):
             "plain_ms": cuda_ms(functools.partial(msda_grid.msda_shift_plain, v, shapes, x, y, w,
                                                   GRID_RADIUS), 3),
             "k3_ms": cuda_ms(functools.partial(msda.msda_grid_qm, v, shapes, x, y, w), 20),
+            "direct_gather_ms": shift_direct_ms(v, shapes, x, y, w, 20),
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
         }
         print(f"msda_shift_fwd {name} (K = {v.shape[1]}, radius {GRID_RADIUS}): kernel "
               f"{r['ms']:.4f} ms/call, plain {r['plain_ms']:.4f} ms/call, K3 on the same taps "
-              f"{r['k3_ms']:.4f} ms/call, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.2f} GFLOP) [{stamp}]")
+              f"{r['k3_ms']:.4f} ms/call, no pair staged {r['direct_gather_ms']:.4f} ms/call, "
+              f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
+              f"staged share {served / total:.6f} [{stamp}]")
     return per_call
 
 
@@ -1104,13 +1224,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
         return 1
-    # reference comparisons below are full fp32 on both sides
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
-    # 1. the card
+    # 1. the card; PyTorch's TF32 flags as a user's process has them
     stamp = card()
     print(stamp)
+    print(f"TF32 flags left at PyTorch's defaults: torch.backends.cudnn.allow_tf32 "
+          f"{torch.backends.cudnn.allow_tf32}, torch.backends.cuda.matmul.allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, python {sys.version.split()[0]}")
 
@@ -1224,6 +1344,7 @@ def main() -> int:
     # corrected dispatch, then the flagship's encoder stage through it; and
     # the gather microbenchmarks (K5)
     shift_errs = shift_checks(stamp)
+    shift_adversarial = shift_adversarial_checks(stamp)
     dispatch = dispatch_checks(stamp)
     enc_stage = encoder_stage(cfg, images[-1], stamp)
     gbench = gatherbench_phase(stamp)
@@ -1278,22 +1399,38 @@ def main() -> int:
           f"{share_fwd[0]} of {share_fwd[1]} corner reads ({bench_share['fwd']:.6f}), backward "
           f"{share_bwd[0]} ({bench_share['bwd']:.6f}) [{stamp}]")
     # the q-minor kernel (K3's counterpart): at the encoder shapes above
-    # and at the gate's 1280x1920 shapes, its own path's call
+    # and at the gate's 1280x1920 shapes, its own path's calls; beside it
+    # the direct-gather design on the same taps (the reference-layout
+    # entry) and packing the coordinates for K1, then K1
     per_call_qm = {}
     qm = to_qm(loc_e, w_e)
     gate_in = verify_inputs(*VERIFY_HW, torch.float32)
     for name, v, shp, xyw, reps in (("encoder", value, shapes, qm, (20, 3)),
                                     ("encoder_bf16", value.to(torch.bfloat16), shapes, qm, (20, 3)),
-                                    ("gate", gate_in[0], gate_in[1], gate_in[2:], (10, 2))):
-        b_ms, b_by, nbytes, flops = bound_ms(v, shp, *from_qm(*xyw), v.dtype)
+                                    ("gate", gate_in[0], gate_in[1], gate_in[2:], (10, 2)),
+                                    ("gate_bf16", gate_in[0].to(torch.bfloat16), gate_in[1], gate_in[2:],
+                                     (10, 2))):
+        loc_r, w_r = (t.contiguous() for t in from_qm(*xyw))
+        b_ms, b_by, nbytes, flops = bound_ms(v, shp, loc_r, w_r, v.dtype)
+        served, total = msda_tiles.staged_share(msda_tiles.encoder_tile_plan(shp, v.dtype),
+                                                loc_r[..., 0], loc_r[..., 1], w_r)
         r = per_call_qm[name] = {
             "ms": cuda_ms(functools.partial(msda.msda_grid_qm, v, shp, *xyw), reps[0]),
             "plain_ms": cuda_ms(functools.partial(msda.msda_reference_qm, v, shp, *xyw), reps[1]),
+            "direct_gather_ms": cuda_ms(functools.partial(
+                msda.multi_scale_deformable_attention, v, shp, loc_r, w_r), reps[0]),
+            "pack_then_k1_ms": cuda_ms(lambda: msda.msda_grid_packed(
+                v, shp, msda.pack_coords_qmajor(*xyw), xyw[0].shape[3]), reps[0]),
+            "staged_share": served / total,
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
         }
         print(f"msda_qm_fwd {name} (K = {v.shape[1]}): kernel {r['ms']:.4f} ms/call, plain "
-              f"{r['plain_ms']:.4f} ms/call, bound {r['bound_ms']:.4f} ms ({b_by}: "
-              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) [{stamp}]")
+              f"{r['plain_ms']:.4f} ms/call, direct gather (msda_fwd) on the same taps "
+              f"{r['direct_gather_ms']:.4f} ms/call ({r['direct_gather_ms'] / r['ms']:.2f}x), "
+              f"pack_coords_qmajor + K1 {r['pack_then_k1_ms']:.4f} ms/call, bound "
+              f"{r['bound_ms']:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
+              f"staged share {r['staged_share']:.6f} [{stamp}]")
+        del loc_r, w_r
     del gate_in
     per_call_shift = shift_timings(stamp)
 
@@ -1392,6 +1529,15 @@ def main() -> int:
         "max_abs_err_bf16": max(enc_qm["max_abs_err_bf16"], enc_gq["max_abs_err_bf16"],
                                 gate[torch.bfloat16]["max_abs_err"]),
         "out_of_envelope_count": "n/a: exact kernel",
+        "design": "shared-memory query tiles, K1's plan and loop (msda_tiles.cuh), q-minor coordinates "
+                  "read to registers",
+        "staged_share": {"gate": per_call_qm["gate"]["staged_share"],
+                         "microbenchmark": per_call_qm["encoder"]["staged_share"],
+                         "tile_adversarial": {k: r["staged_share"] for k, r in adversarial.items()}},
+        # the direct-gather design on the gate's taps: the reference-layout entry
+        "direct_gather_ms": per_call_qm["gate"]["direct_gather_ms"],
+        "pack_then_k1_ms": per_call_qm["gate"]["pack_then_k1_ms"],
+        "max_abs_err_tile_adversarial": {k: r["fwd_qm"] for k, r in adversarial.items()},
         "card": stamp,
     }, {
         "name": "msda_bwd",
@@ -1437,6 +1583,15 @@ def main() -> int:
         "out_of_envelope_count": {"dispatch": dispatch["out_of_envelope"],
                                   "encoder_layers": enc_stage["out_of_envelope"]},
         "encoder_stage_ms": enc_stage["ms"],
+        "design": "shared-memory query tiles (msda_tiles.cuh's loop) with windows around the anchors "
+                  "(shift_tile_plan)",
+        "staged_share": {"timing_taps": per_call_shift["staged_share"],
+                         "tile_adversarial": {k: r["staged_share"] for k, r in shift_adversarial.items()}},
+        # the same kernel with no pair staged (every corner from global
+        # memory), 6 calls
+        "direct_gather_ms": n_enc * per_call_shift["encoder"]["direct_gather_ms"],
+        "max_abs_err_tile_adversarial": {k: {e: r[e] for e in ("max_abs_err_fp32", "max_abs_err_bf16")}
+                                         for k, r in shift_adversarial.items()},
         "card": stamp,
     }, {
         "name": "gatherbench",

@@ -108,19 +108,16 @@ struct Stream {
   long long t_stride;  // between taps (level-major, then point)
 };
 
-// Offset of one (batch, query, head) row in a stream; only the q-minor
-// layout splits bq into batch and query (see msda_fwd.cu's row_offset).
+// Offset of one (batch, query, head) row in a stream.  Only a layout whose
+// batch stride is not Q * q_stride (q-minor) splits bq = batch * Q + query:
+// the split puts a second 64-bit division in front of the coordinate loads,
+// which cost the packed direct gather ~3% on the card (PERF.md).
 template <bool kSplitBatch>
 __device__ __forceinline__ long long row_offset(const Stream& s, long long bq,
                                                 long long b, int Q, int head) {
   const long long r =
       kSplitBatch ? b * s.b_stride + (bq - b * Q) * s.q_stride : bq * s.q_stride;
   return r + head * s.h_stride;
-}
-
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

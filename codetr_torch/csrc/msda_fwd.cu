@@ -15,37 +15,39 @@
 //
 // Two designs, one per kind of query:
 //
-// The encoder (msda_packed_fwd, K1's contract): tiles in shared memory.
-// The queries are the level-concatenated pixel grid, so a tile of
-// same-level queries samples a bounded window of each target level
-// (msda_tiles.cuh; the plan is ops/msda_tiles.py's).  One block of 32 warps
-// per (batch, tile, head); the tile's queries are split over the warps.
-// For each target level the block copies the pair's window of this head's
-// channels into shared memory with cp.async, level lt + 1 into the second
-// region while it samples level lt.  A warp takes its queries' taps of
-// level lt (contiguous in the (h, L, P) packed order) in rounds of whole
-// queries, one lane per tap for the geometry (fractions, validity, first
-// corner's key and window pixel), and loads the next round's coordinates
-// before it samples the current one.  The warp broadcasts each tap's four
-// corner weights (0 outside the level), window pixel and corner mask with
-// shuffles, and the lanes run over the head's channels (one lane per
-// channel, up to four slices for d <= 128).  A tap whose valid corners all
-// lie in the staged window reads them with four shared-memory loads and no
-// branch; any other tap (outside the window, or of a pair whose window does
-// not fit the budget) reads its four corners from global memory the same
-// way, at keys clamped into the level, so the function stays exact.
-// Per-query partial sums go into an fp32 accumulator in shared memory that
-// each warp owns for its queries; the output is written in the value's
-// dtype at the end.  In shared memory one pixel's 32 fp32 channels lie in
-// 32 banks, and 32 bf16 channels in 16 words that lane pairs share, so the
-// corner reads do not conflict.
+// The grid queries (msda_packed_fwd, K1's contract; msda_qm_fwd, K3's):
+// tiles in shared memory.  The queries are the level-concatenated pixel
+// grid, so a tile of same-level queries samples a bounded window of each
+// target level (msda_tiles.cuh holds the kernel, msda_tile_fwd_kernel; the
+// plan is ops/msda_tiles.py's, the same for both entries).  One block of 32
+// warps per (batch, tile, head); the tile's queries are split over the
+// warps.  For each target level the block copies the pair's window of this
+// head's channels into shared memory with cp.async, level lt + 1 into the
+// second region while it samples level lt.  A warp takes its queries' taps
+// of level lt in rounds of whole queries, one lane per tap for the geometry
+// (fractions, validity, first corner's key and window pixel), and loads the
+// next round's coordinates before it samples the current one: from the
+// packed rows (K1) or from the q-minor planes (K3), where the lanes of one
+// point hold consecutive keys of a tile row.  The warp broadcasts each
+// tap's four corner weights (0 outside the level), window pixel and corner
+// mask with shuffles, and the lanes run over the head's channels (one lane
+// per channel, up to four slices for d <= 128).  A tap whose valid corners
+// all lie in the staged window reads them with four shared-memory loads
+// and no branch; any other tap (outside the window, or of a pair whose
+// window does not fit the budget) reads its four corners from global
+// memory the same way, at keys clamped into the level, so the function
+// stays exact.  Per-query partial sums go into an fp32 accumulator in
+// shared memory that each warp owns for its queries; the output is written
+// in the value's dtype at the end.  In shared memory one pixel's 32 fp32
+// channels lie in 32 banks, and 32 bf16 channels in 16 words that lane
+// pairs share, so the corner reads do not conflict.
 //
-// The decoder and the q-minor entry (msda_fwd, msda_qm_fwd): a direct
-// gather.  One warp per (batch, query, head), lanes over channels; the warp
-// loads up to 32 taps' coordinates at once, one tap per lane, broadcasts
-// them, and every lane computes the same corner geometry; each valid
-// corner reads the head's d contiguous channels (one 128-byte row in fp32)
-// through L2.  The decoder's 900 box queries have no tile locality.
+// The decoder (msda_fwd): a direct gather.  One warp per (batch, query,
+// head), lanes over channels; the warp loads up to 32 taps' coordinates at
+// once, one tap per lane, broadcasts them, and every lane computes the
+// same corner geometry; each valid corner reads the head's d contiguous
+// channels (one 128-byte row in fp32) through L2.  The decoder's 900 box
+// queries have no tile locality.
 //
 // What bounds it: bytes.  An encoder call at 768x1152 must move ~0.3 GB
 // (value, coordinates, output) for ~3 GFLOP, far below the card's FLOP/byte
@@ -60,15 +62,12 @@
 //   msda_packed_fwd: the encoder's packed (bs, K, C) [x(HLP) | y(HLP) |
 //                    w(HLP) | pad] tensor, HLP = heads*levels*points in
 //                    (h, L, P) order (K1's contract), plus the tile plan.
+//   msda_qm_fwd:     q-minor x, y and w, each (bs, h, L, P, K) (K3's
+//                    contract), plus the same tile plan.
 //   msda_fwd:        the reference layout, sampling_locations
 //                    (bs, Q, h, L, P, 2) and attention_weights
 //                    (bs, Q, h, L, P).
-//   msda_qm_fwd:     q-minor x, y and w, each (bs, h, L, P, Q) (K3's
-//                    contract).  A warp's one-tap-per-lane coordinate loads
-//                    are Q elements apart here, so each touches its own
-//                    cache line where the packed layout's touch one; the
-//                    neighbouring queries' warps reuse those lines from L2.
-// The direct gather reads each layout through a set of element strides
+// The direct gather reads its layout through a set of element strides
 // (Stream).  All return cudaGetLastError() after the launch (or a negative
 // code for arguments the kernel does not take); none synchronises.
 
@@ -92,34 +91,12 @@ struct Levels {
 // Element strides of one coordinate stream (x, y or weights).
 struct Stream {
   const float* base;
-  long long b_stride;  // between batch entries
-  long long q_stride;  // between queries
+  long long q_stride;  // between (batch, query) rows
   long long h_stride;  // between heads
   long long t_stride;  // between taps (level-major, then point)
 };
 
-// Offset of one (batch, query, head) row in a stream.  Only a layout whose
-// batch stride is not Q * q_stride (q-minor) splits bq = batch * Q + query:
-// the split puts a second 64-bit division in front of the coordinate loads,
-// which cost the packed encoder call ~3% on the card (PERF.md).
-template <bool kSplitBatch>
-__device__ __forceinline__ long long row_offset(const Stream& s, long long bq,
-                                                long long b, int Q, int head) {
-  const long long r =
-      kSplitBatch ? b * s.b_stride + (bq - b * Q) * s.q_stride : bq * s.q_stride;
-  return r + head * s.h_stride;
-}
-
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_from_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-template <typename T, bool kSplitBatch>
+template <typename T>
 __global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK)
 msda_fwd_kernel(const T* __restrict__ value,  // (bs, K, H, D)
                 Stream xs, Stream ys, Stream ws,
@@ -137,9 +114,9 @@ msda_fwd_kernel(const T* __restrict__ value,  // (bs, K, H, D)
   const long long b = bq / Q;
   const int LP = lv.n * P;
 
-  const float* xrow = xs.base + row_offset<kSplitBatch>(xs, bq, b, Q, head);
-  const float* yrow = ys.base + row_offset<kSplitBatch>(ys, bq, b, Q, head);
-  const float* wrow = ws.base + row_offset<kSplitBatch>(ws, bq, b, Q, head);
+  const float* xrow = xs.base + bq * xs.q_stride + head * xs.h_stride;
+  const float* yrow = ys.base + bq * ys.q_stride + head * ys.h_stride;
+  const float* wrow = ws.base + bq * ws.q_stride + head * ws.h_stride;
   // row k of this (batch, head) starts at vbase + k * row_pitch
   const T* vbase = value + (b * K * H + head) * (long long)D;
   const long long row_pitch = (long long)H * D;
@@ -223,19 +200,9 @@ static int make_levels(Levels* lv, int L, const int* level_h, const int* level_w
   return 0;
 }
 
-template <typename T>
-static void launch_typed(bool split_batch, dim3 grid, dim3 block, cudaStream_t s,
-                         const void* value, Stream xs, Stream ys, Stream ws,
-                         void* out, const Levels& lv, int K, int Q, int H, int D,
-                         int P, long long n_items) {
-  auto kernel = split_batch ? msda_fwd_kernel<T, true> : msda_fwd_kernel<T, false>;
-  kernel<<<grid, block, 0, s>>>((const T*)value, xs, ys, ws, (T*)out, lv, K, Q,
-                                H, D, P, n_items);
-}
-
 static int launch(int dtype, const void* value, Stream xs, Stream ys, Stream ws,
                   void* out, const Levels& lv, int bs, int K, int Q, int H, int D,
-                  int P, bool split_batch, void* stream) {
+                  int P, void* stream) {
   if (D < 1 || D > 32 * MSDA_MAX_SLICES) return -2;
   const long long n_items = (long long)bs * Q * H;
   if (n_items == 0) return 0;
@@ -245,183 +212,15 @@ static int launch(int dtype, const void* value, Stream xs, Stream ys, Stream ws,
   const dim3 grid((unsigned)blocks), block(32 * MSDA_WARPS_PER_BLOCK);
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
-    launch_typed<float>(split_batch, grid, block, s, value, xs, ys, ws, out, lv,
-                        K, Q, H, D, P, n_items);
+    msda_fwd_kernel<float><<<grid, block, 0, s>>>((const float*)value, xs, ys, ws, (float*)out,
+                                                  lv, K, Q, H, D, P, n_items);
   } else if (dtype == 1) {
-    launch_typed<__nv_bfloat16>(split_batch, grid, block, s, value, xs, ys, ws,
-                                out, lv, K, Q, H, D, P, n_items);
+    msda_fwd_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
+        (const __nv_bfloat16*)value, xs, ys, ws, (__nv_bfloat16*)out, lv, K, Q, H, D, P, n_items);
   } else {
     return -4;
   }
   return (int)cudaGetLastError();
-}
-
-// The encoder's tiled kernel: one block of kWarps warps per (tile, head,
-// batch entry) = (blockIdx.x, blockIdx.y, blockIdx.z); S channel slices a
-// lane (d <= 32 * S).  Shared memory: the even target levels' window region
-// at 0, the odd ones' at off_b[lq], the fp32 accumulator (tile queries x D)
-// at off_acc[lq].
-//
-// A warp takes its queries in rounds of 32 / P whole queries, one lane per
-// tap, and loads the next round's coordinates before it samples the current
-// one.  A tap whose valid corners all lie in the staged window takes the
-// fast path: four shared-memory loads with no branch (a corner outside the
-// level reads a clamped pixel and has weight 0, as in the plain version);
-// any other tap reads its four corners from global memory the same way.
-template <typename T, int S, int kWarps>
-__global__ void __launch_bounds__(32 * kWarps)
-msda_tile_fwd_kernel(const T* __restrict__ value,  // (bs, K, H, D)
-                     const float* __restrict__ cpk,  // (bs, K, C)
-                     T* __restrict__ out,  // (bs, K, H, D)
-                     const TilePlan tp, int K, int H, int D, int P, int C,
-                     int vec16) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const unsigned full = 0xffffffffu;
-  const TileCoord tc = tile_coord(tp, blockIdx.x);
-  const long long b = blockIdx.z;
-  const int lane = threadIdx.x & 31;
-  const WarpQueries wq = warp_queries(tc, kWarps, P);
-  const int lane_q = lane / P, lane_p = lane - lane_q * P;  // this lane's tap in a round
-  const int L = tp.n, LP = L * P, HLP = H * LP;
-  const long long pitch = (long long)H * D;  // elements between keys
-  float* acc = (float*)(smem + tp.off_acc[tc.lq]);
-
-  const int head = blockIdx.y;
-  const T* vb = value + (b * K * H + head) * D;  // key k's channels at vb + k * pitch
-  const float* crow = cpk + b * K * C + head * LP + lane_p;  // + key * C + lt * P
-  // this lane's tap of round r at level lt: its x, y and weight
-  auto load_tap = [&](int lt, int r, float& x, float& y, float& a) {
-    x = y = a = 0.f;
-    const int j = r * wq.per_round + lane_q;
-    if (lane_q < wq.per_round && j < wq.hi - wq.lo) {
-      const float* c = crow + (long long)tile_query(tp, tc, wq.lo + j) * C + lt * P;
-      x = __ldg(c);
-      y = __ldg(c + HLP);
-      a = __ldg(c + 2 * HLP);
-    }
-  };
-  for (int i = wq.lo * D + lane; i < wq.hi * D; i += 32) acc[i] = 0.f;
-  {
-    const Window w0 = pair_window(tp, tc, 0);
-    if (w0.staged) stage_window((T*)smem, vb, pitch, D, tp.start[0], tp.w[0], w0, vec16);
-    cp_async_commit();
-  }
-  float xr, yr, ar;
-  load_tap(0, 0, xr, yr, ar);
-  for (int lt = 0; lt < L; ++lt) {
-    if (lt + 1 < L) {  // the next level's window into the other region
-      const Window wn = pair_window(tp, tc, lt + 1);
-      T* dst = (T*)(smem + ((lt + 1) % 2 ? tp.off_b[tc.lq] : 0));
-      if (wn.staged) stage_window(dst, vb, pitch, D, tp.start[lt + 1], tp.w[lt + 1], wn, vec16);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // every group but the newest: level lt's window is in
-    __syncthreads();
-
-    const Window win = pair_window(tp, tc, lt);
-    const T* ws = (const T*)(smem + (lt % 2 ? tp.off_b[tc.lq] : 0));
-    const int last = win.h * win.w - 1;
-    const int Ht = tp.h[lt], Wt = tp.w[lt], lstart = tp.start[lt];
-    for (int r = 0; r < wq.rounds; ++r) {
-      float xn, yn, an;  // the next round's tap, loaded ahead
-      if (r + 1 < wq.rounds) load_tap(lt, r + 1, xn, yn, an);
-      else load_tap(lt + 1 < L ? lt + 1 : lt, lt + 1 < L ? 0 : wq.rounds, xn, yn, an);
-      // this lane's tap: corner weights (0 outside the level), first
-      // corner's key and window pixel, corner mask
-      const Tap g = tap_geometry(xr, yr, Ht, Wt, lstart, win);
-      const float w00 = g.mask & 1u ? (1.f - g.tx) * (1.f - g.ty) * ar : 0.f;
-      const float w10 = g.mask & 2u ? g.tx * (1.f - g.ty) * ar : 0.f;
-      const float w01 = g.mask & 4u ? (1.f - g.tx) * g.ty * ar : 0.f;
-      const float w11 = g.mask & 8u ? g.tx * g.ty * ar : 0.f;
-      const int nq = min(wq.per_round, wq.hi - wq.lo - r * wq.per_round);
-      for (int qi = 0; qi < nq; ++qi) {
-        float part[S];
-#pragma unroll
-        for (int s = 0; s < S; ++s) part[s] = 0.f;
-        for (int i = qi * P; i < qi * P + P; ++i) {
-          const unsigned m = __shfl_sync(full, g.mask, i);
-          const float c00 = __shfl_sync(full, w00, i);
-          const float c10 = __shfl_sync(full, w10, i);
-          const float c01 = __shfl_sync(full, w01, i);
-          const float c11 = __shfl_sync(full, w11, i);
-          const int so = __shfl_sync(full, g.s00, i);
-          if (in_window(m)) {  // the same for every lane
-            const T* q00 = ws + clamp_px(so, last) * D;
-            const T* q10 = ws + clamp_px(so + 1, last) * D;
-            const T* q01 = ws + clamp_px(so + win.w, last) * D;
-            const T* q11 = ws + clamp_px(so + win.w + 1, last) * D;
-#pragma unroll
-            for (int s = 0; s < S; ++s) {
-              const int ch = lane + 32 * s;
-              if (ch < D)
-                part[s] += c00 * to_f32(q00[ch]) + c10 * to_f32(q10[ch]) +
-                           c01 * to_f32(q01[ch]) + c11 * to_f32(q11[ch]);
-            }
-          } else if (m) {
-            // all four corners from global memory at once, at keys clamped
-            // into the level (a corner outside it has weight 0)
-            const int r00 = __shfl_sync(full, g.r00, i);
-            const int kend = lstart + Ht * Wt - 1;
-            const T* p00 = vb + min(max(r00, lstart), kend) * pitch;
-            const T* p10 = vb + min(max(r00 + 1, lstart), kend) * pitch;
-            const T* p01 = vb + min(max(r00 + Wt, lstart), kend) * pitch;
-            const T* p11 = vb + min(max(r00 + Wt + 1, lstart), kend) * pitch;
-#pragma unroll
-            for (int s = 0; s < S; ++s) {
-              const int ch = lane + 32 * s;
-              if (ch < D)
-                part[s] += c00 * load_f32(p00 + ch) + c10 * load_f32(p10 + ch) +
-                           c01 * load_f32(p01 + ch) + c11 * load_f32(p11 + ch);
-            }
-          }
-        }
-        float* arow = acc + (wq.lo + r * wq.per_round + qi) * D;
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          const int ch = lane + 32 * s;
-          if (ch < D) arow[ch] += part[s];
-        }
-      }
-      xr = xn;
-      yr = yn;
-      ar = an;
-    }
-    __syncthreads();  // level lt's region is free for level lt + 2
-  }
-
-  for (int j = wq.lo; j < wq.hi; ++j) {
-    T* orow = out + ((b * K + tile_query(tp, tc, j)) * H + head) * (long long)D;
-    for (int ch = lane; ch < D; ch += 32) store_from_f32(orow + ch, acc[j * D + ch]);
-  }
-}
-
-template <typename T, int S, int kWarps>
-static int launch_tile_fwd(dim3 grid, int smem_bytes, cudaStream_t stream, const void* value,
-                           const void* cpk, void* out, const TilePlan& tp, int K, int H, int D,
-                           int P, int C, int vec16) {
-  auto kernel = msda_tile_fwd_kernel<T, S, kWarps>;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, 32 * kWarps, smem_bytes, stream>>>((const T*)value, (const float*)cpk, (T*)out,
-                                                    tp, K, H, D, P, C, vec16);
-  return (int)cudaGetLastError();
-}
-
-// One instantiation per channel-slice count: 1 (d <= 32), 2 (<= 64), 4.
-template <typename T>
-static int launch_tile_fwd_slices(dim3 grid, int smem_bytes, cudaStream_t stream,
-                                  const void* value, const void* cpk, void* out,
-                                  const TilePlan& tp, int K, int H, int D, int P, int C,
-                                  int vec16) {
-  if (D <= 32)
-    return launch_tile_fwd<T, 1, TILE_FWD_WARPS>(grid, smem_bytes, stream, value, cpk, out, tp,
-                                                 K, H, D, P, C, vec16);
-  if (D <= 64)
-    return launch_tile_fwd<T, 2, TILE_FWD_WARPS / 2>(grid, smem_bytes, stream, value, cpk, out,
-                                                     tp, K, H, D, P, C, vec16);
-  return launch_tile_fwd<T, 4, TILE_FWD_WARPS / 4>(grid, smem_bytes, stream, value, cpk, out, tp,
-                                                   K, H, D, P, C, vec16);
 }
 
 // dtype: 0 = float32 value/out, 1 = bfloat16 value/out.  Coordinates fp32.
@@ -437,25 +236,11 @@ extern "C" int msda_packed_fwd(const void* value, const void* cpk, void* out,
                                const int* win_w, const int* staged,
                                const int* off_b, const int* off_acc, int halo,
                                int smem_bytes, void* stream) {
-  if (D < 1 || D > 32 * MSDA_MAX_SLICES) return -2;
-  if (dtype != 0 && dtype != 1) return -4;
-  if (P < 1 || P > 32) return -7;  // a round holds at least one query's taps
-  const int elem = dtype == 0 ? 4 : 2;
-  TilePlan tp;
-  const int err = make_tile_plan(&tp, L, level_h, level_w, tile_h, tile_w, win_h, win_w,
-                                 staged, off_b, off_acc, halo, D, P, elem, false, smem_bytes, K);
-  if (err) return err;
   if ((long long)H * L * P * 3 > C) return -5;
-  if (bs == 0 || H == 0) return 0;
-  if (bs > 65535 || H > 65535) return -3;
-  const bool vec16 = (uintptr_t)value % 16 == 0 && (D * elem) % 16 == 0;
-  const dim3 grid((unsigned)tp.tile_start[L], (unsigned)H, (unsigned)bs);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_tile_fwd_slices<float>(grid, smem_bytes, s, value, cpk, out, tp, K, H, D, P,
-                                         C, vec16);
-  return launch_tile_fwd_slices<__nv_bfloat16>(grid, smem_bytes, s, value, cpk, out, tp, K, H,
-                                               D, P, C, vec16);
+  const PackedCoords co{(const float*)cpk, C, H * L * P};
+  return tile_fwd_entry(value, co, HaloGeo{}, out, dtype, bs, K, H, D, L, P, level_h, level_w,
+                        tile_h, tile_w, win_h, win_w, staged, off_b, off_acc, halo, smem_bytes,
+                        stream);
 }
 
 extern "C" int msda_fwd(const void* value, const void* loc, const void* attn,
@@ -468,23 +253,24 @@ extern "C" int msda_fwd(const void* value, const void* loc, const void* attn,
   const float* xy = (const float*)loc;
   const float* w = (const float*)attn;
   const long long HLP = H * LP;
-  Stream xs = {xy, 2 * HLP * Q, 2 * HLP, 2 * LP, 2};
-  Stream ys = {xy + 1, 2 * HLP * Q, 2 * HLP, 2 * LP, 2};
-  Stream ws = {w, HLP * Q, HLP, LP, 1};
-  return launch(dtype, value, xs, ys, ws, out, lv, bs, K, Q, H, D, P, false, stream);
+  Stream xs = {xy, 2 * HLP, 2 * LP, 2};
+  Stream ys = {xy + 1, 2 * HLP, 2 * LP, 2};
+  Stream ws = {w, HLP, LP, 1};
+  return launch(dtype, value, xs, ys, ws, out, lv, bs, K, Q, H, D, P, stream);
 }
 
-// x, y, w: q-minor (bs, H, L, P, Q) fp32 each.
+// x, y, w: q-minor (bs, H, L, P, K) fp32 each, the queries the key grid;
+// the tile plan as msda_packed_fwd takes it (the same plan).
 extern "C" int msda_qm_fwd(const void* value, const void* x, const void* y,
                            const void* w, void* out, int dtype, int bs, int K,
-                           int Q, int H, int D, int L, int P,
-                           const int* level_h, const int* level_w,
-                           void* stream) {
-  Levels lv;
-  if (make_levels(&lv, L, level_h, level_w)) return -1;
-  const long long LPQ = (long long)L * P * Q;
-  Stream xs = {(const float*)x, H * LPQ, 1, LPQ, Q};
-  Stream ys = {(const float*)y, H * LPQ, 1, LPQ, Q};
-  Stream ws = {(const float*)w, H * LPQ, 1, LPQ, Q};
-  return launch(dtype, value, xs, ys, ws, out, lv, bs, K, Q, H, D, P, true, stream);
+                           int H, int D, int L, int P, const int* level_h,
+                           const int* level_w, const int* tile_h,
+                           const int* tile_w, const int* win_h,
+                           const int* win_w, const int* staged,
+                           const int* off_b, const int* off_acc, int halo,
+                           int smem_bytes, void* stream) {
+  const QminorCoords co{(const float*)x, (const float*)y, (const float*)w};
+  return tile_fwd_entry(value, co, HaloGeo{}, out, dtype, bs, K, H, D, L, P, level_h, level_w,
+                        tile_h, tile_w, win_h, win_w, staged, off_b, off_acc, halo, smem_bytes,
+                        stream);
 }

@@ -1,15 +1,22 @@
-// Shared pieces of the tiled encoder MSDA kernels (msda_fwd.cu's and
-// msda_bwd.cu's packed entries): the tile plan as the kernels read it, the
-// window copy into shared memory, and one tap's geometry.
+// Shared pieces of the tiled grid-query MSDA kernels: the tile plan as the
+// kernels read it, the window copy into shared memory, one tap's geometry,
+// and the tiled forward kernel itself (msda_tile_fwd_kernel), which
+// msda_fwd.cu instantiates for the packed (K1) and q-minor (K3) entries and
+// msda_shift_fwd.cu for the shift-window function (K4); msda_bwd.cu's
+// packed entry (K2) shares the rest.
 //
-// The plan comes from codetr_torch/ops/msda_tiles.py:encoder_tile_plan.  A
+// The plan comes from codetr_torch/ops/msda_tiles.py:encoder_tile_plan (K4:
+// ops/msda_grid.py:shift_tile_plan, its own windows).  A
 // block takes one tile of same-level queries (query level lq, tile (ty, tx)
 // of (th, tw) queries, ragged at the level's edge) for one head of one
 // batch entry.  For each target level lt the pair (lq, lt) has a window
 // of (win_h, win_w) target pixels whose origin is the tile's projection
 // minus the halo, clamped into the level; a staged pair's window is copied
 // into shared memory, and a corner inside it is read from there, any other
-// corner from global memory.
+// corner from global memory.  K4's windows are placed around its anchors
+// instead (ShiftGeo in msda_shift_fwd.cu); the kernel reads its windows
+// and tap geometry through a policy (Geo) and its coordinates through
+// another (Coords), so the loop below exists once.
 
 #pragma once
 
@@ -261,3 +268,272 @@ __device__ __forceinline__ WarpQueries warp_queries(const TileCoord& tc, int war
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void store_from_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+// Coordinates, policy 1: K1's packed (bs, K, C) [x(HLP) | y(HLP) | w(HLP) |
+// pad], HLP = H * L * P in (h, L, P) order.  A lane's taps lie at
+// row + key * C + lt * P, row its (batch, head, point) column.  The lane
+// keeps a pointer, as K1's own loop did: a 64-bit offset from cpk instead
+// measured ~6% slower in fp32 on the card (PERF.md).
+struct PackedCoords {
+  const float* cpk;
+  int C, HLP;
+  struct Lane {
+    const float* row;
+  };
+  __device__ __forceinline__ Lane lane(long long b, int K, int H, int head, int L, int P,
+                                       int lane_p) const {
+    return {cpk + b * K * C + head * L * P + lane_p};
+  }
+  __device__ __forceinline__ void load(const Lane& ln, int key, int lt, int P, int K, float& x,
+                                       float& y, float& a) const {
+    const float* c = ln.row + (long long)key * C + lt * P;
+    x = __ldg(c);
+    y = __ldg(c + HLP);
+    a = __ldg(c + 2 * HLP);
+  }
+};
+
+// Coordinates, policy 2: q-minor x, y, w, each (bs, H, L, P, K) (K3, K4).
+// A lane's taps lie at off + lt * P * K + key: the lanes of one point in a
+// round hold consecutive queries of a tile row, so each load touches a few
+// consecutive 32-byte sectors per point.  Scalar loads: no row alignment.
+struct QminorCoords {
+  const float *x, *y, *w;
+  struct Lane {
+    long long off;
+  };
+  __device__ __forceinline__ Lane lane(long long b, int K, int H, int head, int L, int P,
+                                       int lane_p) const {
+    return {((b * H + head) * L * P + lane_p) * (long long)K};
+  }
+  __device__ __forceinline__ void load(const Lane& ln, int key, int lt, int P, int K, float& xv,
+                                       float& yv, float& a) const {
+    const long long o = ln.off + (long long)lt * P * K + key;
+    xv = __ldg(x + o);
+    yv = __ldg(y + o);
+    a = __ldg(w + o);
+  }
+};
+
+// Geometry, policy 1 (K1, K3): the halo windows of the plan and the exact
+// bilinear tap.
+struct HaloGeo {
+  __device__ __forceinline__ Window window(const TilePlan& tp, const TileCoord& tc, int lt) const {
+    return pair_window(tp, tc, lt);
+  }
+  __device__ __forceinline__ Tap tap(const TilePlan& tp, const TileCoord&, int, int lt, float x,
+                                     float y, const Window& win) const {
+    return tap_geometry(x, y, tp.h[lt], tp.w[lt], tp.start[lt], win);
+  }
+};
+
+// The tiled forward: one block of kWarps warps per (tile, head, batch
+// entry) = (blockIdx.x, blockIdx.y, blockIdx.z); S channel slices a lane (d
+// <= 32 * S).  Shared memory: the even target levels' window region at 0,
+// the odd ones' at off_b[lq], the fp32 accumulator (tile queries x D) at
+// off_acc[lq].  For each target level the block copies the pair's window of
+// this head's channels with cp.async (level lt + 1 into the other region
+// while it samples level lt).
+//
+// A warp takes its queries in rounds of 32 / P whole queries, one lane per
+// tap, and loads the next round's coordinates before it samples the current
+// one.  The warp broadcasts each tap's four corner weights (0 for a corner
+// that does not contribute), window pixel and corner mask with shuffles, and
+// the lanes run over the head's channels.  A tap whose contributing corners
+// all lie in the staged window takes the fast path: four shared-memory loads
+// with no branch (a corner that does not contribute reads a clamped pixel
+// with weight 0); any other tap reads its four corners from global memory
+// the same way, at keys clamped into the level.  Per-query sums go into the
+// accumulator, each warp owning its queries' rows; the output is written in
+// the value's dtype at the end.
+template <typename T, int S, int kWarps, class Coords, class Geo>
+__global__ void __launch_bounds__(32 * kWarps)
+msda_tile_fwd_kernel(const T* __restrict__ value,  // (bs, K, H, D)
+                     const Coords co, const Geo geo,
+                     T* __restrict__ out,  // (bs, K, H, D)
+                     const TilePlan tp, int K, int H, int D, int P, int vec16) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const unsigned full = 0xffffffffu;
+  const TileCoord tc = tile_coord(tp, blockIdx.x);
+  const long long b = blockIdx.z;
+  const int head = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const WarpQueries wq = warp_queries(tc, kWarps, P);
+  const int lane_q = lane / P, lane_p = lane - lane_q * P;  // this lane's tap in a round
+  const int L = tp.n;
+  const long long pitch = (long long)H * D;  // elements between keys
+  float* acc = (float*)(smem + tp.off_acc[tc.lq]);
+
+  const T* vb = value + (b * K * H + head) * D;  // key k's channels at vb + k * pitch
+  const typename Coords::Lane cl = co.lane(b, K, H, head, L, P, lane_p);
+  // this lane's tap of round r at level lt: its tile-local query j (0 for a
+  // lane without one, whose weight is 0), x, y and weight
+  auto load_tap = [&](int lt, int r, int& j, float& x, float& y, float& a) {
+    x = y = a = 0.f;
+    j = 0;
+    const int jr = r * wq.per_round + lane_q;
+    if (lane_q < wq.per_round && jr < wq.hi - wq.lo) {
+      j = wq.lo + jr;
+      co.load(cl, tile_query(tp, tc, j), lt, P, K, x, y, a);
+    }
+  };
+  for (int i = wq.lo * D + lane; i < wq.hi * D; i += 32) acc[i] = 0.f;
+  {
+    const Window w0 = geo.window(tp, tc, 0);
+    if (w0.staged) stage_window((T*)smem, vb, pitch, D, tp.start[0], tp.w[0], w0, vec16);
+    cp_async_commit();
+  }
+  int jr;
+  float xr, yr, ar;
+  load_tap(0, 0, jr, xr, yr, ar);
+  for (int lt = 0; lt < L; ++lt) {
+    if (lt + 1 < L) {  // the next level's window into the other region
+      const Window wn = geo.window(tp, tc, lt + 1);
+      T* dst = (T*)(smem + ((lt + 1) % 2 ? tp.off_b[tc.lq] : 0));
+      if (wn.staged) stage_window(dst, vb, pitch, D, tp.start[lt + 1], tp.w[lt + 1], wn, vec16);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // every group but the newest: level lt's window is in
+    __syncthreads();
+
+    const Window win = geo.window(tp, tc, lt);
+    const T* ws = (const T*)(smem + (lt % 2 ? tp.off_b[tc.lq] : 0));
+    const int last = win.h * win.w - 1;
+    const int Ht = tp.h[lt], Wt = tp.w[lt], lstart = tp.start[lt];
+    for (int r = 0; r < wq.rounds; ++r) {
+      int jn;
+      float xn, yn, an;  // the next round's tap, loaded ahead
+      if (r + 1 < wq.rounds) load_tap(lt, r + 1, jn, xn, yn, an);
+      else load_tap(lt + 1 < L ? lt + 1 : lt, lt + 1 < L ? 0 : wq.rounds, jn, xn, yn, an);
+      // this lane's tap: corner weights (0 for a corner that does not
+      // contribute), first corner's key and window pixel, corner mask
+      const Tap g = geo.tap(tp, tc, jr, lt, xr, yr, win);
+      const float w00 = g.mask & 1u ? (1.f - g.tx) * (1.f - g.ty) * ar : 0.f;
+      const float w10 = g.mask & 2u ? g.tx * (1.f - g.ty) * ar : 0.f;
+      const float w01 = g.mask & 4u ? (1.f - g.tx) * g.ty * ar : 0.f;
+      const float w11 = g.mask & 8u ? g.tx * g.ty * ar : 0.f;
+      const int nq = min(wq.per_round, wq.hi - wq.lo - r * wq.per_round);
+      for (int qi = 0; qi < nq; ++qi) {
+        float part[S];
+#pragma unroll
+        for (int s = 0; s < S; ++s) part[s] = 0.f;
+        for (int i = qi * P; i < qi * P + P; ++i) {
+          const unsigned m = __shfl_sync(full, g.mask, i);
+          const float c00 = __shfl_sync(full, w00, i);
+          const float c10 = __shfl_sync(full, w10, i);
+          const float c01 = __shfl_sync(full, w01, i);
+          const float c11 = __shfl_sync(full, w11, i);
+          const int so = __shfl_sync(full, g.s00, i);
+          if (in_window(m)) {  // the same for every lane
+            const T* q00 = ws + clamp_px(so, last) * D;
+            const T* q10 = ws + clamp_px(so + 1, last) * D;
+            const T* q01 = ws + clamp_px(so + win.w, last) * D;
+            const T* q11 = ws + clamp_px(so + win.w + 1, last) * D;
+#pragma unroll
+            for (int s = 0; s < S; ++s) {
+              const int ch = lane + 32 * s;
+              if (ch < D)
+                part[s] += c00 * to_f32(q00[ch]) + c10 * to_f32(q10[ch]) +
+                           c01 * to_f32(q01[ch]) + c11 * to_f32(q11[ch]);
+            }
+          } else if (m) {
+            // all four corners from global memory at once, at keys clamped
+            // into the level (a corner that does not contribute has weight 0)
+            const int r00 = __shfl_sync(full, g.r00, i);
+            const int kend = lstart + Ht * Wt - 1;
+            const T* p00 = vb + min(max(r00, lstart), kend) * pitch;
+            const T* p10 = vb + min(max(r00 + 1, lstart), kend) * pitch;
+            const T* p01 = vb + min(max(r00 + Wt, lstart), kend) * pitch;
+            const T* p11 = vb + min(max(r00 + Wt + 1, lstart), kend) * pitch;
+#pragma unroll
+            for (int s = 0; s < S; ++s) {
+              const int ch = lane + 32 * s;
+              if (ch < D)
+                part[s] += c00 * load_f32(p00 + ch) + c10 * load_f32(p10 + ch) +
+                           c01 * load_f32(p01 + ch) + c11 * load_f32(p11 + ch);
+            }
+          }
+        }
+        float* arow = acc + (wq.lo + r * wq.per_round + qi) * D;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const int ch = lane + 32 * s;
+          if (ch < D) arow[ch] += part[s];
+        }
+      }
+      jr = jn;
+      xr = xn;
+      yr = yn;
+      ar = an;
+    }
+    __syncthreads();  // level lt's region is free for level lt + 2
+  }
+
+  for (int j = wq.lo; j < wq.hi; ++j) {
+    T* orow = out + ((b * K + tile_query(tp, tc, j)) * H + head) * (long long)D;
+    for (int ch = lane; ch < D; ch += 32) store_from_f32(orow + ch, acc[j * D + ch]);
+  }
+}
+
+template <typename T, int S, int kWarps, class Coords, class Geo>
+static int launch_tile_fwd(dim3 grid, int smem_bytes, cudaStream_t stream, const void* value,
+                           const Coords& co, const Geo& geo, void* out, const TilePlan& tp, int K,
+                           int H, int D, int P, int vec16) {
+  auto kernel = msda_tile_fwd_kernel<T, S, kWarps, Coords, Geo>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, 32 * kWarps, smem_bytes, stream>>>((const T*)value, co, geo, (T*)out, tp, K, H,
+                                                    D, P, vec16);
+  return (int)cudaGetLastError();
+}
+
+// The checks and the launch shared by the tiled forward entries: the plan
+// (from the host arrays, as make_tile_plan takes them), one instantiation
+// per value dtype (0 = float32, 1 = bfloat16) and channel-slice count (1:
+// d <= 32, 2: <= 64, 4: <= 128).  Returns cudaGetLastError() after the
+// launch, or a negative code for arguments the kernel does not take.
+template <class Coords, class Geo>
+static int tile_fwd_entry(const void* value, const Coords& co, const Geo& geo, void* out,
+                          int dtype, int bs, int K, int H, int D, int L, int P,
+                          const int* level_h, const int* level_w, const int* tile_h,
+                          const int* tile_w, const int* win_h, const int* win_w,
+                          const int* staged, const int* off_b, const int* off_acc, int halo,
+                          int smem_bytes, void* stream) {
+  if (D < 1 || D > 128) return -2;
+  if (dtype != 0 && dtype != 1) return -4;
+  if (P < 1 || P > 32) return -7;  // a round holds at least one query's taps
+  const int elem = dtype == 0 ? 4 : 2;
+  TilePlan tp;
+  const int err = make_tile_plan(&tp, L, level_h, level_w, tile_h, tile_w, win_h, win_w, staged,
+                                 off_b, off_acc, halo, D, P, elem, false, smem_bytes, K);
+  if (err) return err;
+  if (bs == 0 || H == 0) return 0;
+  if (bs > 65535 || H > 65535) return -3;
+  const int vec16 = (uintptr_t)value % 16 == 0 && (D * elem) % 16 == 0;
+  const dim3 grid((unsigned)tp.tile_start[L], (unsigned)H, (unsigned)bs);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) {
+    if (D <= 32)
+      return launch_tile_fwd<float, 1, TILE_FWD_WARPS>(grid, smem_bytes, s, value, co, geo, out,
+                                                       tp, K, H, D, P, vec16);
+    if (D <= 64)
+      return launch_tile_fwd<float, 2, TILE_FWD_WARPS / 2>(grid, smem_bytes, s, value, co, geo,
+                                                           out, tp, K, H, D, P, vec16);
+    return launch_tile_fwd<float, 4, TILE_FWD_WARPS / 4>(grid, smem_bytes, s, value, co, geo, out,
+                                                         tp, K, H, D, P, vec16);
+  }
+  if (D <= 32)
+    return launch_tile_fwd<__nv_bfloat16, 1, TILE_FWD_WARPS>(grid, smem_bytes, s, value, co, geo,
+                                                             out, tp, K, H, D, P, vec16);
+  if (D <= 64)
+    return launch_tile_fwd<__nv_bfloat16, 2, TILE_FWD_WARPS / 2>(grid, smem_bytes, s, value, co,
+                                                                 geo, out, tp, K, H, D, P, vec16);
+  return launch_tile_fwd<__nv_bfloat16, 4, TILE_FWD_WARPS / 4>(grid, smem_bytes, s, value, co, geo,
+                                                               out, tp, K, H, D, P, vec16);
+}

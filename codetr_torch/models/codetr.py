@@ -7,10 +7,18 @@ region.  The result is (boxes (bs, max_per_img, 4) xyxy pixels, scores,
 labels).  ``state_dict()`` keys are mmdet's, so an mmdet checkpoint or the
 JAX package's params (``utils.checkpoint.state_dict_from_jax``) load as
 they are.
+
+An fp32 model computes in full fp32 on the card: its entry points
+(``forward``, ``features``, ``detect``, ``train_outputs``) run under
+``full_fp32``, which turns TF32 off for cuDNN's convolutions (on by default
+in PyTorch) and for matmuls, and gives the caller's flags back on exit.  A
+bf16 model leaves the flags alone.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Dict, List, Tuple
 
 import torch
@@ -22,6 +30,35 @@ from codetr_torch.models.co_dino_head import CoDINOHead
 from codetr_torch.models.msda_module import MultiScaleDeformableAttention, grid_offset_bias
 from codetr_torch.models.resnet import FrozenBatchNorm2d, ResNet
 from codetr_torch.models.swin import SwinTransformer, WindowMSA
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """Convolutions and matmuls in full fp32 (no TF32) inside the scope; the
+    caller's cuDNN and matmul flags are restored on exit."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    allow_matmul = matmul.allow_tf32
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     benchmark_limit=cudnn.benchmark_limit, deterministic=cudnn.deterministic,
+                     allow_tf32=False):
+        matmul.allow_tf32 = False
+        try:
+            yield
+        finally:
+            matmul.allow_tf32 = allow_matmul
+
+
+def fp32_scope(dtype: torch.dtype):
+    """``full_fp32()`` for an fp32 model, no change for any other dtype."""
+    return full_fp32() if dtype == torch.float32 else contextlib.nullcontext()
+
+
+def _in_model_precision(method):
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        with fp32_scope(self.dtype):
+            return method(self, *args, **kwargs)
+    return wrapped
 
 
 class CoDETR(nn.Module):
@@ -41,17 +78,21 @@ class CoDETR(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.query_head.transformer.level_embeds.dtype
 
+    @_in_model_precision
     def features(self, batch_inputs: torch.Tensor) -> List[torch.Tensor]:
         """(bs, H, W, 3) -> NCHW neck features, one per level."""
         return self.neck(self.backbone(batch_inputs.to(self.dtype)))
 
+    @_in_model_precision
     def detect(self, feats: List[torch.Tensor], img_masks: torch.Tensor):
         return self.query_head(feats, img_masks)
 
+    @_in_model_precision
     def forward(self, batch_inputs: torch.Tensor, img_masks: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         return self.detect(self.features(batch_inputs), img_masks)
 
+    @_in_model_precision
     def train_outputs(self, batch_inputs: torch.Tensor, img_masks: torch.Tensor
                       ) -> Dict[str, torch.Tensor]:
         """Per-decoder-layer and encoder-stage class logits and cxcywh boxes

@@ -211,7 +211,7 @@ def _fwd_lib() -> ctypes.CDLL:
     lib.msda_packed_fwd.restype = i
     lib.msda_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ip, ip, p]
     lib.msda_fwd.restype = i
-    lib.msda_qm_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, ip, ip, p]
+    lib.msda_qm_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ip, ip, *_PLAN_ARGTYPES, p]
     lib.msda_qm_fwd.restype = i
     return lib
 
@@ -353,18 +353,21 @@ def _launch_reference_bwd(value, spatial_shapes, loc, attn, grad_out):
 
 
 def _launch_qm(value, spatial_shapes, x, y, w):
+    """K3 on the encoder tiles (K1's plan): x, y, w q-minor (bs, h, L, P,
+    K), the queries the key grid."""
     global launches_qm
     _kernel_checks(value, spatial_shapes, x, y, w)
     bs, K, h, d = value.shape
-    L, P, Q = x.shape[2], x.shape[3], x.shape[4]
+    L, P = x.shape[2], x.shape[3]
     lib = _fwd_lib()
-    out = torch.empty(bs, Q, h * d, dtype=value.dtype, device=value.device)
+    plan = msda_tiles.encoder_tile_plan(spatial_shapes, value.dtype, head_dim=d, points=P)
+    out = torch.empty(bs, K, h * d, dtype=value.dtype, device=value.device)
     hs, ws = _level_arrays(spatial_shapes)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.msda_qm_fwd(
             value.data_ptr(), x.data_ptr(), y.data_ptr(), w.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[value.dtype], bs, K, Q, h, d, L, P, hs, ws, stream,
+            _DTYPE_CODE[value.dtype], bs, K, h, d, L, P, hs, ws, *_plan_args(plan), stream,
         )
     _raise_on(err, "msda_qm_fwd")
     launches_qm += 1

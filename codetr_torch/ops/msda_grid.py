@@ -25,6 +25,16 @@ anchors ``floor((i + 0.5) * Ht / Hq - 0.5)`` and ``R = radius + 2``.
 ``max_window=None`` means no escape (the JAX ``impl="grid"``), 31 is the
 Pallas kernel's default (``impl="grid_pallas"``).
 
+On the card the kernel runs on the encoder kernels' shared-memory query
+tiles (``ops/msda_tiles.py``) with windows of its own
+(``shift_tile_plan``): the anchors are monotone in the query row and
+column, so the cells of a tile's queries on target level ``lt`` lie in
+rows ``anchor_y(first row) - (R + 1)`` .. ``anchor_y(last row) + R + 1``
+(likewise for columns), clipped to the level.  Each pair's window is the
+largest such span over its tiles; a pair whose window fits the budget is
+staged in shared memory and serves every corner the truncated function
+reads, any other pair reads global memory under the same truncation.
+
 ``msda_grid_shift_qm`` takes q-minor (bs, h, L, P, K) fp32 coordinates and
 returns (bs, K, h*d) in the value's dtype.  For CPU tensors it runs the
 plain version ``msda_shift_plain`` (its gradient is autograd's, the
@@ -46,7 +56,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from codetr_torch.ops import _build
+from codetr_torch.ops import _build, msda_tiles
 from codetr_torch.ops import msda as _msda
 
 Shapes = Sequence[Tuple[int, int]]
@@ -216,13 +226,95 @@ def msda_shift_plain(
     return out.reshape(bs, K, h * d)
 
 
+def _span(anchors: np.ndarray, tile: int) -> int:
+    """Largest anchor spread (last - first) over the tiles of one axis."""
+    return max(int(anchors[min(i + tile, len(anchors)) - 1] - anchors[i])
+               for i in range(0, len(anchors), tile))
+
+
+@functools.lru_cache(maxsize=32)
+def _shift_tile_plan(shapes, value_dtype, radius, max_window, head_dim, points, smem_budget):
+    plans = _pair_plans(shapes, radius, max_window)
+    tiles = msda_tiles.tile_shapes(len(shapes))
+    windows, origins = [], []
+    for lq, (th, tw) in enumerate(tiles):
+        win_row, org_row = [], []
+        for lt, (Ht, Wt) in enumerate(shapes):
+            p = plans[lq][lt]
+            wh = min(Ht, _span(p.anchor_y, th) + p.W)
+            ww = min(Wt, _span(p.anchor_x, tw) + p.W)
+            # the first query row's (column's) anchor minus R + 1, clamped
+            # into the level (the kernel's ShiftGeo::window)
+            rows = tuple(int(np.clip(a - (p.R + 1), 0, Ht - wh)) for a in p.anchor_y[::th])
+            cols = tuple(int(np.clip(a - (p.R + 1), 0, Wt - ww)) for a in p.anchor_x[::tw])
+            win_row.append((wh, ww))
+            org_row.append((rows, cols))
+        windows.append(tuple(win_row))
+        origins.append(tuple(org_row))
+    return msda_tiles.plan_for_windows(shapes, value_dtype, tuple(windows), tuple(origins),
+                                       head_dim=head_dim, points=points, smem_budget=smem_budget)
+
+
+def shift_tile_plan(spatial_shapes: Shapes, value_dtype: torch.dtype, radius: int = 4,
+                    max_window: Optional[int] = PALLAS_MAX_WINDOW, *, head_dim: int = 32,
+                    points: int = 4, smem_budget: Optional[int] = None) -> msda_tiles.TilePlan:
+    """K4's tile plan (cached): the encoder kernels' tiles and shared-memory
+    layout, each pair's window sized to hold every cell its tiles' queries
+    can read (``2R + 3`` around each anchor), origins per tile."""
+    return _shift_tile_plan(_key(spatial_shapes), value_dtype, int(radius), max_window,
+                            int(head_dim), int(points), smem_budget)
+
+
+def shift_staged_share(
+    plan: msda_tiles.TilePlan,
+    spatial_shapes: Shapes,
+    x: torch.Tensor,  # (bs, h, L, P, K) normalised x
+    y: torch.Tensor,
+    w: torch.Tensor,
+    radius: int = 4,
+    max_window: Optional[int] = PALLAS_MAX_WINDOW,
+    q_chunk: int = 8192,
+) -> Tuple[int, int]:
+    """(corner reads served from shared memory, all corner reads) of the
+    truncated function on these taps under K4's ``plan``: the corners that
+    contribute (cell in the window, pixel in the level, weight not 0), and
+    of those the ones inside a staged window."""
+    shapes = _key(spatial_shapes)
+    L = len(shapes)
+    dev = x.device
+    ax_all, ay_all, r1_all = _query_anchors(shapes, int(radius), max_window, dev)
+    wy0, wx0, wh, ww, staged = msda_tiles.query_windows(plan, str(dev))
+    widths = torch.tensor([w_ for _, w_ in shapes], dtype=torch.float32, device=dev).view(1, 1, L, 1, 1)
+    heights = torch.tensor([h_ for h_, _ in shapes], dtype=torch.float32, device=dev).view(1, 1, L, 1, 1)
+    served = total = 0
+    K = x.shape[-1]
+    for q0 in range(0, K, q_chunk):
+        q1 = min(K, q0 + q_chunk)
+        ax, ay, r1, oy, ox, nh, nw, st = (
+            a[q0:q1].T.reshape(1, 1, L, 1, q1 - q0)
+            for a in (ax_all, ay_all, r1_all, wy0, wx0, wh, ww, staged))
+        fx = torch.floor(_window_coord(x[..., q0:q1], widths, ax, r1))
+        fy = torch.floor(_window_coord(y[..., q0:q1], heights, ay, r1))
+        live = w[..., q0:q1] != 0
+        for cdx, cdy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            cx, cy = fx + cdx, fy + cdy
+            col, row = ax + cx - r1, ay + cy - r1
+            read = (live & (cx >= 0) & (cx <= 2 * r1) & (cy >= 0) & (cy <= 2 * r1)
+                    & (col >= 0) & (col < widths) & (row >= 0) & (row < heights))
+            inside = st & (col >= ox) & (col < ox + nw) & (row >= oy) & (row < oy + nh)
+            total += int(read.sum().item())
+            served += int((read & inside).sum().item())
+    return served, total
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The built K4 library, with its C signature declared."""
     lib = _build.load("msda_shift_fwd").lib
     p, i = ctypes.c_void_p, ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.msda_shift_qm_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, ip, ip, ip, ip, ip, p]
+    lib.msda_shift_qm_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, ip, ip, ip, ip, ip,
+                                      *_msda._PLAN_ARGTYPES, p]
     lib.msda_shift_qm_fwd.restype = i
     return lib
 
@@ -258,6 +350,7 @@ def _launch_shift(value, spatial_shapes, x, y, w, radius, max_window):
     anchors = _device_table(shapes, int(radius), max_window, value.device)
     _, R, off_y, off_x = _host_table(shapes, int(radius), max_window)
     n = len(R)
+    plan = shift_tile_plan(shapes, value.dtype, radius, max_window, head_dim=d, points=P)
     out = torch.empty(bs, K, h * d, dtype=value.dtype, device=value.device)
     hs, ws = _msda._level_arrays(shapes)
     with torch.cuda.device(value.device):
@@ -265,7 +358,8 @@ def _launch_shift(value, spatial_shapes, x, y, w, radius, max_window):
         err = lib.msda_shift_qm_fwd(
             value.data_ptr(), x.data_ptr(), y.data_ptr(), w.data_ptr(), anchors.data_ptr(),
             out.data_ptr(), _msda._DTYPE_CODE[value.dtype], bs, K, h, d, L, P, hs, ws,
-            (ctypes.c_int * n)(*R), (ctypes.c_int * n)(*off_y), (ctypes.c_int * n)(*off_x), stream,
+            (ctypes.c_int * n)(*R), (ctypes.c_int * n)(*off_y), (ctypes.c_int * n)(*off_x),
+            *_msda._plan_args(plan), stream,
         )
     _msda._raise_on(err, "msda_shift_qm_fwd")
     _msda.launches_shift += 1

@@ -1,6 +1,8 @@
 """Tile plan of the encoder MSDA kernels: the packed entries of
-``csrc/msda_fwd.cu`` (``msda_packed_fwd``) and ``csrc/msda_bwd.cu``
-(``msda_packed_bwd``).
+``csrc/msda_fwd.cu`` (``msda_packed_fwd``, K1) and ``csrc/msda_bwd.cu``
+(``msda_packed_bwd``, K2), the q-minor entry ``msda_qm_fwd`` (K3), and,
+with windows of its own, the shift-window kernel
+``csrc/msda_shift_fwd.cu`` (K4, ``ops/msda_grid.py:shift_tile_plan``).
 
 The encoder's queries are the level-concatenated pixel grid, so a tile of
 same-level queries samples a bounded window of each target level.  The plan
@@ -30,6 +32,12 @@ Shared memory per block (one head of one tile, all in bytes):
   a list of ``4 * th * tw * points`` entries of 8 bytes, one per in-window
   corner of the tile's taps (the kernel sums them per pixel into the value
   gradient), and the tile's upstream gradient rows in fp32.
+
+K3 reads its q-minor coordinates straight into registers (each warp's
+loads of one point touch consecutive keys of a tile row), so its plan is
+K1's: no shared-memory region for coordinates.  K4 keeps the tiles and the
+layout, and places its windows around its anchors (``plan_for_windows``
+with per-tile ``origins``).
 
 ``encoder_tile_plan`` builds the plan (cached); ``staged_share`` counts,
 for a set of taps, the share of nonzero-weight corner reads that the plan
@@ -83,7 +91,7 @@ class TilePlan:
     dynamic shared memory of every block (the largest query level's)."""
 
     shapes: Tuple[Tuple[int, int], ...]
-    halo: int
+    halo: int  # 0 in a plan with ``origins``
     backward: bool
     head_dim: int
     points: int
@@ -94,6 +102,9 @@ class TilePlan:
     off_b: Tuple[int, ...]
     off_acc: Tuple[int, ...]
     smem_bytes: int
+    # origins[lq][lt] = (row origin per tile row, column origin per tile
+    # column); None: the halo formula (``window_start``)
+    origins: Tuple[Tuple[Tuple[Tuple[int, ...], Tuple[int, ...]], ...], ...] | None = None
 
     def grid(self, lq: int) -> Tuple[int, int]:
         """(tiles down, tiles across) of query level ``lq``."""
@@ -107,6 +118,9 @@ class TilePlan:
     def window_origin(self, lq: int, lt: int, ty: int, tx: int) -> Tuple[int, int]:
         """(row, column) of the first target pixel of tile (ty, tx)'s window
         on target level ``lt``."""
+        if self.origins is not None:
+            rows, cols = self.origins[lq][lt]
+            return rows[ty], cols[tx]
         (Hq, Wq), (Ht, Wt) = self.shapes[lq], self.shapes[lt]
         (th, tw), (wh, ww) = self.tiles[lq], self.windows[lq][lt]
         return (window_start(ty, th, Hq, Ht, self.halo, wh),
@@ -142,23 +156,25 @@ def _layout(win_bytes, win_px, staged, tail_bytes, backward):
     return a, a + b, a + b + tail_bytes
 
 
-@functools.lru_cache(maxsize=64)
-def _plan(shapes, element_size, halo, smem_budget, head_dim, points, backward):
+def tile_shapes(num_levels: int) -> Tuple[Tuple[int, int], ...]:
+    """The query tile of each query level."""
+    return tuple(TILES[min(lq, len(TILES) - 1)] for lq in range(num_levels))
+
+
+def _stage(shapes, tiles, windows, element_size, smem_budget, head_dim, points, backward, halo,
+           origins=None):
+    """The plan for given windows: per query level, stage the smallest
+    windows first while the block's layout fits the budget."""
     L = len(shapes)
-    if not 1 <= L <= MAX_LEVELS:
-        raise ValueError(f"the tiled kernels take 1 to {MAX_LEVELS} levels, got {L}")
-    tiles = tuple(TILES[min(lq, len(TILES) - 1)] for lq in range(L))
-    windows, staged, off_b, off_acc, total = [], [], [], [], 0
-    for lq, (Hq, Wq) in enumerate(shapes):
+    staged, off_b, off_acc, total = [], [], [], 0
+    for lq in range(L):
         th, tw = tiles[lq]
-        win = tuple((window_size(th, Hq, Ht, halo), window_size(tw, Wq, Wt, halo)) for Ht, Wt in shapes)
-        px = [wh * ww for wh, ww in win]
+        px = [wh * ww for wh, ww in windows[lq]]
         # the backward stages its windows in fp32 whatever the value's dtype
         win_bytes = [n * head_dim * (4 if backward else element_size) for n in px]
         # the forward's accumulator; the backward's entry list (which also
         # holds its block's scan scratch, 32 ints) and upstream gradient rows
         tail = (max(4 * th * tw * points, 16) * 8 if backward else 0) + th * tw * head_dim * 4
-        # stage the smallest windows first while the block's layout fits
         chosen = [False] * L
         if _layout(win_bytes, px, chosen, tail, backward)[2] > smem_budget:
             raise ValueError(f"a ({th}, {tw}) tile's accumulator alone exceeds {smem_budget} bytes")
@@ -167,13 +183,49 @@ def _plan(shapes, element_size, halo, smem_budget, head_dim, points, backward):
             if _layout(win_bytes, px, chosen, tail, backward)[2] > smem_budget:
                 chosen[lt] = False
         b_off, a_off, nbytes = _layout(win_bytes, px, chosen, tail, backward)
-        windows.append(win)
         staged.append(tuple(chosen))
         off_b.append(b_off)
         off_acc.append(a_off)
         total = max(total, nbytes)
-    return TilePlan(shapes, halo, backward, head_dim, points, element_size, tiles, tuple(windows),
-                    tuple(staged), tuple(off_b), tuple(off_acc), total)
+    return TilePlan(shapes, halo, backward, head_dim, points, element_size, tiles, windows,
+                    tuple(staged), tuple(off_b), tuple(off_acc), total, origins)
+
+
+def _check_levels(L: int) -> None:
+    if not 1 <= L <= MAX_LEVELS:
+        raise ValueError(f"the tiled kernels take 1 to {MAX_LEVELS} levels, got {L}")
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(shapes, element_size, halo, smem_budget, head_dim, points, backward):
+    _check_levels(len(shapes))
+    tiles = tile_shapes(len(shapes))
+    windows = tuple(
+        tuple((window_size(th, Hq, Ht, halo), window_size(tw, Wq, Wt, halo)) for Ht, Wt in shapes)
+        for (Hq, Wq), (th, tw) in zip(shapes, tiles))
+    return _stage(shapes, tiles, windows, element_size, smem_budget, head_dim, points, backward, halo)
+
+
+def plan_for_windows(
+    spatial_shapes: Shapes,
+    value_dtype: torch.dtype,
+    windows,  # windows[lq][lt] = (WinH, WinW)
+    origins,  # origins[lq][lt] = (row origin per tile row, column origin per tile column)
+    *,
+    head_dim: int = 32,
+    points: int = 4,
+    smem_budget: int | None = None,
+) -> TilePlan:
+    """A forward plan on the default tiles with windows and origins given
+    per pair (K4's, ``ops/msda_grid.py``); the budget and staging as
+    ``encoder_tile_plan``'s.  Each window must lie inside its level."""
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    _check_levels(len(shapes))
+    if value_dtype not in _ELEMENT_SIZE:
+        raise TypeError(f"value dtype must be float32 or bfloat16, got {value_dtype}")
+    budget = SMEM_BUDGET if smem_budget is None else int(smem_budget)
+    return _stage(shapes, tile_shapes(len(shapes)), windows, _ELEMENT_SIZE[value_dtype], budget,
+                  int(head_dim), int(points), False, 0, origins)
 
 
 def encoder_tile_plan(
@@ -209,13 +261,15 @@ def query_windows(plan: TilePlan, device: str) -> Tuple[torch.Tensor, ...]:
     q0 = 0
     for lq, (Hq, Wq) in enumerate(plan.shapes):
         th, tw = plan.tiles[lq]
+        ny, nx = plan.grid(lq)
         ty = np.repeat(np.arange(Hq) // th, Wq)
         tx = np.tile(np.arange(Wq) // tw, Hq)
         sl = slice(q0, q0 + Hq * Wq)
-        for lt, (Ht, Wt) in enumerate(plan.shapes):
+        for lt in range(L):
             wh[sl, lt], ww[sl, lt] = plan.windows[lq][lt]
-            y0[sl, lt] = np.clip((ty * th * Ht) // Hq - plan.halo, 0, Ht - wh[sl, lt])
-            x0[sl, lt] = np.clip((tx * tw * Wt) // Wq - plan.halo, 0, Wt - ww[sl, lt])
+            rows = np.asarray([plan.window_origin(lq, lt, t, 0)[0] for t in range(ny)])
+            cols = np.asarray([plan.window_origin(lq, lt, 0, t)[1] for t in range(nx)])
+            y0[sl, lt], x0[sl, lt] = rows[ty], cols[tx]
             staged[sl, lt] = plan.staged[lq][lt]
         q0 += Hq * Wq
     return tuple(torch.from_numpy(a).to(device) for a in (y0, x0, wh, ww, staged))

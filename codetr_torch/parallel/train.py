@@ -5,7 +5,10 @@ The port of the JAX package's ``parallel/train.py`` on one device:
 top-k) -> ``dino_detection_loss`` (Hungarian matching + QFL / L1 / GIoU over
 every decoder layer and the encoder stage) -> backward -> AdamW.  The step
 runs on the model's device; on the card the MSDA forward and backward are
-the hand-written kernels.  The sharded (dp x tp) variants are not ported.
+the hand-written kernels.  An fp32 model's step, backward included, runs in
+full fp32 (``models.codetr.fp32_scope``: TF32 off for cuDNN and matmuls,
+the caller's flags restored after).  The sharded (dp x tp) variants are not
+ported.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from codetr_torch.models.codetr import fp32_scope
 from codetr_torch.parallel.losses import dino_detection_loss
 
 
@@ -38,11 +42,12 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer) -> Calla
     next step."""
 
     def step(batch_inputs, img_masks, gt_boxes, gt_labels, gt_valid) -> torch.Tensor:
-        optimizer.zero_grad(set_to_none=True)
-        outputs = model.train_outputs(batch_inputs, img_masks)
-        total, _ = dino_detection_loss(outputs, gt_boxes, gt_labels, gt_valid)
-        total.backward()
-        optimizer.step()
+        with fp32_scope(next(model.parameters()).dtype):
+            optimizer.zero_grad(set_to_none=True)
+            outputs = model.train_outputs(batch_inputs, img_masks)
+            total, _ = dino_detection_loss(outputs, gt_boxes, gt_labels, gt_valid)
+            total.backward()
+            optimizer.step()
         return total.detach()
 
     return step

@@ -13,6 +13,8 @@ It also holds the input makers and tolerance checks that the CPU parity
 tests (``test_torch_port_msda.py``) share.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -82,14 +84,26 @@ def assert_close(got, want, rtol=1e-5):
     assert err < rtol, f"max err {err:.2e} relative to scale {scale:.2e}"
 
 
+@contextlib.contextmanager
+def kept_tf32_flags():
+    """The process's (matmul, cuDNN) TF32 flags as they were on entry, put
+    back on exit whatever the body set."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        yield saved
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
 @pytest.fixture
 def cuda_device():
+    """The card, with the process's TF32 flags left as the test found them:
+    the port's fp32 entry points pin full fp32 themselves, and whatever a
+    test sets is undone after it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the MSDA kernel has no CPU mode")
-    # a reference on the card is compared in full fp32 precision
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
+    with kept_tf32_flags():
+        yield torch.device("cuda")
 
 
 @pytest.mark.gpu
@@ -495,3 +509,149 @@ def test_cuda_tiled_packed_with_unstaged_pairs(cuda_device, dtype):
         staged = msda_tiles.encoder_tile_plan(shapes, dtype, head_dim=32, backward=backward).staged
         assert all(staged[0]) and not all(map(all, staged))
     check_tiled(cuda_device, dtype, shapes, *tiled_inputs(np.random.default_rng(90), shapes, h=2))
+
+
+@pytest.mark.gpu
+def test_cuda_device_fixture_restores_the_flags(cuda_device):
+    """``kept_tf32_flags`` (the fixture's body) puts back whatever a test
+    sets."""
+    with kept_tf32_flags() as saved:
+        torch.backends.cuda.matmul.allow_tf32 = not saved[0]
+        torch.backends.cudnn.allow_tf32 = not saved[1]
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == saved
+
+
+def to_qminor(device, loc, w):
+    """numpy (bs, K, h, L, P, 2) / (bs, K, h, L, P) -> q-minor x, y, w on the
+    card, each (bs, h, L, P, K) fp32 contiguous."""
+    loc_t, w_t = torch.from_numpy(loc).to(device), torch.from_numpy(w).to(device)
+    return [a.permute(0, 2, 3, 4, 1).contiguous() for a in (loc_t[..., 0], loc_t[..., 1], w_t)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_tiled_qm_matches_plain(cuda_device, dtype):
+    """The tiled q-minor kernel (K3, ``msda_qm_fwd`` on K1's plan) against
+    ``msda_reference_qm`` on tile-adversarial taps (in and just out of the
+    windows, far, on grid lines), batch 2, at odd small shapes and at the
+    768x1152 pyramid (whose plan reads some pairs directly): fp32 to 1e-5 of
+    scale, bf16 within 2^-7 of each element + 1e-5 of scale; one
+    ``launches_qm`` a call."""
+    cases = [(shapes, tiled_inputs(np.random.default_rng(100 + i), shapes)) for i, shapes in enumerate(TILED_SHAPES)]
+    cases.append((SERVING_SHAPES, tiled_inputs(np.random.default_rng(110), SERVING_SHAPES, h=2)))
+    for shapes, (value, loc, w) in cases:
+        v = torch.from_numpy(value).to(cuda_device, dtype)
+        qm = to_qminor(cuda_device, loc, w)
+        before = port_msda.launches_qm
+        got = port_msda.msda_grid_qm(v, shapes, *qm)
+        torch.cuda.synchronize()
+        assert port_msda.launches_qm == before + 1 and got.dtype == dtype
+        want = port_msda.msda_reference_qm(v.float(), shapes, *qm)
+        if dtype == torch.float32:
+            assert_close(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5)
+        else:
+            assert_within_bf16_rounding(got, want)
+
+
+def shift_taps(rng, shapes, radius, max_window, bs=2, h=4, d=32, P=4):
+    """Taps of the shift-window function for K4's tiles: each at its query's
+    anchor on the target level plus up to R + 2 cells on each axis (so on
+    and across the window's first and last cells), 10% far, 20% on exact
+    pixel centres; value (bs, K, h, d), x, y, w (bs, h, L, P, K)."""
+    from codetr_torch.ops import msda_grid
+
+    ax, ay, r1 = (a.numpy() for a in msda_grid._query_anchors(
+        msda_grid._key(shapes), radius, max_window, "cpu"))  # (K, L)
+    K, L = ax.shape
+    size = np.asarray([[ww, hh] for hh, ww in shapes], np.float64)  # (L, xy)
+    anchor = np.broadcast_to(np.stack([ax.T, ay.T], -1)[None, None, :, None], (bs, h, L, P, K, 2))
+    reach = (r1.T + 1)[None, None, :, None, :, None]
+    pos = anchor + rng.uniform(-1, 1, (bs, h, L, P, K, 2)) * reach
+    exact = rng.random((bs, h, L, P, K)) < 0.2
+    pos = np.where(exact[..., None], np.round(pos), pos)
+    loc = (pos + 0.5) / size[None, None, :, None, None, :]
+    far = rng.random((bs, h, L, P, K)) < 0.1
+    loc[far] = rng.uniform(-1.0, 2.0, (int(far.sum()), 2))
+    w = rng.uniform(0, 1, (bs, h, L, P, K))
+    value = rng.standard_normal((bs, K, h, d))
+    return (value.astype(np.float32), *(np.ascontiguousarray(loc[..., i], np.float32) for i in (0, 1)),
+            w.astype(np.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_tiled_shift_matches_plain(cuda_device, dtype):
+    """The tiled shift-window kernel (K4) against ``msda_shift_plain`` on
+    taps on and across its windows' first and last cells, batch 2: the
+    idealised anchors (radius 2, ``max_window`` 31), the coarse-pair escape
+    on every cross-level pair (radius 2, ``max_window`` 9: W = 11), and the
+    768x1152 pyramid at radius 5 (its plan reads some pairs directly); fp32
+    to 1e-5 of scale, bf16 within its rounding."""
+    from codetr_torch.ops import msda_grid
+
+    cases = [(shapes, 2, mw) for shapes in TILED_SHAPES for mw in (31, 9)] + [(SERVING_SHAPES, 5, 31)]
+    for i, (shapes, radius, max_window) in enumerate(cases):
+        plans = msda_grid.pair_plans(shapes, radius, max_window)
+        assert any(p.coarse for row in plans for p in row) == (max_window == 9)
+        value, x, y, w = shift_taps(np.random.default_rng(120 + i), shapes, radius, max_window,
+                                    h=2 if shapes is SERVING_SHAPES else 4)
+        v = torch.from_numpy(value).to(cuda_device, dtype)
+        qm = [torch.from_numpy(a).to(cuda_device) for a in (x, y, w)]
+        before = port_msda.launches_shift
+        got = msda_grid.msda_grid_shift_qm(v, shapes, *qm, radius=radius, max_window=max_window)
+        torch.cuda.synchronize()
+        assert port_msda.launches_shift == before + 1 and got.dtype == dtype
+        want = msda_grid.msda_shift_plain(v.float(), shapes, *qm, radius, max_window)
+        if dtype == torch.float32:
+            assert_close(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5)
+        else:
+            assert_within_bf16_rounding(got, want)
+
+
+@pytest.mark.gpu
+def test_r50_fp32_on_card_matches_cpu_under_default_flags(cuda_device):
+    """The full-width R50 Co-DINO, fp32, on the card against the same weights
+    on the CPU at 384x384, with PyTorch's TF32 flags at their defaults
+    (cuDNN's on): the model pins full fp32 itself.  Features, encoder memory
+    and class logits within 2e-4 of their scale, scores 1e-3, boxes 0.5 px
+    set-wise (one unmatched box in a hundred allowed)."""
+    from codetr_torch import build_codetr, co_dino_r50
+
+    assert torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    cfg = co_dino_r50()
+    cpu = build_codetr(cfg, device="cpu", seed=0)
+    gpu = build_codetr(cfg, device=cuda_device, seed=0)
+    rng = np.random.default_rng(1)
+    img = torch.from_numpy(rng.standard_normal((1, 384, 384, 3)).astype(np.float32))
+    mask = torch.zeros(1, 384, 384)
+    mask[:, 288:] = 1.0
+    mask[:, :, 336:] = 1.0
+
+    def run(model, x, m):
+        feats = model.features(x)
+        _, _, aux = model.query_head.run_transformer(feats, m)
+        return feats, aux, model(x, m)
+
+    with torch.no_grad():
+        c_feats, c_aux, (c_boxes, c_scores, c_labels) = run(cpu, img, mask)
+        g_feats, g_aux, (g_boxes, g_scores, g_labels) = run(gpu, img.to(cuda_device), mask.to(cuda_device))
+    assert torch.backends.cudnn.allow_tf32  # the caller's flag is back
+
+    def rel(g, c):
+        return ((g.cpu().float() - c).abs().max() / c.abs().max()).item()
+
+    assert max(rel(g, c) for g, c in zip(g_feats, c_feats)) < 2e-4
+    assert rel(g_aux["memory"], c_aux["memory"]) < 2e-4
+    assert rel(g_aux["enc_class"], c_aux["enc_class"]) < 2e-4
+    assert (g_scores.cpu() - c_scores).abs().max().item() < 1e-3
+    gb, gl = g_boxes.cpu()[0].numpy(), g_labels.cpu()[0].numpy()
+    used = np.zeros(len(gb), bool)
+    unmatched = 0
+    for b, lab in zip(c_boxes[0].numpy(), c_labels[0].numpy()):
+        cand = np.where((gl == lab) & ~used)[0]
+        dist = np.abs(gb[cand] - b).max(axis=1) if len(cand) else np.array([np.inf])
+        if dist.min() > 0.5:
+            unmatched += 1
+            continue
+        used[cand[np.argmin(dist)]] = True
+    assert unmatched <= len(gb) // 100

@@ -1,8 +1,8 @@
 """The port's preprocess, NMS and Inferencer against the JAX package.
 
 Inputs are made from a seed with numpy and handed to both packages.
-Preprocess: mask, padding and scale factors equal; normalised pixels within
-one uint8 level of cv2's resize.  NMS: keep masks equal, scores and boxes
+Preprocess: mask, padding, scale factors and normalised pixels equal (the
+port's integer resize is cv2 ``INTER_LINEAR``'s arithmetic).  NMS: keep masks equal, scores and boxes
 to float32 rounding.  Inferencer: the tiny model with the same weights,
 batch_size=2 over 3 images (so the last batch is padded), detections
 matched set-wise (scores 2e-4, boxes 0.1 px).
@@ -41,8 +41,7 @@ def test_preprocess_matches_jax_host_path(size):
     th, tw = thw
     x = x.numpy()
     assert np.all(x[th:] == 0) and np.all(x[:, tw:] == 0)
-    one_level = 1.0 / np.asarray(PreprocessConfig().std, np.float32)
-    assert np.all(np.abs(x - want_x) <= one_level + 1e-5)
+    np.testing.assert_array_equal(x, want_x)
 
 
 def random_detections(rng, bs, n, num_classes=3, size=100.0):
@@ -96,8 +95,7 @@ def test_class_agnostic_nms_and_soft_nms_match_jax():
 def test_inferencer_matches_jax_with_a_padded_batch():
     params = perturbed_jax_params(seed=2)
     rng = np.random.default_rng(4)
-    # sizes that need no resize at 128x128 (scale 1), so both packages see
-    # bit-identical pixels; the resize itself is held to cv2 above
+    # sizes that need no resize at 128x128 (scale 1); resized images below
     images = [rng.integers(0, 256, s, np.uint8) for s in ((96, 128, 3), (128, 80, 3), (128, 128, 3))]
 
     cfg = jax_tiny_test_config()
@@ -109,6 +107,29 @@ def test_inferencer_matches_jax_with_a_padded_batch():
     assert len(got) == len(want) == 3
     for g, w in zip(got, want):
         assert g.boxes.shape == w.boxes.shape and g.keep.shape == w.keep.shape
+        gc, wc = g.compact(), w.compact()
+        assert len(gc.scores) == len(wc.scores)
+        assert match_detections(gc.boxes, gc.labels, wc.boxes, wc.labels, box_tol=0.1) == 0
+        np.testing.assert_allclose(np.sort(gc.scores), np.sort(wc.scores), atol=2e-4)
+
+
+def test_inferencer_matches_jax_on_resized_images():
+    """Images that need a keep-ratio resize to 128x128 (down and up, both
+    orientations): the port's resize must give cv2 ``INTER_LINEAR``'s pixels
+    for the detections to match the JAX ``Inferencer`` set-wise at the
+    ladder (scores 2e-4, boxes 0.1 px)."""
+    params = perturbed_jax_params(seed=2)
+    rng = np.random.default_rng(5)
+    images = [rng.integers(0, 256, s, np.uint8) for s in ((200, 300, 3), (150, 100, 3), (61, 97, 3))]
+
+    cfg = jax_tiny_test_config()
+    want = JaxInferencer(JaxCoDETR(cfg=cfg, msda_impl="auto"), params, cfg,
+                         height=128, width=128, batch_size=2)(images)
+    got = Inferencer(port_from_jax(params), height=128, width=128, batch_size=2,
+                     device="cpu")(images)
+
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
         gc, wc = g.compact(), w.compact()
         assert len(gc.scores) == len(wc.scores)
         assert match_detections(gc.boxes, gc.labels, wc.boxes, wc.labels, box_tol=0.1) == 0

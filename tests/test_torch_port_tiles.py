@@ -2,21 +2,26 @@
 (``codetr_torch/ops/msda_tiles.py``) against the JAX package's windowed
 kernel geometry and against brute force, on the CPU.
 
-The tiled CUDA kernels (``csrc/msda_fwd.cu:msda_packed_fwd``,
-``csrc/msda_bwd.cu:msda_packed_bwd``) run only on the card
+The tiled CUDA kernels (``csrc/msda_fwd.cu:msda_packed_fwd`` and
+``msda_qm_fwd``, ``csrc/msda_bwd.cu:msda_packed_bwd``) run only on the card
 (``test_torch_port_cuda.py``); here the plan they read is checked: every
 query in exactly one tile, every window inside its level and the budget,
 the halo property, the window origins against the JAX
-``_win_start_y``, the staged share against a count tap by tap, and a numpy
-model of the kernels' window reads (corner offsets and in-window masks as
-``csrc/msda_tiles.cuh`` computes them) against the plain MSDA.
+``_win_start_y``, the staged share against a count tap by tap, the q-minor
+entry's plan (K1's) and its staged pairs at the three grid-query sizes, and
+a numpy model of the kernels' window reads (corner offsets and in-window
+masks as ``csrc/msda_tiles.cuh`` computes them, coordinates read packed or
+q-minor) against the plain MSDA and, q-minor, the JAX K3 (``msda_win_qm``
+in interpret mode) on its in-envelope taps.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from codetr_tpu.ops.msda_win import _tile_shape_for_level, _win_geometry, _win_start_y
+from codetr_tpu.ops.msda_win import (_tile_shape_for_level, _win_geometry, _win_start_y, msda_win_qm,
+                                     win_envelope_mask)
 from codetr_torch.ops import msda as port_msda
 from codetr_torch.ops import msda_tiles
 
@@ -32,6 +37,7 @@ def level_shapes(h, w):
 SERVING = level_shapes(768, 1152)  # K = 73,656
 R50 = level_shapes(608, 608)  # K = 30,785, a 10x10 last level
 TINY = ((13, 21), (7, 11), (4, 6), (2, 3))  # odd, every level below a (16, 16) tile
+GATE = level_shapes(1280, 1920)  # the MSDA gate's size, K = 204,600 (a 20x30 last level)
 SHAPE_SETS = {"768x1152": SERVING, "608x608": R50, "tiny": TINY}
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -264,15 +270,40 @@ def test_staged_share_matches_brute_force(smem_budget):
     assert 0 < served < total
 
 
-def window_model(value, shapes, loc, w, plan):
+def packed_reader(loc, w):
+    """Tap (key, head, lt, p) -> (x, y, weight) read as ``PackedCoords``
+    does: row ``key`` of the packed (1, K, C) array at ``(head * L + lt) * P
+    + p``, y and the weight HLP and 2 * HLP further."""
+    cpk = pack_np(loc, w)[0]
+    _, _, h, L, P = w.shape
+    HLP = h * L * P
+    return lambda key, head, lt, p: tuple(cpk[key, i * HLP + (head * L + lt) * P + p] for i in range(3))
+
+
+def qminor_reader(x, y, w):
+    """Tap (key, head, lt, p) -> (x, y, weight) read as ``QminorCoords``
+    does: the flat (1, h, L, P, K) planes at ``((head * L + lt) * P + p) * K
+    + key``."""
+    _, h, L, P, K = x.shape
+    flat = [a.reshape(-1) for a in (x, y, w)]
+    return lambda key, head, lt, p: tuple(a[((head * L + lt) * P + p) * K + key] for a in flat)
+
+
+def pack_np(loc, w):
+    bs, K = w.shape[:2]
+    return np.concatenate([loc[..., 0].reshape(bs, K, -1), loc[..., 1].reshape(bs, K, -1),
+                           w.reshape(bs, K, -1)], -1)
+
+
+def window_model(value, shapes, read_tap, h, P, plan):
     """A numpy model of the tiled kernels' reads (``csrc/msda_tiles.cuh``):
     per tile and target level, the window copied out of the value, each
-    tap's first-corner key ``r00`` and window pixel ``s00`` and its corner
-    masks as ``tap_geometry`` computes them, and each corner read from the
-    window (offsets 0, 1, win_w, win_w + 1) or from the value (offsets 0,
-    1, Wt, Wt + 1) -> (bs, K, h*d), and the count of window reads."""
-    _, K, h, d = value.shape
-    P = loc.shape[4]
+    tap's coordinates from ``read_tap``, its first-corner key ``r00`` and
+    window pixel ``s00`` and its corner masks as ``tap_geometry`` computes
+    them, and each corner read from the window (offsets 0, 1, win_w, win_w +
+    1) or from the value (offsets 0, 1, Wt, Wt + 1) -> (bs, K, h*d), and the
+    count of window reads."""
+    _, K, _, d = value.shape
     starts = np.cumsum([0] + [a * b for a, b in shapes])
     out = np.zeros((1, K, h, d), np.float64)
     owner = tap_tile_windows(plan)
@@ -286,8 +317,9 @@ def window_model(value, shapes, loc, w, plan):
             win = value[0, rows.reshape(-1)]  # (wh * ww, h, d): pixel-major, as staged
             for head in range(h):
                 for p in range(P):
-                    px = np.float32(np.float32(loc[0, q, head, lt, p, 0]) * np.float32(Wt)) - np.float32(0.5)
-                    py = np.float32(np.float32(loc[0, q, head, lt, p, 1]) * np.float32(Ht)) - np.float32(0.5)
+                    lx, ly, a = read_tap(q, head, lt, p)
+                    px = np.float32(np.float32(lx) * np.float32(Wt)) - np.float32(0.5)
+                    py = np.float32(np.float32(ly) * np.float32(Ht)) - np.float32(0.5)
                     fx, fy = np.floor(px), np.floor(py)
                     vx0, vx1 = 0 <= fx <= Wt - 1, -1 <= fx <= Wt - 2
                     vy0, vy1 = 0 <= fy <= Ht - 1, -1 <= fy <= Ht - 2
@@ -300,7 +332,6 @@ def window_model(value, shapes, loc, w, plan):
                     ix0, ix1 = 0 <= cx < ww, -1 <= cx < ww - 1
                     iy0, iy1 = 0 <= cy < wh, -1 <= cy < wh - 1
                     s00 = cy * ww + cx
-                    a = w[0, q, head, lt, p]
                     for valid, inside, s_off, r_off, hat in (
                         (vx0 and vy0, ix0 and iy0, 0, 0, (1 - tx_) * (1 - ty_)),
                         (vx1 and vy0, ix1 and iy0, 1, 1, tx_ * (1 - ty_)),
@@ -316,18 +347,83 @@ def window_model(value, shapes, loc, w, plan):
     return out.reshape(1, K, h * d), window_reads
 
 
+@pytest.mark.parametrize("layout", ["packed", "qminor"])
 @pytest.mark.parametrize("smem_budget", [msda_tiles.SMEM_BUDGET, 12_000])
-def test_window_reads_model_matches_plain(smem_budget):
+def test_window_reads_model_matches_plain(smem_budget, layout):
     """The kernels' corner addressing, modelled in numpy, gives the plain
-    MSDA, with every pair staged and with some read directly."""
+    MSDA, with every pair staged and with some read directly, with the
+    coordinates read as K1 reads them (packed) and as K3 does (q-minor,
+    against ``msda_reference_qm``)."""
     shapes = TINY
     rng = np.random.default_rng(11)
     loc, w = grid_taps(rng, shapes)
-    value = rng.standard_normal((1, loc.shape[1], 2, 8)).astype(np.float32)
-    plan = msda_tiles.encoder_tile_plan(shapes, torch.float32, smem_budget=smem_budget, head_dim=8)
-    got, reads = window_model(value, shapes, loc, w, plan)
-    want = port_msda.multi_scale_deformable_attention_plain(
-        torch.from_numpy(value), shapes, torch.from_numpy(loc), torch.from_numpy(w)).numpy()
+    h, P = w.shape[2], w.shape[4]
+    value = rng.standard_normal((1, loc.shape[1], h, 8)).astype(np.float32)
+    plan = msda_tiles.encoder_tile_plan(shapes, torch.float32, smem_budget=smem_budget, head_dim=8,
+                                        points=P)
+    x, y, wq = (np.ascontiguousarray(np.moveaxis(a, 1, -1)) for a in (loc[..., 0], loc[..., 1], w))
+    reader = packed_reader(loc, w) if layout == "packed" else qminor_reader(x, y, wq)
+    got, reads = window_model(value, shapes, reader, h, P, plan)
+    if layout == "packed":
+        want = port_msda.multi_scale_deformable_attention_plain(
+            torch.from_numpy(value), shapes, torch.from_numpy(loc), torch.from_numpy(w)).numpy()
+    else:
+        want = port_msda.msda_reference_qm(torch.from_numpy(value), shapes,
+                                           *(torch.from_numpy(a) for a in (x, y, wq))).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * max(1.0, np.abs(want).max()))
     served, _ = msda_tiles.staged_share(plan, *(torch.from_numpy(a) for a in (loc[..., 0], loc[..., 1], w)))
     assert reads >= served > 0
+
+
+def test_qminor_window_reads_model_matches_jax_k3():
+    """The q-minor reads against the JAX K3 itself (``msda_win_qm``, the
+    Pallas kernel in interpret mode) on the taps inside its window envelope
+    (the others' weights zeroed), at a pyramid whose finest level runs K3's
+    ``pallas_call``."""
+    shapes = ((40, 40), (20, 20), (10, 10))
+    rng = np.random.default_rng(12)
+    loc, w = grid_taps(rng, shapes, halo=2)
+    h, P = w.shape[2], w.shape[4]
+    value = rng.standard_normal((1, loc.shape[1], h, 8)).astype(np.float32)
+    x, y, wq = (np.ascontiguousarray(np.moveaxis(a, 1, -1)) for a in (loc[..., 0], loc[..., 1], w))
+    inside = np.asarray(win_envelope_mask(shapes, jnp.asarray(x), jnp.asarray(y), radius=4))
+    w_in = np.where(inside, wq, 0).astype(np.float32)
+    assert 0 < inside.mean() < 1
+    plan = msda_tiles.encoder_tile_plan(shapes, torch.float32, head_dim=8, points=P)
+    got, _ = window_model(value, shapes, qminor_reader(x, y, w_in), h, P, plan)
+    want = np.asarray(msda_win_qm(jnp.asarray(value), shapes, jnp.asarray(x), jnp.asarray(y),
+                                  jnp.asarray(w_in), radius=4, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * max(1.0, np.abs(want).max()))
+
+
+# The q-minor entry (K3) runs on K1's forward plan: its coordinates go
+# straight to registers, so no shared-memory region is added for them.
+# Staged (lq, lt) pairs, per query level, at each grid-query size.
+QM_STAGED = {
+    ("768x1152", torch.float32): ((1, 1, 1, 1, 1), (0, 1, 1, 1, 1), (0, 0, 1, 1, 1), (0, 0, 1, 1, 1),
+                                  (0, 0, 0, 1, 1)),
+    ("768x1152", torch.bfloat16): ((1, 1, 1, 1, 1), (1, 1, 1, 1, 1), (0, 1, 1, 1, 1), (0, 1, 1, 1, 1),
+                                   (0, 0, 1, 1, 1)),
+    ("608x608", torch.float32): ((1, 1, 1, 1, 1), (0, 1, 1, 1, 1), (0, 0, 1, 1, 1), (0, 0, 1, 1, 1),
+                                 (0, 0, 1, 1, 1)),
+    ("1280x1920", torch.float32): ((1, 1, 1, 1, 1), (0, 1, 1, 1, 1), (0, 0, 1, 1, 1), (0, 0, 1, 1, 1),
+                                   (0, 0, 0, 1, 1)),
+    ("1280x1920", torch.bfloat16): ((1, 1, 1, 1, 1), (1, 1, 1, 1, 1), (0, 1, 1, 1, 1), (0, 1, 1, 1, 1),
+                                    (0, 0, 1, 1, 1)),
+}
+
+
+@pytest.mark.parametrize("size,dtype", list(QM_STAGED), ids=lambda v: str(v).split(".")[-1])
+def test_qminor_plan_stages_these_pairs(size, dtype):
+    """K3's plan at 768x1152, 608x608 and the gate's 1280x1920: the pairs
+    it stages (every pair of the finest query level, which holds ~75% of
+    the queries), its layout inside the budget, and the share of the
+    queries whose every pair is staged."""
+    shapes = {"768x1152": SERVING, "608x608": R50, "1280x1920": GATE}[size]
+    plan = msda_tiles.encoder_tile_plan(shapes, dtype, head_dim=32, points=4)
+    assert tuple(tuple(int(v) for v in row) for row in plan.staged) == QM_STAGED[size, dtype]
+    assert plan.smem_bytes <= msda_tiles.SMEM_BUDGET
+    for lq, (th, tw) in enumerate(plan.tiles):
+        assert plan.off_acc[lq] + th * tw * 32 * 4 <= plan.smem_bytes
+    K = sum(a * b for a, b in shapes)
+    assert shapes[0][0] * shapes[0][1] / K > 0.74
