@@ -42,8 +42,11 @@ Phases (any failure raises, and the script exits non-zero without a result):
    K4 launch per layer, one K3 correction per layer with taps outside the
    envelope, no K1; the ``"auto"`` run counts the share of the model's own
    corner reads that the tiled kernel serves from shared memory, at least
-   0.7), and the gather microbenchmarks (K5) against their plain versions,
-   then their sweep;
+   0.7), and the gather microbenchmarks (K5) against their plain versions
+   at the sweep's and at tail sizes, their library's ``I2F`` count (none in
+   a loop), then their sweep (each call beside its launch floor and, for the
+   gathers, the shared-memory wavefront figure; the launches per C entry
+   checked) and gather_lane under 1- to 8-way bank conflicts;
 6. one full-width Swin-L train step on the card against the CPU at a small
    input (loss and every gradient, each leaf held against its own measured
    sensitivity); then the training path: Swin-L train steps at 768x1152,
@@ -66,6 +69,7 @@ times are full-fp32 figures.
 
 from __future__ import annotations
 
+import collections
 import copy
 import functools
 import gc
@@ -1189,16 +1193,23 @@ def shift_timings(stamp):
     return per_call
 
 
-def gatherbench_phase(stamp):
+def gatherbench_phase(stamp, built):
     """K5: each op's kernel against its plain version at every size of the
-    sweep (the gathers and idxadd bit for bit; fma1 and splat2, whose
-    kernels round differently, within 1e-6 of the checksum's scale), then
-    the sweep itself, with the launch count set to 0 just before and read
-    just after."""
+    sweep and at the tail sizes it never reaches (the gathers and idxadd bit
+    for bit; fma1 and splat2, whose kernels round differently, within 1e-6
+    of the checksum's scale), the `I2F` instructions of the built library,
+    gather_sub's clusters against what the card holds at once, then the
+    sweep itself, with the launch counts set to 0 just before and read just
+    after: each case's kernel time beside its bound, its launch floor (the
+    empty kernel at its geometry) and, for the gathers, the shared-memory
+    wavefront figure."""
     from codetr_torch.tools import gatherbench as gb
 
     errs = {}
-    for key, op, size, dtype in gb.cases():
+    checks = [(key, op, size, dtype) for key, op, size, dtype in gb.cases()]
+    checks += [(f"tail_{op}_{'x'.join(map(str, size))}_{str(dtype).split('.')[-1]}", op, size, dtype)
+               for op, size, dtype in gb.TAIL_CASES]
+    for key, op, size, dtype in checks:
         inputs = gb.make_inputs(op, size, dtype)
         got, want = gb.KERNEL[op](*inputs), gb.PLAIN[op](*inputs)
         torch.cuda.synchronize()
@@ -1206,18 +1217,46 @@ def gatherbench_phase(stamp):
         tol = 0.0 if op in ("gather_sub", "gather_lane", "idxadd") else 1e-6 * want.abs().max().item()
         if got.shape != (8, 128) or not err <= tol:
             fail(f"gatherbench {key}: checksum off by {err} (tol {tol})")
-    print(f"gatherbench: {len(errs)} checksums against their plain versions, largest error "
-          f"{max(errs.values()):.3e} (gathers and idxadd exact; fma1, splat2 1e-6 of scale) [{stamp}]")
+    print(f"gatherbench: {len(errs)} checksums against their plain versions ({len(gb.TAIL_CASES)} at "
+          f"tail sizes), largest error {max(errs.values()):.3e} (gathers and idxadd exact; fma1, "
+          f"splat2 1e-6 of scale) [{stamp}]")
+    sass = gb.sass_i2f(built.path)
+    print(f"gatherbench SASS (cuobjdump -sass {built.path.name}): I2F per kernel, in loops, loops: "
+          + ", ".join(f"{k} {v['i2f']}/{v['in_loops']}/{v['loops']}" for k, v in sass.items()))
+    if any(v["in_loops"] for v in sass.values()):
+        fail(f"gatherbench: an I2F inside a loop: {sass}")
+    clusters = {}
+    for key, op, size, dtype in gb.cases():
+        if op == "gather_sub":
+            plan = gb.gather_sub_plan(*size, dtype)
+            clusters[key] = {"clusters": plan.groups * plan.stripes // plan.cluster,
+                             "cluster": plan.cluster, "max_active": gb.max_clusters(*size, dtype)}
+    print("gather_sub clusters (needed / held at once): " + ", ".join(
+        f"{k} {c['clusters']} of {c['cluster']} / {c['max_active']}" for k, c in clusters.items()))
     gb.launches = 0
+    gb.launches_by_entry.clear()
     results = gb.sweep()
     torch.cuda.synchronize()
-    launches = gb.launches
+    launches, by_entry = gb.launches, dict(gb.launches_by_entry)
+    want = collections.Counter()  # 20 timed calls and 2 warm-ups of each case and of its floor
+    for _, op, _, _ in gb.cases():
+        want[f"gb_{op}"] += 22
+        want["gb_null"] += 22
+    if by_entry != dict(want) or launches != sum(want.values()):
+        fail(f"gatherbench's sweep launched {by_entry} ({launches} in all), not {dict(want)}")
+    conflicts = gb.conflict_sweep()
+    print("gather_lane 1040x256 under k-way bank conflicts, us per call (floor, wavefront figure): " + ", ".join(
+        f"{w}-way {r['ms'] * 1e3:.4f} ({r['floor_ms'] * 1e3:.4f}, {r['smem_wavefront_ms'] * 1e3:.4f})"
+        for w, r in conflicts.items()) + f" [{stamp}]")
     for key, r in results.items():
-        print(f"gatherbench {key}: {r['us_per_op']:.4f} us per op and iteration ({r['ms']:.4f} ms "
-              f"per call), bound {r['bound_ms'] * 1e3 / gb.R:.4f} us ({r['bound_by']}), plain "
-              f"{r['plain_ms']:.4f} ms per call, one PyTorch call per plane {r['library_us']:.2f} us "
-              f"[{stamp}]")
-    return {"errs": errs, "results": results, "launches": launches, "R": gb.R}
+        wf = (f", shared-memory wavefronts {r['smem_wavefront_ms'] * 1e3:.4f} us "
+              f"({r['wavefronts_per_read']:.3f} a read)" if "smem_wavefront_ms" in r else "")
+        print(f"gatherbench {key}: {r['ms'] * 1e3:.4f} us per call ({r['us_per_op']:.4f} us per op and "
+              f"iteration), bound {r['bound_ms'] * 1e3:.4f} us ({r['bound_by']}), launch floor "
+              f"{r['floor_ms'] * 1e3:.4f} us{wf}, plain {r['plain_ms']:.4f} ms per call, one PyTorch "
+              f"call per plane {r['library_us']:.2f} us [{stamp}]")
+    return {"errs": errs, "results": results, "launches": launches, "by_entry": by_entry, "R": gb.R,
+            "sass": sass, "clusters": clusters, "conflicts": conflicts}
 
 
 def main() -> int:
@@ -1347,7 +1386,7 @@ def main() -> int:
     shift_adversarial = shift_adversarial_checks(stamp)
     dispatch = dispatch_checks(stamp)
     enc_stage = encoder_stage(cfg, images[-1], stamp)
-    gbench = gatherbench_phase(stamp)
+    gbench = gatherbench_phase(stamp, builds[KERNELS.index("gatherbench")])
     held["after the shift-window and gatherbench phases"] = torch.cuda.memory_allocated()
     print("memory allocated, GiB: " + ", ".join(f"{k} {v / 2**30:.4f}" for k, v in held.items())
           + f" [{stamp}]")
@@ -1598,7 +1637,8 @@ def main() -> int:
         "route": "cuda",
         "source": "codetr_torch/csrc/gatherbench.cu",
         "replaces": "tools/gatherbench.py:48",
-        "launches": gbench["launches"],  # the sweep's
+        "launches": gbench["launches"],  # the sweep's: each case's kernel and its floor
+        "launches_by_entry": gbench["by_entry"],
         "max_abs_err": max(gbench["errs"].values()),
         "checked_at": sorted(gbench["errs"]),
         # the whole sweep: one call of each case
@@ -1608,6 +1648,21 @@ def main() -> int:
         "bound_by": max(gbench["results"].values(), key=lambda r: r["bound_ms"])["bound_by"],
         # R one-plane PyTorch calls per case
         "library_ms": sum(r["library_us"] for r in gbench["results"].values()) * gbench["R"] / 1e3,
+        # the empty kernel at each case's launch geometry, one call per case
+        "floor_ms": sum(r["floor_ms"] for r in gbench["results"].values()),
+        "smem_wavefront_ms": {k: r["smem_wavefront_ms"] for k, r in gbench["results"].items()
+                              if "smem_wavefront_ms" in r},
+        "design": {
+            "gather_sub": "a stripe of n + R - 1 128-byte rows, a column (bf16: a word) per lane, "
+                          "its tensor-map boxes multicast to a cluster of two row groups",
+            "gather_lane": "a block per row of m + R - 1 words, a column per lane",
+            "idxadd": "the index's mirror by one VIADDMNMX, an int32 sum converted once",
+            "splat2": "a thread per plane element, the iteration an immediate",
+            "fma1": "a thread per element, the iteration an immediate",
+        },
+        "sass_i2f": gbench["sass"],
+        "lane_conflicts": gbench["conflicts"],
+        "gather_sub_clusters": gbench["clusters"],
         "per_case": gbench["results"],
         "card": stamp,
     }]}

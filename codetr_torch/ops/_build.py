@@ -24,6 +24,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
+# No -lcuda: the one driver call (K5's cuTensorMapEncodeTiled) is reached
+# through the runtime's cudaGetDriverEntryPoint.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -408,6 +408,71 @@ def test_cuda_gatherbench_matches_plain(cuda_device):
             assert torch.equal(got, want), key
 
 
+def check_gatherbench_case(gb, op, size, dtype, device):
+    inputs = gb.make_inputs(op, size, dtype, device=device)
+    before = gb.launches
+    got = gb.KERNEL[op](*inputs)
+    torch.cuda.synchronize()
+    assert gb.launches == before + 1
+    want = gb.PLAIN[op](*inputs)
+    if op in ("fma1", "splat2"):
+        assert (got - want).abs().max() <= 1e-6 * want.abs().max(), (op, size)
+    else:
+        assert torch.equal(got, want), (op, size, dtype)
+
+
+GB_TAILS = [("gather_sub", (8, 128), torch.float32), ("gather_sub", (8, 128), torch.bfloat16),
+            ("gather_sub", (257, 130), torch.float32), ("gather_sub", (257, 130), torch.bfloat16),
+            ("gather_sub", (1041, 300), torch.float32), ("gather_sub", (1041, 300), torch.bfloat16),
+            ("gather_lane", (8, 128), torch.float32), ("gather_lane", (257, 130), torch.float32),
+            ("gather_lane", (1041, 300), torch.float32), ("splat2", (7, 9, 130), torch.float32),
+            ("idxadd", (9, 129), torch.int32), ("fma1", (9, 129), torch.float32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op,size,dtype", GB_TAILS,
+                         ids=lambda v: str(v).replace("torch.", "").replace(" ", ""))
+def test_cuda_gatherbench_tails_match_plain(cuda_device, op, size, dtype):
+    """Sizes the sweep never reaches (ragged stripes, rows and blocks, odd
+    widths, n below R) against the plain version, as the sweep's sizes."""
+    from codetr_torch.tools import gatherbench as gb
+
+    assert (op, size, dtype) in gb.TAIL_CASES
+    check_gatherbench_case(gb, op, size, dtype, cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gather_sub_largest_n(cuda_device, dtype):
+    """The largest n whose stripe fits a block's shared memory runs and
+    matches the plain version bit for bit; one more raises on the card and
+    launches nothing (no fallback to the plain version)."""
+    from codetr_torch.tools import gatherbench as gb
+
+    check_gatherbench_case(gb, "gather_sub", (gb.SUB_MAX_N, 160), dtype, cuda_device)
+    x, idx = gb.make_inputs("gather_sub", (gb.SUB_MAX_N + 1, 160), dtype, device=cuda_device)
+    before = gb.launches
+    with pytest.raises(ValueError):
+        gb.gather_sub(x, idx)
+    assert gb.launches == before
+
+
+@pytest.mark.gpu
+def test_cuda_gatherbench_floor_and_limits(cuda_device):
+    """The empty kernel launches at a case's geometry and counts; idxadd
+    past its exact range raises on the card."""
+    from codetr_torch.tools import gatherbench as gb
+
+    x, idx = gb.make_inputs("gather_sub", (1040, 256), torch.float32, device=cuda_device)
+    before = gb.launches
+    gb.null(x, *gb.launch_geometry("gather_sub", (1040, 256), torch.float32))
+    torch.cuda.synchronize()
+    assert gb.launches == before + 1
+    with pytest.raises(ValueError):
+        gb.idxadd(idx, 2**24 // gb.R + 1)
+    assert gb.launches == before + 1
+
+
 # odd level sets for the tiled encoder kernels; the later levels are smaller
 # than their query tiles (the 608x608 pyramid ends in a 10x10 level)
 TILED_SHAPES = [
