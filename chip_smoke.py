@@ -58,8 +58,21 @@ Phases (any failure raises, and the script exits non-zero without a result):
    the direct-gather design on the same taps, with those taps' staged
    share; K3 beside packing its coordinates for K1 and running K1), the
    end-to-end latency and the train step, and print them beside the card's
-   name and power limit, then the ``kernels`` line and, last, the result
-   line.
+   name and power limit;
+8. the deployment path (``codetr_torch.runtime.aot``): the JAX ``bench.py``
+   matrix's configs[0] (R50 608x608 fp32) and [3] (Swin-L 1280x1920 bf16)
+   exported, saved and reloaded in a temporary directory, each reloaded
+   program held against the in-process model on a served image (scores
+   2e-4, boxes 0.1 px; 12 forward-kernel launches a forward; the fp32 one
+   with TF32 off at every convolution); the five configurations of
+   ``codetr_torch.bench.MATRIX`` timed as CUDA-graph replays beside eager
+   calls of the same program (configs[0] and [3]: the reloaded ones), one
+   JSON line each; the Swin-L 768x1152 bf16 batch-4 ``Inferencer`` through
+   the reloaded fused program (uint8 in, preprocessing inside) on 5 images
+   against the host-preprocess eager one; one traced Swin-L 768x1152 fp32
+   image (``utils.profiling.trace``): the share of the window in which a
+   kernel ran and the five kernels with the most time; then the
+   ``kernels`` line and, last, the result line.
 
 The script leaves PyTorch's TF32 flags at their defaults (printed at the
 start), as a user's process has them: the port's fp32 forward and train
@@ -74,9 +87,11 @@ import copy
 import functools
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
@@ -85,12 +100,16 @@ import numpy as np
 import torch
 
 from codetr_torch import Inferencer, build_codetr, co_dino_r50, co_dino_swin_l
-from codetr_torch.bench import verify_inputs, verify_msda_on_card
+from codetr_torch.bench import FAMILIES, MATRIX, measure_config, verify_inputs, verify_msda_on_card
 from codetr_torch.models.codetr import full_fp32
 from codetr_torch.ops import _build
 from codetr_torch.ops import msda, msda_grid, msda_tiles
 from codetr_torch.parallel.losses import dino_detection_loss
 from codetr_torch.parallel.train import adamw, make_train_step
+from codetr_torch.runtime.aot import DTYPES, compile_forward, load_executable, msda_nodes, save_executable
+from codetr_torch.utils.preprocess import preprocess
+from codetr_torch.utils.profiling import trace
+from torch.utils._python_dispatch import TorchDispatchMode
 
 HEIGHT, WIDTH = 768, 1152  # the serving size
 VERIFY_HW = (1280, 1920)  # the on-card MSDA gate's size, the JAX bench.py's default
@@ -99,6 +118,8 @@ CHECK_HW = (384, 384)  # small input for the card-vs-CPU model check
 TRAIN_CHECK_HW = (256, 256)  # small input for the card-vs-CPU train-step check (K = 5,456)
 PERTURBATIONS = 3  # seeded 1e-7 weight perturbations that measure each gradient's spread
 CP_BATCH = 6  # a train batch whose step does not fit the card without SwinConfig.with_cp
+EXPORTED = (0, 3)  # the matrix configurations exported, saved and reloaded (R50 fp32, Swin-L 1280x1920)
+MATRIX_ITERATIONS = 20  # per configuration and mode: 5 blocks of 4
 KERNELS = ("msda_fwd", "msda_bwd", "msda_shift_fwd", "gatherbench")
 SEED = 0
 DEVICE = "cuda"
@@ -1259,6 +1280,215 @@ def gatherbench_phase(stamp, built):
             "sass": sass, "clusters": clusters, "conflicts": conflicts}
 
 
+class ConvFlags(TorchDispatchMode):
+    """Records the (cuDNN, matmul) TF32 flags each time a convolution runs:
+    an exported program has no ``nn.Conv2d`` to hook."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if "convolution" in str(func):
+            self.seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+        return func(*args, **(kwargs or {}))
+
+
+def spec_label(spec) -> str:
+    return (f"{spec['family']} {spec['height']}x{spec['width']} {spec['dtype_str']}"
+            + (f" bs{spec['batch_size']}" if spec["batch_size"] != 1 else ""))
+
+
+@functools.lru_cache(maxsize=None)
+def seeded_model(family: str, dtype_str: str):
+    """A matrix configuration's model with seed-0 weights, built once for
+    all the deployment phases."""
+    return build_codetr(FAMILIES[family](), dtype=DTYPES[dtype_str], device=DEVICE, seed=SEED)
+
+
+def export_phase(tmp, image, stamp):
+    """BASELINE configs[0] (R50 608x608 fp32) and [3] (Swin-L 1280x1920
+    bf16): export, save, reload; the reloaded program against the
+    in-process model on one served image (scores 2e-4, boxes 0.1 px; 12
+    forward-kernel launches and 12 codetr:: nodes; fp32: TF32 off at every
+    convolution).  Returns each reloaded program and its example inputs."""
+    out = {}
+    for i in EXPORTED:
+        spec = MATRIX[i]
+        dtype, h, w = DTYPES[spec["dtype_str"]], spec["height"], spec["width"]
+        model = seeded_model(spec["family"], spec["dtype_str"])
+        cfg = model.cfg
+        t0 = time.perf_counter()
+        fn, example = compile_forward(model, height=h, width=w, dtype=dtype)
+        t_export = time.perf_counter() - t0
+        path = os.path.join(tmp, f"configs{i}.codetr.pt2")
+        t0 = time.perf_counter()
+        save_executable(path, fn, example, meta={"config": spec["family"], "dtype": spec["dtype_str"],
+                                                  "height": h, "width": w, "batch_size": 1,
+                                                  "fused_preprocess": False})
+        t_save = time.perf_counter() - t0
+        del fn
+        t0 = time.perf_counter()
+        loaded = load_executable(path, device=DEVICE)
+        t_load = time.perf_counter() - t0
+        nodes = msda_nodes(loaded.exported)
+        x, m = (t[None] for t in preprocess(image, h, w, cfg.preprocess, device=DEVICE)[:2])
+        x = x.to(dtype)
+        with torch.no_grad():
+            want = model(x, m)
+        msda.launches = msda.launches_qm = msda.launches_bwd = 0
+        with ConvFlags() as flags:
+            got = loaded(x, m)
+        torch.cuda.synchronize()
+        launches = (msda.launches, msda.launches_qm, msda.launches_bwd)
+        drift = {"boxes": (got[0].float() - want[0].float()).abs().max().item(),
+                 "scores": (got[1].float() - want[1].float()).abs().max().item(),
+                 "labels_differ": int((got[2] != want[2]).sum().item())}
+        tf32 = sorted(set(flags.seen))
+        print(f"export {spec_label(spec)}: export {t_export:.1f} s, save {t_save:.1f} s "
+              f"({os.path.getsize(path) / 1e6:.1f} MB), load {t_load:.1f} s; codetr:: nodes {nodes}; "
+              f"reloaded forward: kernel launches (forward, q-minor, backward) {launches}, drift vs the "
+              f"in-process model: boxes {drift['boxes']:.3e} px, scores {drift['scores']:.3e}, labels "
+              f"differing {drift['labels_differ']}; (cuDNN, matmul) TF32 flags at its {len(flags.seen)} "
+              f"convolutions {tf32} [{stamp}]")
+        if nodes != {"codetr.msda_packed.default": 6, "codetr.msda_reference.default": 6}:
+            fail(f"the exported {spec_label(spec)} program holds {nodes}, not 6 + 6 codetr:: nodes")
+        if launches != (12, 0, 0):
+            fail(f"the reloaded {spec_label(spec)} program launched {launches}, not (12, 0, 0)")
+        if not (drift["scores"] <= 2e-4 and drift["boxes"] <= 0.1):
+            fail(f"the reloaded {spec_label(spec)} program drifts {drift} (scores 2e-4, boxes 0.1 px)")
+        if dtype == torch.float32 and tf32 != [(False, False)]:
+            fail(f"the reloaded fp32 program ran convolutions under TF32 flags {tf32}")
+        out[i] = {"program": (loaded, example), "launches": launches[0], "drift": drift,
+                  "export_s": t_export, "save_s": t_save, "load_s": t_load, "nodes": nodes}
+        del want, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def matrix_phase(exported, iterations, stamp):
+    """``codetr_torch.bench``'s five configurations: CUDA-graph replays of
+    the exported program beside its eager calls, ms per image; configs[0]
+    and [3] time the reloaded programs of ``export_phase``."""
+    lines = []
+    for i, spec in enumerate(MATRIX):
+        if i in exported:
+            program = exported[i]["program"]
+        else:
+            program = compile_forward(seeded_model(spec["family"], spec["dtype_str"]), height=spec["height"],
+                                      width=spec["width"], batch_size=spec["batch_size"],
+                                      dtype=DTYPES[spec["dtype_str"]])
+        r = measure_config(**spec, iterations=iterations, program=program, device=DEVICE)
+        r["reloaded"] = i in exported
+        del program
+        print("matrix " + json.dumps(r), flush=True)
+        if r["msda_launches_per_call"] != 12:
+            fail(f"{spec_label(spec)}: {r['msda_launches_per_call']} forward-kernel launches a call, not 12")
+        lines.append(r)
+        torch.cuda.empty_cache()
+    return lines
+
+
+def fused_phase(tmp, images, stamp):
+    """Swin-L 768x1152 bf16 at batch 4 through the reloaded fused program
+    (uint8 canvas in, preprocessing inside) on 5 images (the second batch
+    padded), against the host-preprocess eager Inferencer at batch 4:
+    scores 2e-4, boxes 0.1 px."""
+    spec = MATRIX[4]
+    dtype, h, w, bs = DTYPES[spec["dtype_str"]], spec["height"], spec["width"], spec["batch_size"]
+    model = seeded_model(spec["family"], spec["dtype_str"])
+    cfg = model.cfg
+    fn, example = compile_forward(model, height=h, width=w, batch_size=bs, dtype=dtype,
+                                  fuse_preprocess=True, preprocess_cfg=cfg.preprocess)
+    path = os.path.join(tmp, "fused.codetr.pt2")
+    save_executable(path, fn, example, meta={"config": "swin-l", "dtype": spec["dtype_str"], "height": h,
+                                              "width": w, "batch_size": bs, "fused_preprocess": True})
+    del fn
+    loaded = load_executable(path, device=DEVICE)
+    fused = Inferencer(model, height=h, width=w, batch_size=bs, compiled_fn=loaded, input_dtype=dtype,
+                       device_preprocess=True, device=DEVICE)
+    host = Inferencer(model, height=h, width=w, batch_size=bs, device=DEVICE)
+    fused(images[:1])  # warm-up
+    msda.launches = msda.launches_qm = msda.launches_bwd = 0
+    got, t_fused = timed(lambda: fused(images))
+    launches = (msda.launches, msda.launches_qm, msda.launches_bwd)
+    want, t_host = timed(lambda: host(images))
+    check_detections(got, len(images), cfg.head.max_per_img)
+    err = {"scores": 0.0, "boxes": 0.0, "keep_differ": 0}
+    for g, wnt in zip(got, want):
+        err["keep_differ"] += int((g.keep != wnt.keep).sum())
+        k = g.keep & wnt.keep
+        err["scores"] = max(err["scores"], float(np.abs(g.scores[k] - wnt.scores[k]).max()))
+        err["boxes"] = max(err["boxes"], float(np.abs(g.boxes[k] - wnt.boxes[k]).max()))
+    print(f"fused Inferencer swin-l {h}x{w} bf16 batch {bs}, reloaded fused program, {len(images)} images: "
+          f"{t_fused:.1f} ms (host-preprocess eager batch {bs}: {t_host:.1f} ms), launches (forward, "
+          f"q-minor, backward) {launches}; against the eager Inferencer: scores {err['scores']:.3e}, boxes "
+          f"{err['boxes']:.3e} px, keep masks differing {err['keep_differ']} [{stamp}]")
+    batches = -(-len(images) // bs)
+    if launches != (12 * batches, 0, 0):
+        fail(f"the fused Inferencer launched {launches}, not ({12 * batches}, 0, 0)")
+    if err["keep_differ"] or not (err["scores"] <= 2e-4 and err["boxes"] <= 0.1):
+        fail(f"the fused Inferencer's detections differ from the eager one's: {err}")
+    del loaded, fused, host
+    torch.cuda.empty_cache()
+    return {"launches": launches[0], "err": err, "ms": t_fused, "host_ms": t_host}
+
+
+def union_us(spans) -> float:
+    total, end = 0.0, -float("inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def trace_phase(tmp, image, stamp):
+    """One traced image through the Swin-L 768x1152 fp32 Inferencer (after
+    a warm-up image): the share of the traced window in which a kernel ran,
+    each annotated piece's, and the five kernels with the most time."""
+    cfg = co_dino_swin_l()
+    model = build_codetr(cfg, dtype=torch.float32, device=DEVICE, seed=SEED)
+    inf = Inferencer(model, height=HEIGHT, width=WIDTH, device=DEVICE)
+    inf([image])
+    torch.cuda.synchronize()
+    logdir = os.path.join(tmp, "trace")
+    with trace(logdir):
+        inf([image])
+        torch.cuda.synchronize()
+    with open(os.path.join(logdir, "trace.json")) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    kernels = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"]) for e in events
+               if e.get("cat") == "kernel"]
+    if not kernels:
+        fail("the trace holds no kernel event")
+    t0 = min(float(e["ts"]) for e in events)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    busy = union_us([(a, b) for a, b, _ in kernels])
+    pieces = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"] in ("preprocess", "forward", "postprocess"):
+            a, b = float(e["ts"]), float(e["ts"]) + float(e["dur"])
+            inside = [(max(ka, a), min(kb, b)) for ka, kb, _ in kernels if kb > a and ka < b]
+            pieces[e["name"]] = {"ms": (b - a) / 1e3, "kernel_share": union_us(inside) / max(b - a, 1e-9)}
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for a, b, name in kernels:
+        by_name[name][0] += b - a
+        by_name[name][1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    share = busy / (t1 - t0)
+    print(f"trace Swin-L {HEIGHT}x{WIDTH} fp32, one served image: window {(t1 - t0) / 1e3:.2f} ms, a kernel "
+          f"running {busy / 1e3:.2f} ms ({share:.4f}; idle {1 - share:.4f}), {len(kernels)} kernel launches; "
+          + ", ".join(f"{k} {v['ms']:.2f} ms (kernel share {v['kernel_share']:.4f})" for k, v in pieces.items())
+          + f" [{stamp}]")
+    print("trace: the five kernels with the most time: " + "; ".join(
+        f"{name[:90]} {t / 1e3:.3f} ms in {n}" for name, (t, n) in top))
+    del model, inf
+    torch.cuda.empty_cache()
+    return {"window_ms": (t1 - t0) / 1e3, "kernel_ms": busy / 1e3, "kernel_share": share,
+            "pieces": pieces, "top": [(name, t / 1e3, n) for name, (t, n) in top]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
@@ -1273,6 +1503,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, python {sys.version.split()[0]}")
 
+    phase_s, t_phase = {}, time.perf_counter()  # wall seconds per phase
     # 2. build, one nvcc per kernel, all started together
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
@@ -1283,6 +1514,7 @@ def main() -> int:
         print(built.log.strip())
     print_plans(builds, stamp)
 
+    phase_s["build"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
     # 3. kernel vs plain at the main paths' shapes: the forward at every
     # serving size (Swin-L and R50 at 768x1152, R50 at 608x608), the rest
     # at 768x1152
@@ -1336,12 +1568,14 @@ def main() -> int:
     # the tiled encoder kernels on taps placed against their windows
     adversarial = adversarial_checks(stamp)
 
+    phase_s["kernel checks"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
     # 4. the whole model's inference forward on the card against the CPU
     # reference (the train step's check follows the serving path, so that
     # its buffers do not count in the serving path's peak memory)
     cfg = CONFIG()
     compare_models(cfg, CHECK_HW, stamp)
 
+    phase_s["model vs CPU"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
     # 5. the main path: Swin-L Inferencer at 768x1152, fp32 then bf16
     rng = np.random.default_rng(SEED)
     images = [rng.integers(0, 256, s, np.uint8) for s in ((480, 640, 3), (1280, 720, 3), (900, 1600, 3))]
@@ -1391,6 +1625,7 @@ def main() -> int:
     print("memory allocated, GiB: " + ", ".join(f"{k} {v / 2**30:.4f}" for k, v in held.items())
           + f" [{stamp}]")
 
+    phase_s["serving, gate, R50, K4, K5"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
     # 6. one train step on the card against the CPU, then the training path,
     # without and with SwinConfig.with_cp; at CP_BATCH images a step needs it
     compare_train_steps(cfg, TRAIN_CHECK_HW, stamp)
@@ -1400,6 +1635,7 @@ def main() -> int:
     no_cp_peak = fwd_bwd_peak(cfg, CP_BATCH)
     train_cp_big = run_training(cfg_cp, CP_BATCH, timed=2)
 
+    phase_s["training"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
     # 7. timings
     per_call, per_call_bwd = {}, {}
     for name, v_dtype in (("encoder", torch.float32), ("encoder_bf16", torch.bfloat16),
@@ -1525,6 +1761,31 @@ def main() -> int:
           + ("out of memory" if no_cp_peak is None else f"peak {no_cp_peak / 2**30:.3f} GiB")
           + f" (card {total / 2**30:.1f} GiB) [{stamp}]")
 
+    phase_s["timings"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
+    # 8. the deployment path: BASELINE configs[0] and [3] exported, saved and
+    # reloaded; the five-configuration matrix timed as CUDA-graph replays
+    # beside eager calls; the reloaded fused program behind the batch-4
+    # Inferencer; one traced image
+    more = [np.random.default_rng(SEED + 1).integers(0, 256, s, np.uint8) for s in ((720, 1280, 3), (600, 800, 3))]
+    wall = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        exported = export_phase(tmp, images[-1], stamp)
+        wall["export"], t0 = time.perf_counter() - t0, time.perf_counter()
+        matrix = matrix_phase(exported, MATRIX_ITERATIONS, stamp)
+        wall["matrix"], t0 = time.perf_counter() - t0, time.perf_counter()
+        reloaded = {f"configs{i}": {k: v for k, v in r.items() if k != "program"} for i, r in exported.items()}
+        del exported
+        fused = fused_phase(tmp, images + more, stamp)
+        seeded_model.cache_clear()
+        torch.cuda.empty_cache()
+        wall["fused"], t0 = time.perf_counter() - t0, time.perf_counter()
+        trace_phase(tmp, images[-1], stamp)
+        wall["trace"] = time.perf_counter() - t0
+    print("deployment phases, wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
+    phase_s["deployment"] = time.perf_counter() - t_phase
+    print("phases, wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
+
     tc = cfg.head.transformer
     n_enc, n_dec = tc.num_encoder_layers, tc.num_decoder_layers  # launches per forward
     enc_r, dec_r = per_call["encoder"], per_call["decoder"]
@@ -1546,6 +1807,12 @@ def main() -> int:
         "per_call": per_call,
         "max_abs_err_bf16": max(e["max_abs_err_bf16"] for pair in fwd_errs.values() for e in pair),
         "encoder_design": "shared-memory query tiles (msda_packed_fwd); decoder: direct gather",
+        # the exported, reloaded programs (each forward, launches at capture for
+        # the graph replays), the matrix's per call, the fused Inferencer's
+        "launches_reloaded_per_forward": {k: r["launches"] for k, r in reloaded.items()},
+        "launches_matrix_per_call": {spec_label(spec): r["msda_launches_per_call"]
+                                     for spec, r in zip(MATRIX, matrix)},
+        "launches_fused_inferencer": fused["launches"],
         "staged_share": {"microbenchmark": bench_share["fwd"], "swin_l_encoder": enc_stage["staged_share"],
                          "tile_adversarial": {k: r["staged_share"] for k, r in adversarial.items()}},
         "max_abs_err_tile_adversarial": {k: r["fwd"] for k, r in adversarial.items()},

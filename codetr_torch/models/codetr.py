@@ -154,6 +154,7 @@ def init_weights(model: CoDETR, seed: int = 0) -> CoDETR:
 
 def build_codetr(
     cfg: CoDETRConfig,
+    weights: str | None = None,
     *,
     dtype: torch.dtype = torch.float32,
     device="cuda",
@@ -162,9 +163,16 @@ def build_codetr(
 ) -> CoDETR:
     """Build the model with seeded random weights, in eval mode, on
     ``device`` (CUDA by default; raises if there is no card) in ``dtype``.
-    Load real weights afterwards with ``load_state_dict``.  ``msda_impl``
-    goes to every MSDA layer; the grid impls raise in the decoder, as the
-    JAX package's ``build_codetr`` does."""
+    ``weights``: an mmdet ``.pth`` loaded over them
+    (``utils.checkpoint.load_torch_checkpoint``; keys it lacks keep their
+    init, and the report names them).  ``msda_impl`` goes to every MSDA
+    layer; the grid impls raise in the decoder, as the JAX package's
+    ``build_codetr`` does."""
     device = check_device(device)
     model = init_weights(CoDETR(cfg, msda_impl), seed)
+    if weights is not None:
+        from codetr_torch.utils.checkpoint import load_torch_checkpoint
+
+        sd = load_torch_checkpoint(weights, cfg)
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=False)
     return model.to(device=device, dtype=dtype).eval()

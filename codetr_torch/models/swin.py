@@ -39,10 +39,12 @@ def relative_position_index(ws: int) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=16)
-def shifted_window_attn_mask(h_pad: int, w_pad: int, window: int, shift: int,
-                             device: torch.device) -> torch.Tensor:
-    """(nW, N, N) additive mask: 0 within a region, -100 across regions.
-    Cached per shape and device: it is a constant of the input size."""
+def _shift_mask_cached(h_pad: int, w_pad: int, window: int, shift: int,
+                       device: torch.device) -> torch.Tensor:
+    return _shift_mask(h_pad, w_pad, window, shift, device)
+
+
+def _shift_mask(h_pad: int, w_pad: int, window: int, shift: int, device: torch.device) -> torch.Tensor:
     img = np.zeros((h_pad, w_pad), dtype=np.int32)
     cnt = 0
     for hs in (slice(0, -window), slice(-window, -shift), slice(-shift, None)):
@@ -53,6 +55,17 @@ def shifted_window_attn_mask(h_pad: int, w_pad: int, window: int, shift: int,
     img = img.transpose(0, 2, 1, 3).reshape(-1, window * window)  # (nW, N)
     diff = img[:, None, :] - img[:, :, None]
     return torch.from_numpy(np.where(diff != 0, -100.0, 0.0).astype(np.float32)).to(device)
+
+
+def shifted_window_attn_mask(h_pad: int, w_pad: int, window: int, shift: int,
+                             device: torch.device) -> torch.Tensor:
+    """(nW, N, N) additive mask: 0 within a region, -100 across regions.
+    Cached per shape and device: it is a constant of the input size.  While
+    ``torch.export`` traces, it is made anew (a constant of the program): a
+    cached tensor from a trace is a fake one."""
+    if torch.compiler.is_compiling():
+        return _shift_mask(h_pad, w_pad, window, shift, device)
+    return _shift_mask_cached(h_pad, w_pad, window, shift, device)
 
 
 def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:

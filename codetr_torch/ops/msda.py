@@ -25,11 +25,14 @@ Three public entry points keep the JAX package's signatures and layouts:
 ``value`` is (bs, K, h, d) in float32 or bfloat16, coordinates and weights
 are float32, and the result is (bs, Q, h*d) in the value's dtype, with fp32
 accumulation.  All are differentiable in the value, the coordinates and the
-weights.  For CPU tensors they run the plain version (``msda_plain``, whose
-gradient is autograd's); for CUDA tensors they launch the hand-written
-forward kernel (``csrc/msda_fwd.cu``) inside a ``torch.autograd.Function``
-whose backward launches the backward kernel (``csrc/msda_bwd.cu``), or
-raise.  ``msda_backward_plain`` is the backward's plain version.
+weights.  For CPU tensors they run the plain version (``msda_plain``); for
+CUDA tensors they launch the hand-written forward kernel
+(``csrc/msda_fwd.cu``), whose gradient launches the backward kernel
+(``csrc/msda_bwd.cu``), or raise.  ``msda_backward_plain`` is the
+backward's plain version.  The packed and reference-layout entries, the
+two that ``CoDETR.forward`` reaches, are ``torch.library`` custom ops
+(``codetr::msda_packed``, ``codetr::msda_reference``), so that an exported
+program keeps them; the q-minor entry keeps a ``torch.autograd.Function``.
 ``launches`` counts the packed and reference-layout forward launches,
 ``launches_qm`` the q-minor ones, ``launches_shift`` the shift-window ones
 and ``launches_bwd`` every backward launch (callers reset them to 0 and
@@ -40,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -398,38 +401,100 @@ def _launch_qm_bwd(value, spatial_shapes, x, y, w, grad_out):
     return (grad_value.to(value.dtype), *grads)
 
 
-class _PackedMSDA(torch.autograd.Function):
-    """The packed-layout kernel with the backward kernel as its gradient."""
-
-    @staticmethod
-    def forward(ctx, value, cpk, spatial_shapes, num_points):
-        ctx.save_for_backward(value, cpk)
-        ctx.spatial_shapes, ctx.num_points = spatial_shapes, num_points
-        return _launch_packed(value, spatial_shapes, cpk, num_points)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, grad_out):
-        value, cpk = ctx.saved_tensors
-        grad_value, grad_cpk = _launch_packed_bwd(
-            value, ctx.spatial_shapes, cpk, ctx.num_points, grad_out)
-        return grad_value, grad_cpk, None, None
+def _flat_shapes(spatial_shapes: Shapes) -> list:
+    """Level shapes as the custom ops take them: [h0, w0, h1, w1, ...]."""
+    return [int(v) for hw in spatial_shapes for v in hw]
 
 
-class _ReferenceMSDA(torch.autograd.Function):
-    """The reference-layout kernel with the backward kernel as its gradient."""
+def _pairs(flat: Sequence[int]) -> tuple:
+    return tuple((int(flat[i]), int(flat[i + 1])) for i in range(0, len(flat), 2))
 
-    @staticmethod
-    def forward(ctx, value, loc, attn, spatial_shapes):
-        ctx.save_for_backward(value, loc, attn)
-        ctx.spatial_shapes = spatial_shapes
-        return _launch_reference(value, spatial_shapes, loc, attn)
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, grad_out):
-        value, loc, attn = ctx.saved_tensors
-        return (*_launch_reference_bwd(value, ctx.spatial_shapes, loc, attn, grad_out), None)
+# The forward entries that CoDETR.forward reaches as ``torch.library``
+# custom ops, so that ``torch.export`` records them as ``codetr::`` nodes
+# (an exported program then runs the kernel wherever it is loaded, never a
+# traced copy of the plain version).  Each has a fake implementation (the
+# output's shape and dtype; it builds no plan and touches no ctypes), a CPU
+# one (the plain version) and a CUDA one (the kernel), and its gradient is
+# registered with ``register_autograd``: the backward kernel on the card,
+# the plain backward on the CPU.
+
+
+@torch.library.custom_op("codetr::msda_packed", mutates_args=(), device_types="cpu")
+def _packed_op(value: torch.Tensor, cpk: torch.Tensor, spatial_shapes: List[int],
+               num_points: int) -> torch.Tensor:
+    return msda_grid_packed_plain(value, _pairs(spatial_shapes), cpk, num_points)
+
+
+@_packed_op.register_kernel("cuda")
+def _(value, cpk, spatial_shapes, num_points):
+    return _launch_packed(value, _pairs(spatial_shapes), cpk, num_points)
+
+
+@_packed_op.register_fake
+def _(value, cpk, spatial_shapes, num_points):
+    bs, K, h, d = value.shape
+    return value.new_empty(bs, K, h * d)
+
+
+def _packed_setup(ctx, inputs, output):
+    value, cpk, spatial_shapes, num_points = inputs
+    ctx.save_for_backward(value, cpk)
+    ctx.spatial_shapes, ctx.num_points = _pairs(spatial_shapes), num_points
+
+
+def _packed_backward(ctx, grad_out):
+    value, cpk = ctx.saved_tensors
+    shapes, P = ctx.spatial_shapes, ctx.num_points
+    if _route(value) == "cuda":
+        grad_value, grad_cpk = _launch_packed_bwd(value, shapes, cpk, P, grad_out)
+    else:
+        h = value.shape[2]
+        grads = msda_backward_plain(value, shapes, *_unpack(cpk, h, len(shapes), P), grad_out)
+        grad_value = grads[0]
+        grad_cpk = torch.zeros_like(cpk)
+        HLP = grads[1][0, 0].numel()
+        for i, g in enumerate(grads[1:]):
+            grad_cpk[..., i * HLP:(i + 1) * HLP] = g.reshape(*cpk.shape[:2], HLP)
+    return grad_value, grad_cpk, None, None
+
+
+_packed_op.register_autograd(_packed_backward, setup_context=_packed_setup)
+
+
+@torch.library.custom_op("codetr::msda_reference", mutates_args=(), device_types="cpu")
+def _reference_op(value: torch.Tensor, loc: torch.Tensor, attn: torch.Tensor,
+                  spatial_shapes: List[int]) -> torch.Tensor:
+    return multi_scale_deformable_attention_plain(value, _pairs(spatial_shapes), loc, attn)
+
+
+@_reference_op.register_kernel("cuda")
+def _(value, loc, attn, spatial_shapes):
+    return _launch_reference(value, _pairs(spatial_shapes), loc, attn)
+
+
+@_reference_op.register_fake
+def _(value, loc, attn, spatial_shapes):
+    bs, _, h, d = value.shape
+    return value.new_empty(bs, loc.shape[1], h * d)
+
+
+def _reference_setup(ctx, inputs, output):
+    value, loc, attn, spatial_shapes = inputs
+    ctx.save_for_backward(value, loc, attn)
+    ctx.spatial_shapes = _pairs(spatial_shapes)
+
+
+def _reference_backward(ctx, grad_out):
+    value, loc, attn = ctx.saved_tensors
+    shapes = ctx.spatial_shapes
+    if _route(value) == "cuda":
+        return (*_launch_reference_bwd(value, shapes, loc, attn, grad_out), None)
+    gv, gx, gy, gw = msda_backward_plain(value, shapes, loc[..., 0], loc[..., 1], attn, grad_out)
+    return gv, torch.stack([gx, gy], -1), gw, None
+
+
+_reference_op.register_autograd(_reference_backward, setup_context=_reference_setup)
 
 
 class _QmMSDA(torch.autograd.Function):
@@ -467,9 +532,8 @@ def msda_grid_packed(
     HLP = h * len(spatial_shapes) * num_points
     if cpk.dim() != 3 or cpk.shape[:2] != (bs, K) or cpk.shape[2] < 3 * HLP:
         raise ValueError(f"cpk must be ({bs}, {K}, >={3 * HLP}), got {tuple(cpk.shape)}")
-    if _route(value) == "cpu":
-        return msda_grid_packed_plain(value, spatial_shapes, cpk, num_points)
-    return _PackedMSDA.apply(value, cpk, spatial_shapes, num_points)
+    _route(value)
+    return _packed_op(value, cpk, _flat_shapes(spatial_shapes), num_points)
 
 
 def _check_qm(value, spatial_shapes, x, y, w) -> None:
@@ -583,6 +647,5 @@ def multi_scale_deformable_attention(
         return msda_grid_qm(value, spatial_shapes, qm[..., 0, :].contiguous(),
                             qm[..., 1, :].contiguous(), attn.permute(0, 2, 3, 4, 1).contiguous(),
                             impl=impl, radius=grid_radius, envelope=envelope)
-    if _route(value) == "cpu":
-        return multi_scale_deformable_attention_plain(value, spatial_shapes, loc, attn)
-    return _ReferenceMSDA.apply(value, loc, attn, spatial_shapes)
+    _route(value)
+    return _reference_op(value, loc, attn, _flat_shapes(spatial_shapes))

@@ -1,4 +1,10 @@
-"""JAX-package params -> this port's (mmdet-schema) state dict.
+"""Checkpoints -> this port's (mmdet-schema) state dict.
+
+``load_torch_checkpoint(path, cfg)`` reads an mmdet ``.pth`` (the port's
+module tree has mmdet's key schema, so the keys carry over as they are),
+with ``swin_original_to_mmdet`` for original-Swin-repo checkpoints and
+``resize_bias_table`` where the window size differs; ``get_dataset_meta``
+reads its class names.  Copies of the JAX package's functions.
 
 ``state_dict_from_jax(params, cfg)`` takes the JAX package's flax params
 tree (nested dicts of arrays, with or without the top ``"params"`` level)
@@ -24,9 +30,10 @@ Only numpy is used, so the port does not depend on the JAX package.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
 from codetr_torch.config import CoDETRConfig
 
@@ -218,3 +225,119 @@ def state_dict_from_jax(params, cfg: CoDETRConfig) -> Dict[str, np.ndarray]:
     _neck(out, p, cfg)
     _head(out, p, cfg)
     return out.sd
+
+
+def resize_bias_table(table: np.ndarray, wh_new: int, ww_new: int) -> np.ndarray:
+    """Bicubic-resize a ((2Wh-1)(2Ww-1), nH) relative-position-bias table to a
+    new window size (square tables only)."""
+    L1, nH = table.shape
+    s1 = int(round(L1**0.5))
+    if s1 * s1 != L1:
+        raise ValueError(f"only square windows can be resized, got a table of {L1} rows")
+    s2h, s2w = 2 * wh_new - 1, 2 * ww_new - 1
+    if (s2h, s2w) == (s1, s1):
+        return table
+    t = torch.from_numpy(table.astype(np.float32)).permute(1, 0).reshape(1, nH, s1, s1)
+    t = torch.nn.functional.interpolate(t, size=(s2h, s2w), mode="bicubic", align_corners=False)
+    return t.reshape(nH, s2h * s2w).permute(1, 0).numpy()
+
+
+def swin_original_to_mmdet(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Original-Swin-repo checkpoint keys -> the mmdet layout.  The original
+    PatchMerging concatenates [x00, x10, x01, x11] where mmdet's unfold
+    order is [x00, x01, x10, x11]: the 4-block permutation [0, 2, 1, 3]."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("head"):
+            continue
+        nk, nv = k, v
+        if k.startswith("layers"):
+            if "attn." in k:
+                nk = k.replace("attn.", "attn.w_msa.")
+            elif "mlp.fc1." in k:
+                nk = k.replace("mlp.fc1.", "ffn.layers.0.0.")
+            elif "mlp.fc2." in k:
+                nk = k.replace("mlp.fc2.", "ffn.layers.1.")
+            elif "downsample" in k:
+                if "reduction." in k:
+                    o, i = v.shape
+                    nv = v.reshape(o, 4, i // 4)[:, [0, 2, 1, 3], :].transpose(0, 2, 1).reshape(o, i)
+                elif "norm." in k:
+                    i = v.shape[0]
+                    nv = v.reshape(4, i // 4)[[0, 2, 1, 3], :].transpose(1, 0).reshape(i)
+            nk = nk.replace("layers", "stages", 1)
+        elif k.startswith("patch_embed") and "proj" in k:
+            nk = k.replace("proj", "projection")
+        out["backbone." + nk] = np.asarray(nv)
+    return out
+
+
+# mmdet checkpoints hold the auxiliary training heads, which the served
+# model never builds
+TRAIN_ONLY = ("rpn_head.", "roi_head.", "bbox_head.", "dn_", "label_emb")
+
+
+def model_key_shapes(cfg: CoDETRConfig) -> Dict[str, Tuple[int, ...]]:
+    """The port's state-dict keys and shapes for ``cfg`` (built on the meta
+    device: no memory, no init)."""
+    from codetr_torch.models.codetr import CoDETR
+
+    with torch.device("meta"):
+        model = CoDETR(cfg)
+    return {k: tuple(v.shape) for k, v in model.state_dict().items()}
+
+
+def _read(path: str) -> dict:
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_torch_checkpoint(path: str, cfg: CoDETRConfig, *, convert_swin_original: bool = False
+                          ) -> Dict[str, np.ndarray]:
+    """An mmdet ``.pth`` -> ``{key: numpy array}`` for ``CoDETR.load_state_dict``.
+
+    ``state_dict`` / ``model`` wrappers are unwrapped and a ``module.``
+    prefix stripped; ``convert_swin_original`` remaps original-Swin-repo
+    keys first.  The auxiliary training heads' keys (``TRAIN_ONLY``) are
+    ignored and BatchNorm's ``num_batches_tracked`` dropped (the port's
+    frozen BatchNorm has none); relative-position-bias tables are resized
+    to the config's window.  The load report names missing and unexpected
+    keys."""
+    from codetr_torch.utils.logging import log_load_report
+
+    ckpt = _read(path)
+    sd = ckpt.get("state_dict", ckpt.get("model", ckpt))
+    sd = {k[len("module."):] if k.startswith("module.") else k: np.asarray(v.numpy() if torch.is_tensor(v) else v)
+          for k, v in sd.items()}
+    if convert_swin_original:
+        sd = swin_original_to_mmdet(sd)
+    expected = model_key_shapes(cfg)
+    out: Dict[str, np.ndarray] = {}
+    unexpected = []
+    for k, v in sd.items():
+        if k.endswith("num_batches_tracked") or k.startswith(TRAIN_ONLY):
+            continue
+        if k not in expected:
+            unexpected.append(k)
+            continue
+        if k.endswith("relative_position_bias_table") and v.shape != expected[k]:
+            v = resize_bias_table(v, cfg.swin.window_size, cfg.swin.window_size)
+        out[k] = v
+    missing = [k for k in expected if k not in out]
+    log_load_report(len(out), missing, unexpected, path)
+    return out
+
+
+def get_dataset_meta(path: str) -> dict:
+    """A checkpoint's dataset metadata (``meta.dataset_meta``, or
+    ``meta.CLASSES``), with the COCO classes where it has none."""
+    from codetr_torch.utils.coco import COCO_CLASSES
+
+    meta = _read(path).get("meta", {})
+    if "dataset_meta" in meta:
+        dataset_meta = {k.lower(): v for k, v in meta["dataset_meta"].items()}
+    elif "CLASSES" in meta:
+        dataset_meta = {"classes": meta["CLASSES"]}
+    else:
+        dataset_meta = {"classes": COCO_CLASSES}
+    dataset_meta["palette"] = "coco"
+    return dataset_meta

@@ -93,3 +93,46 @@ def preprocess(
     mask = torch.ones(height, width, dtype=torch.float32, device=img.device)
     mask[:th, :tw] = 0.0
     return out, mask, (tw / ow, th / oh), (th, tw)
+
+
+def preprocess_in_graph(canvas_u8: torch.Tensor, thw: torch.Tensor, *, mean, std):
+    """Traceable normalise + pad + mask at the fixed serving shape, for a
+    program that takes uint8 images (the fused-serving form).
+
+    ``canvas_u8`` (bs, height, width, 3) uint8 RGB holds each image resized
+    (``resize_to_canvas``) at the top left; bytes outside its valid (th, tw)
+    region are arbitrary and masked here.  ``thw`` (bs, 2) int32 is each
+    image's valid (th, tw).  Returns (inputs (bs, H, W, 3) float32, mask
+    (bs, H, W) float32, 1 in the padding): the host path's normalise, pad
+    and mask step.  It multiplies by the float32 reciprocal of ``std``, as
+    the JAX function does once XLA has folded its division by a constant,
+    so the two agree bit for bit (the host path divides: the last bit of
+    some pixels differs from it)."""
+    dev = canvas_u8.device
+    mean_t = torch.tensor(tuple(mean), dtype=torch.float32, device=dev)
+    std_t = torch.tensor(tuple(std), dtype=torch.float32, device=dev)
+    _, height, width, _ = canvas_u8.shape
+    norm = (canvas_u8.float() - mean_t) * (1.0 / std_t)
+    row = torch.arange(height, device=dev)[None, :, None]
+    col = torch.arange(width, device=dev)[None, None, :]
+    inside = (row < thw[:, 0, None, None]) & (col < thw[:, 1, None, None])
+    return torch.where(inside[..., None], norm, 0.0), 1.0 - inside.float()
+
+
+def resize_to_canvas(image_rgb, height: int, width: int, keep_ratio: bool = True, device="cuda"):
+    """The fused path's resize: (H, W, 3) RGB uint8 (numpy or tensor) ->
+    (canvas (height, width, 3) uint8 on ``device``, (th, tw),
+    scale_factor (w_scale, h_scale)), the image resized by
+    ``resize_linear_u8`` (cv2 ``INTER_LINEAR``'s arithmetic) at the top
+    left and zeros elsewhere.  Feed canvas and (th, tw) to a program that
+    starts with ``preprocess_in_graph``."""
+    device = check_device(device)
+    img = torch.as_tensor(np.asarray(image_rgb) if not torch.is_tensor(image_rgb) else image_rgb)
+    if img.dtype != torch.uint8 or img.dim() != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected an (H, W, 3) uint8 image, got {tuple(img.shape)} {img.dtype}")
+    img = img.to(device)
+    oh, ow = img.shape[:2]
+    tw, th = rescale_size(ow, oh, width, height) if keep_ratio else (width, height)
+    canvas = torch.zeros(height, width, 3, dtype=torch.uint8, device=device)
+    canvas[:th, :tw] = resize_linear_u8(img, th, tw)
+    return canvas, (th, tw), (tw / ow, th / oh)

@@ -1,0 +1,188 @@
+"""The port's mmdet ``.pth`` loading against the JAX package's.
+
+Each ``.pth`` is written by the test itself: the torch oracle's tiny Swin
+model with trained-like sampling offsets and a ``meta.dataset_meta`` (as
+``tools/rehearsal.py`` writes one), and a narrow R50 whose BatchNorms carry
+``num_batches_tracked``.  The port's ``load_torch_checkpoint`` must give,
+key for key and bit for bit, ``state_dict_from_jax`` of the JAX
+``load_torch_checkpoint``; ``swin_original_to_mmdet``,
+``resize_bias_table`` and ``get_dataset_meta`` must equal the JAX
+functions.
+"""
+
+import logging
+
+import numpy as np
+import pytest
+import torch
+
+from codetr_tpu.config import tiny_test_config as jax_tiny_test_config
+from codetr_tpu.utils import checkpoint as jax_checkpoint
+from codetr_torch.config import tiny_test_config
+from codetr_torch.models.codetr import build_codetr
+from codetr_torch.utils import checkpoint
+from codetr_torch.utils.checkpoint import state_dict_from_jax
+from codetr_torch.utils.logging import get_logger
+
+from test_torch_port_model import perturbed_jax_params
+from test_torch_port_r50 import H as R50_HW
+from test_torch_port_r50 import narrow_r50_configs
+from torch_oracle import TorchCoDETR, init_oracle, oracle_state_dict_numpy
+
+
+def perturb_offsets(sd, scale, seed):
+    """Trained-like sampling offsets (``tools/rehearsal.py:perturb_offsets``):
+    the grid bias scaled and jittered, small nonzero projection weights."""
+    rng = np.random.default_rng(seed)
+    for k in [k for k in sd if "sampling_offsets" in k]:
+        v = sd[k]
+        if k.endswith(".bias"):
+            sd[k] = (v * scale + rng.normal(0, 0.25 * scale, v.shape)).astype(v.dtype)
+        else:
+            sd[k] = rng.normal(0, 0.3 * scale / np.sqrt(v.shape[1]), v.shape).astype(v.dtype)
+    return sd
+
+
+def save_pth(path, sd, wrapper="state_dict", meta=None, prefix=""):
+    ckpt = {wrapper: {prefix + k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}}
+    if meta is not None:
+        ckpt["meta"] = meta
+    torch.save(ckpt, path)
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def swin_pth(tmp_path_factory):
+    """The oracle's tiny Swin weights, offsets perturbed, under ``module.``
+    with a ``meta.dataset_meta`` and keys of the training heads."""
+    sd = oracle_state_dict_numpy(init_oracle(TorchCoDETR(jax_tiny_test_config()), seed=5))
+    # the oracle registers each shifted block's attention twice (``._sw.``
+    # aliases ``.attn.``); an mmdet checkpoint holds it once
+    sd = perturb_offsets({k: v for k, v in sd.items() if "._sw." not in k}, 1.5, 5)
+    rng = np.random.default_rng(6)
+    sd["rpn_head.rpn_conv.weight"] = rng.standard_normal((4, 4)).astype(np.float32)
+    sd["dn_query_generator.label_embedding.weight"] = rng.standard_normal((3, 4)).astype(np.float32)
+    classes = [f"obj{i}" for i in range(7)]
+    path = tmp_path_factory.mktemp("pth") / "swin.pth"
+    return save_pth(path, sd, meta={"dataset_meta": {"CLASSES": classes}}, prefix="module."), sd
+
+
+def assert_state_dicts_equal(got, want):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_swin_pth_loads_like_jax(swin_pth):
+    path, _ = swin_pth
+    want = state_dict_from_jax(jax_checkpoint.load_torch_checkpoint(path, jax_tiny_test_config()),
+                               tiny_test_config())
+    got = checkpoint.load_torch_checkpoint(path, tiny_test_config())
+    assert_state_dicts_equal(got, want)
+    model = build_codetr(tiny_test_config(), path, device="cpu")
+    for k, v in model.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), got[k], err_msg=k)
+
+
+def test_r50_pth_with_num_batches_tracked_loads_like_jax(tmp_path):
+    jax_cfg, port_cfg = narrow_r50_configs()
+    sd = state_dict_from_jax(perturbed_jax_params(seed=3, cfg=jax_cfg, input_shape=(R50_HW, R50_HW)),
+                             port_cfg)
+    bn = [k[:-len(".running_var")] for k in sd if k.endswith(".running_var")]
+    assert bn
+    for k in bn:
+        sd[f"{k}.num_batches_tracked"] = np.asarray(7, np.int64)
+    path = save_pth(tmp_path / "r50.pth", sd, wrapper="model")
+    want = state_dict_from_jax(jax_checkpoint.load_torch_checkpoint(path, jax_cfg), port_cfg)
+    got = checkpoint.load_torch_checkpoint(path, port_cfg)
+    assert not any(k.endswith("num_batches_tracked") for k in got)
+    assert_state_dicts_equal(got, want)
+
+
+def test_load_report_names_the_unexpected_keys(swin_pth, tmp_path):
+    _, sd = swin_pth
+    sd = dict(sd, **{"query_head.extra_branch.weight": np.zeros((2, 2), np.float32)})
+    path = save_pth(tmp_path / "extra.pth", sd)
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logger = get_logger()
+    logger.addHandler(handler)
+    try:
+        checkpoint.load_torch_checkpoint(path, tiny_test_config())
+    finally:
+        logger.removeHandler(handler)
+    text = [r.getMessage() for r in records]
+    assert any("loaded" in t and path in t for t in text)
+    unexpected = [t for t in text if t.startswith("unexpected")]
+    assert len(unexpected) == 1 and "query_head.extra_branch.weight" in unexpected[0], text
+    assert "rpn_head" not in unexpected[0] and "dn_query" not in unexpected[0]
+
+
+def original_swin_state_dict(rng, dims=8, depths=(2, 2)):
+    """Seeded arrays under original-Swin-repo keys."""
+    sd = {"patch_embed.proj.weight": rng.standard_normal((dims, 3, 4, 4)),
+          "patch_embed.proj.bias": rng.standard_normal(dims),
+          "patch_embed.norm.weight": rng.standard_normal(dims),
+          "head.weight": rng.standard_normal((10, dims)),
+          "norm0.weight": rng.standard_normal(dims)}
+    c = dims
+    for i, depth in enumerate(depths):
+        for b in range(depth):
+            key = f"layers.{i}.blocks.{b}"
+            sd[f"{key}.attn.qkv.weight"] = rng.standard_normal((3 * c, c))
+            sd[f"{key}.attn.relative_position_bias_table"] = rng.standard_normal((49, 2))
+            sd[f"{key}.mlp.fc1.weight"] = rng.standard_normal((4 * c, c))
+            sd[f"{key}.mlp.fc2.bias"] = rng.standard_normal(c)
+            sd[f"{key}.norm1.weight"] = rng.standard_normal(c)
+        if i < len(depths) - 1:
+            sd[f"layers.{i}.downsample.reduction.weight"] = rng.standard_normal((2 * c, 4 * c))
+            sd[f"layers.{i}.downsample.norm.weight"] = rng.standard_normal(4 * c)
+            c *= 2
+    return {k: v.astype(np.float32) for k, v in sd.items()}
+
+
+def test_swin_original_to_mmdet_matches_jax():
+    sd = original_swin_state_dict(np.random.default_rng(8))
+    want = jax_checkpoint.swin_original_to_mmdet(sd)
+    got = checkpoint.swin_original_to_mmdet(sd)
+    assert_state_dicts_equal(got, want)
+    assert "backbone.stages.0.downsample.reduction.weight" in got and not any("head." in k for k in got)
+
+
+@pytest.mark.parametrize("old,new", [(7, 12), (12, 7), (4, 4), (7, 5)])
+def test_resize_bias_table_matches_jax(old, new):
+    table = np.random.default_rng(old * 13 + new).standard_normal(((2 * old - 1) ** 2, 3)).astype(np.float32)
+    got = checkpoint.resize_bias_table(table, new, new)
+    want = jax_checkpoint.resize_bias_table(table, new, new)
+    assert got.shape == ((2 * new - 1) ** 2, 3)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_window_size_change_resizes_the_tables(swin_pth, tmp_path):
+    """A checkpoint trained at another window loads with its tables resized
+    (bicubic), in both packages alike."""
+    _, sd = swin_pth
+    sd = dict(sd)
+    for k in [k for k in sd if k.endswith("relative_position_bias_table")]:
+        sd[k] = np.random.default_rng(len(k)).standard_normal((7 * 7, sd[k].shape[1])).astype(np.float32)
+    path = save_pth(tmp_path / "win4.pth", sd)
+    want = state_dict_from_jax(jax_checkpoint.load_torch_checkpoint(path, jax_tiny_test_config()),
+                               tiny_test_config())
+    got = checkpoint.load_torch_checkpoint(path, tiny_test_config())
+    assert_state_dicts_equal(got, want)
+
+
+@pytest.mark.parametrize("meta", [
+    {"dataset_meta": {"CLASSES": ["a", "b"], "PALETTE": [[1, 2, 3]]}},
+    {"CLASSES": ["c", "d", "e"]},
+    {},
+], ids=["dataset_meta", "CLASSES", "none"])
+def test_get_dataset_meta_matches_jax(meta, tmp_path):
+    path = str(tmp_path / "meta.pth")
+    torch.save({"state_dict": {}, "meta": meta}, path)
+    got = checkpoint.get_dataset_meta(path)
+    want = jax_checkpoint.get_dataset_meta(path)
+    assert {k: list(v) if isinstance(v, tuple) else v for k, v in got.items()} == \
+        {k: list(v) if isinstance(v, tuple) else v for k, v in want.items()}

@@ -720,3 +720,96 @@ def test_r50_fp32_on_card_matches_cpu_under_default_flags(cuda_device):
             continue
         used[cand[np.argmin(dist)]] = True
     assert unmatched <= len(gb) // 100
+
+
+@pytest.fixture
+def tiny_on_card(cuda_device):
+    """The tiny model on the card and a seeded 128x128 input with padding."""
+    from codetr_torch import build_codetr, tiny_test_config
+
+    model = build_codetr(tiny_test_config(), device=cuda_device, seed=3)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((1, 128, 128, 3)).astype(np.float32)).to(cuda_device)
+    m = torch.zeros(1, 128, 128, device=cuda_device)
+    m[:, 100:] = 1.0
+    return model, (x, m)
+
+
+@pytest.mark.gpu
+def test_exported_program_reloads_on_card_through_the_kernel(tiny_on_card, tmp_path):
+    """Exported on the card, saved, reloaded: the program launches the
+    forward kernel once per MSDA layer (2 encoder + 2 decoder) and gives
+    the in-process model's outputs exactly; one exported on the CPU and
+    loaded onto the card does too."""
+    from codetr_torch.runtime import aot
+
+    model, (x, m) = tiny_on_card
+    with torch.no_grad():
+        want = model(x, m)
+    for device in ("cuda", "cpu"):
+        src = model if device == "cuda" else model.to("cpu")
+        fn, example = aot.compile_forward(src, height=128, width=128)
+        path = str(tmp_path / f"{device}.codetr.pt2")
+        aot.save_executable(path, fn, example, meta={"dtype": "float32"})
+        loaded = aot.load_executable(path, device="cuda")
+        before = port_msda.launches
+        got = loaded(x, m)
+        assert port_msda.launches - before == 4
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        model.to(x.device)
+
+
+@pytest.mark.gpu
+def test_graph_timer_against_eager_on_one_program(tiny_on_card):
+    """``make_loop_timer(graph=True)`` replays one capture (the kernels are
+    counted once, at capture) and gives the eager call's outputs;
+    ``graph=False`` times eager calls, each counted."""
+    from codetr_torch.runtime import aot
+
+    model, args = tiny_on_card
+    fn, _ = aot.compile_forward(model, height=128, width=128)
+    before = port_msda.launches
+    run = aot.make_loop_timer(fn, args, graph=True, warmup=1)
+    assert port_msda.launches - before == 8  # 1 warm-up call + the capture
+    graph_ms = run(5)
+    assert port_msda.launches - before == 8
+    torch.cuda.synchronize()
+    for g, e in zip(run.graph.outputs, fn(*args)):
+        assert torch.equal(g, e)
+    before = port_msda.launches
+    eager_ms = aot.make_loop_timer(fn, args, graph=False, warmup=1)(5)
+    assert port_msda.launches - before == 4 * 6
+    assert 0 < graph_ms and 0 < eager_ms
+
+
+@pytest.mark.gpu
+def test_capture_failure_raises_naming_the_op(cuda_device):
+    from codetr_torch.runtime import aot
+
+    x = torch.ones(8, device=cuda_device)
+    with pytest.raises(RuntimeError, match="capture failed at op aten._local_scalar_dense"):
+        aot.make_loop_timer(lambda t: t * t.sum().item(), (x,), graph=True, warmup=1)
+
+
+@pytest.mark.gpu
+def test_program_never_runs_the_plain_msda_without_the_kernel_library(tiny_on_card, tmp_path, monkeypatch):
+    """A kernel library that cannot be built or loaded makes
+    ``load_executable`` on the card raise, and a loaded program's call
+    raise: neither runs the plain version."""
+    from codetr_torch.runtime import aot
+
+    model, args = tiny_on_card
+    fn, example = aot.compile_forward(model, height=128, width=128)
+    path = str(tmp_path / "tiny.codetr.pt2")
+    aot.save_executable(path, fn, example, meta={"dtype": "float32"})
+    loaded = aot.load_executable(path, device="cuda")
+
+    def no_library():
+        raise OSError("libmsda_fwd.so: cannot open shared object file")
+
+    monkeypatch.setattr(port_msda, "_fwd_lib", no_library)
+    with pytest.raises(OSError, match="cannot open"):
+        aot.load_executable(path, device="cuda")
+    with pytest.raises(OSError, match="cannot open"):
+        loaded(*args)

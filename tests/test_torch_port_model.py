@@ -195,14 +195,21 @@ def test_build_codetr_defaults_to_cuda_and_raises_without_a_card():
 
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "codetr_tpu", "cv2")
+# OpenCV draws detections, and the machine with the card has none: the one
+# module that uses it imports it inside the function that draws, so the
+# port imports, serves and exports without it
+LAZY_CV2 = {"codetr_torch/utils/visualize.py"}
 
 
 def _imports(path: Path):
-    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+    """(module, imported inside a function or class) for every import."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    top = {id(n) for n in tree.body}
+    for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            yield from (a.name for a in node.names)
+            yield from ((a.name, id(node) not in top) for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
-            yield node.module
+            yield node.module, id(node) not in top
 
 
 @pytest.mark.parametrize(
@@ -211,7 +218,9 @@ def _imports(path: Path):
     ids=lambda p: os.path.relpath(p, REPO),
 )
 def test_port_imports_no_jax_or_cv2(path):
-    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    lazy_cv2_ok = os.path.relpath(path, REPO) in LAZY_CV2
+    bad = [m for m, nested in _imports(path)
+           if m.split(".")[0] in FORBIDDEN and not (m == "cv2" and nested and lazy_cv2_ok)]
     assert not bad, f"{path} imports {bad}"
 
 

@@ -210,26 +210,32 @@ def test_reference_layout_grads_match_pair_gather_and_oracle(shapes):
 
 
 def test_cuda_autograd_functions_route_gradients(monkeypatch):
-    """The autograd Functions that wrap the kernels, run here with plain
-    launchers in place of the CUDA ones: each input gets the gradient the
-    backward launcher returns, and a backward launch is counted per call."""
+    """The gradients registered on the ``codetr::`` custom ops, run here
+    with the card's route taken and plain launchers in place of the CUDA
+    ones: each input of the reference-layout and the packed op gets the
+    gradient the backward launcher returns, and a backward launch is
+    counted per call."""
     shapes = SHAPES[0]
     rng = np.random.default_rng(4)
     value, loc, w = (torch.from_numpy(a) for a in make_inputs(rng, shapes, num_queries=11))
-
-    def fake_reference(v, sh, lc, a):
-        return port_msda.multi_scale_deformable_attention_plain(v, sh, lc, a)
 
     def fake_reference_bwd(v, sh, lc, a, g):
         port_msda.launches_bwd += 1
         gv, gx, gy, gw = port_msda.msda_backward_plain(v, sh, lc[..., 0], lc[..., 1], a, g)
         return gv, torch.stack([gx, gy], -1), gw
 
-    monkeypatch.setattr(port_msda, "_launch_reference", fake_reference)
+    def fake_packed_bwd(v, sh, cpk, P, g):
+        port_msda.launches_bwd += 1
+        grads = port_msda.msda_backward_plain(v, sh, *port_msda._unpack(cpk, v.shape[2], len(sh), P), g)
+        gcpk = torch.cat([t.reshape(*cpk.shape[:2], -1) for t in grads[1:]], -1)
+        return grads[0], torch.nn.functional.pad(gcpk, (0, cpk.shape[2] - gcpk.shape[2]))
+
+    monkeypatch.setattr(port_msda, "_route", lambda t: "cuda")
     monkeypatch.setattr(port_msda, "_launch_reference_bwd", fake_reference_bwd)
+    monkeypatch.setattr(port_msda, "_launch_packed_bwd", fake_packed_bwd)
     monkeypatch.setattr(port_msda, "launches_bwd", 0)
     leaves = [t.clone().requires_grad_() for t in (value, loc, w)]
-    out = port_msda._ReferenceMSDA.apply(*leaves, shapes)
+    out = port_msda.multi_scale_deformable_attention(*leaves[:1], shapes, *leaves[1:])
     g = torch.from_numpy(rng.standard_normal(out.shape).astype(np.float32))
     out.backward(g)
     assert port_msda.launches_bwd == 1
@@ -237,6 +243,21 @@ def test_cuda_autograd_functions_route_gradients(monkeypatch):
     torch.testing.assert_close(leaves[0].grad, want[0], rtol=0, atol=0)
     torch.testing.assert_close(leaves[1].grad, torch.stack(want[1:3], -1), rtol=0, atol=0)
     torch.testing.assert_close(leaves[2].grad, want[3], rtol=0, atol=0)
+
+    gvalue, gloc, gw = make_inputs(rng, shapes)
+    P = gloc.shape[4]
+    cpk = torch.from_numpy(pack(gloc, gw, pad_to=3 * gw[0, 0].size + 5)).requires_grad_()
+    v = torch.from_numpy(gvalue).requires_grad_()
+    out = port_msda.msda_grid_packed(v, shapes, cpk, P)
+    g = torch.from_numpy(rng.standard_normal(out.shape).astype(np.float32))
+    out.backward(g)
+    assert port_msda.launches_bwd == 2
+    want_v, want_cpk = fake_packed_bwd(v.detach(), shapes, cpk.detach(), P, g)
+    # the plain backward's accumulation into the value rows runs in parallel
+    # on the CPU (its order, and the last bit, vary between two calls)
+    torch.testing.assert_close(v.grad, want_v)
+    torch.testing.assert_close(cpk.grad, want_cpk, rtol=0, atol=0)
+    assert not cpk.grad[..., -5:].any()
 
 
 def test_both_layouts_agree_and_bf16_value_accumulates_in_fp32():
