@@ -6,19 +6,29 @@ top-k) -> ``dino_detection_loss`` (Hungarian matching + QFL / L1 / GIoU over
 every decoder layer and the encoder stage) -> backward -> AdamW.  The step
 runs on the model's device; on the card the MSDA forward and backward are
 the hand-written kernels.  An fp32 model's step, backward included, runs in
-full fp32 (``models.codetr.fp32_scope``: TF32 off for cuDNN and matmuls,
-the caller's flags restored after).  The sharded (dp x tp) variants are not
-ported.
+full fp32 (``models.codetr.full_fp32``: TF32 off for cuDNN and matmuls,
+the caller's flags restored after).
+
+Mixed precision is the JAX package's ``dtype=bfloat16, param_dtype=float32``
+with ``optax.adamw``: the model holds fp32 parameters, and with
+``compute_dtype=torch.bfloat16`` each step runs the forward and backward
+on bf16 casts of the parameters and floating buffers
+(``torch.func.functional_call``); the casts' gradients come back to the
+fp32 leaves in fp32, and AdamW updates fp32 leaves with fp32 state.  A
+model whose parameters are not fp32 is refused: AdamW's first steps move a
+weight by ~lr, below half a bf16 ulp of most weights, so bf16 leaves would
+lose most updates.  The sharded (dp x tp) variants are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import itertools
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 from torch import nn
 
-from codetr_torch.models.codetr import fp32_scope
+from codetr_torch.models.codetr import full_fp32
 from codetr_torch.parallel.losses import dino_detection_loss
 
 
@@ -30,24 +40,81 @@ def adamw(model: nn.Module, lr: float = 1e-4) -> torch.optim.AdamW:
     )
 
 
-def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer) -> Callable[..., torch.Tensor]:
+class _Bound(nn.Module):
+    """``fn(model, *args)`` as a module's forward, for ``functional_call``."""
+
+    def __init__(self, model: nn.Module, fn: Callable[..., Any]):
+        super().__init__()
+        self.model, self.fn = model, fn
+
+    def forward(self, *args):
+        return self.fn(self.model, *args)
+
+
+def run_in_dtype(model: nn.Module, compute_dtype: torch.dtype, fn: Callable[..., Any], *args):
+    """``fn(model, *args)`` with the model's floating parameters and buffers
+    replaced by casts to ``compute_dtype`` for the length of the call.  The
+    casts are autograd ops, so a backward pass reaches the fp32 leaves in
+    fp32 (as ``astype``'s VJP does in JAX); run it inside ``fn``, so that
+    ``SwinConfig.with_cp``'s recompute sees the casts too."""
+    casts = {f"model.{n}": t.to(compute_dtype)
+             for n, t in itertools.chain(model.named_parameters(), model.named_buffers())
+             if t.is_floating_point()}
+    return torch.func.functional_call(_Bound(model, fn), casts, args)
+
+
+def _loss(model: nn.Module, batch: Sequence[torch.Tensor], backward: bool) -> torch.Tensor:
+    outputs = model.train_outputs(*batch[:2])
+    total, _ = dino_detection_loss(outputs, *batch[2:])
+    if backward:
+        total.backward()
+    return total.detach()
+
+
+def _check_master_weights(model: nn.Module, compute_dtype: Optional[torch.dtype]) -> None:
+    dtypes = {p.dtype for p in model.parameters()}
+    if dtypes != {torch.float32}:
+        raise ValueError(
+            f"training takes fp32 parameters, got {sorted(map(str, dtypes))}: build the model in "
+            "float32 and pass compute_dtype=torch.bfloat16 for bf16 compute"
+        )
+    if compute_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be None, torch.float32 or torch.bfloat16, got {compute_dtype}")
+
+
+def train_loss(model: nn.Module, batch: Sequence[torch.Tensor], *,
+               compute_dtype: Optional[torch.dtype] = None, backward: bool = False) -> torch.Tensor:
+    """The detached training loss of ``model`` on ``batch`` = (batch_inputs,
+    img_masks, gt_boxes, gt_labels, gt_valid), with its backward pass into
+    the parameters' ``.grad`` when ``backward``: the step's forward and
+    backward, without the update.  fp32 parameters only; ``compute_dtype``
+    as in ``make_train_step``."""
+    _check_master_weights(model, compute_dtype)
+    if compute_dtype in (None, torch.float32):
+        with full_fp32():
+            return _loss(model, batch, backward)
+    return run_in_dtype(model, compute_dtype, _loss, batch, backward)
+
+
+def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
+                    compute_dtype: Optional[torch.dtype] = None) -> Callable[..., torch.Tensor]:
     """Returns ``step(batch_inputs, img_masks, gt_boxes, gt_labels,
     gt_valid) -> loss``.  Targets: gt_boxes (bs, max_gt, 4) normalised
     cxcywh, gt_labels (bs, max_gt) int, gt_valid (bs, max_gt) bool, all on
-    the model's device.
+    the model's device.  The model's parameters must be fp32 (else
+    ``ValueError``); ``compute_dtype=torch.bfloat16`` computes in bf16
+    (module docstring), None or float32 in full fp32.
 
     Unlike the JAX package's pure step, this one updates the model's
     parameters and the optimizer's state in place; each parameter's
     ``.grad`` holds the gradient of the returned (detached) loss until the
     next step."""
+    _check_master_weights(model, compute_dtype)
 
-    def step(batch_inputs, img_masks, gt_boxes, gt_labels, gt_valid) -> torch.Tensor:
-        with fp32_scope(next(model.parameters()).dtype):
-            optimizer.zero_grad(set_to_none=True)
-            outputs = model.train_outputs(batch_inputs, img_masks)
-            total, _ = dino_detection_loss(outputs, gt_boxes, gt_labels, gt_valid)
-            total.backward()
-            optimizer.step()
-        return total.detach()
+    def step(*batch) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        total = train_loss(model, batch, compute_dtype=compute_dtype, backward=True)
+        optimizer.step()
+        return total
 
     return step

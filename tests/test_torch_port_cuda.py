@@ -813,3 +813,160 @@ def test_program_never_runs_the_plain_msda_without_the_kernel_library(tiny_on_ca
         aot.load_executable(path, device="cuda")
     with pytest.raises(OSError, match="cannot open"):
         loaded(*args)
+
+
+def assignment_cases(rng):
+    """(name, cost (P, R, C) float32, row_valid (P, R)): the losses' shapes
+    (max_gt 32 with 7 valid over the decoder's 900 queries and the encoder's
+    30,785 and 73,656; 100 of 100 valid) and the hard cases: a mask with
+    holes, no valid row, integer costs and duplicated columns (ties)."""
+    def make(P, R, C, n_valid=None, kind="normal", holes=False):
+        if kind == "integer":
+            cost = rng.integers(0, 5, (P, R, C)).astype(np.float32)
+        else:
+            cost = (rng.standard_normal((P, R, C)) * 3).astype(np.float32)
+        if kind == "duplicated":
+            cost[..., 1::2] = cost[..., 0::2][..., :C // 2]
+        valid = np.arange(R)[None].repeat(P, 0) < (R if n_valid is None else n_valid)
+        if holes:
+            valid &= rng.random((P, R)) < 0.6
+        return cost, valid
+
+    return [
+        ("decoder 12x32x900", *make(12, 32, 900, 7)),
+        ("coco max 2x100x900", *make(2, 100, 900)),
+        ("encoder 2x32x30785", *make(2, 32, 30785, 7)),
+        ("encoder 2x32x73656", *make(2, 32, 73656, 7)),
+        ("holes 4x32x900", *make(4, 32, 900, holes=True)),
+        ("no valid row 3x32x900", *make(3, 32, 900, 0)),
+        ("integer 4x32x900", *make(4, 32, 900, 20, "integer")),
+        ("duplicated 4x32x900", *make(4, 32, 900, 20, "duplicated")),
+    ]
+
+
+@pytest.mark.gpu
+def test_cuda_assignment_matches_plain(cuda_device):
+    """The Hungarian kernel against its plain version, assignment for
+    assignment (the same float64 steps and tie rule), one launch a call;
+    invalid rows get column 0."""
+    from codetr_torch.ops import hungarian
+
+    for name, cost, valid in assignment_cases(np.random.default_rng(0)):
+        c, v = torch.from_numpy(cost).to(cuda_device), torch.from_numpy(valid).to(cuda_device)
+        before = hungarian.launches
+        got = hungarian.linear_assignment(c, v)
+        torch.cuda.synchronize()
+        assert hungarian.launches - before == 1, name
+        want = hungarian.linear_assignment_plain(c, v)
+        assert torch.equal(got, want), name
+        assert not got[~v].any(), name
+
+
+@pytest.mark.gpu
+def test_cuda_assignment_raises_without_its_library(cuda_device, monkeypatch):
+    """A kernel library that cannot be built or loaded makes the card's
+    ``linear_assignment`` raise; it never runs the plain version."""
+    from codetr_torch.ops import hungarian
+
+    def no_library():
+        raise OSError("hungarian.so: cannot open shared object file")
+
+    monkeypatch.setattr(hungarian, "_lib", no_library)
+    monkeypatch.setattr(hungarian, "linear_assignment_plain", None)
+    # made on the host: a failed graph capture earlier in the file leaves
+    # the card's random generator unusable
+    cost = torch.rand(2, 4, 9).to(cuda_device)
+    with pytest.raises(OSError, match="cannot open"):
+        hungarian.linear_assignment(cost, torch.ones(2, 4, dtype=torch.bool, device=cuda_device))
+
+
+def tiny_train_batch(device, max_gt=8, n_valid=3):
+    from codetr_torch import tiny_test_config
+
+    rng = np.random.default_rng(5)
+    img = torch.from_numpy(rng.standard_normal((1, 128, 128, 3)).astype(np.float32))
+    mask = torch.zeros(1, 128, 128)
+    mask[:, 96:] = 1.0
+    boxes = torch.from_numpy(np.clip(rng.uniform(0.1, 0.9, (1, max_gt, 4)), 0.05, 0.3).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, tiny_test_config().head.num_classes, (1, max_gt)))
+    valid = torch.from_numpy(np.arange(max_gt)[None] < n_valid)
+    return [t.to(device) for t in (img, mask, boxes, labels, valid)]
+
+
+@pytest.mark.gpu
+def test_cuda_detection_loss_never_syncs(cuda_device):
+    """``dino_detection_loss`` on the card under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host synchronisation,
+    two matching launches (every decoder layer and image, then the encoder
+    stage), and the CPU's losses (1e-5)."""
+    from codetr_torch import build_codetr, tiny_test_config
+    from codetr_torch.ops import hungarian
+    from codetr_torch.parallel.losses import dino_detection_loss
+
+    model = build_codetr(tiny_test_config(), device=cuda_device, seed=3)
+    batch = tiny_train_batch(cuda_device)
+    with torch.no_grad():
+        outputs = model.train_outputs(*batch[:2])
+    torch.cuda.synchronize()
+    before = hungarian.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        total, logs = dino_detection_loss(outputs, *batch[2:])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert hungarian.launches - before == 2
+    want, want_logs = dino_detection_loss({k: v.cpu() for k, v in outputs.items()}, *(t.cpu() for t in batch[2:]))
+    assert_close(total.item(), want.item())
+    for k in want_logs:
+        assert_close(logs[k].item(), want_logs[k].item())
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_train_step_matches_cpu(cuda_device):
+    """One bf16-compute step of the tiny model on the card (the MSDA and
+    matching kernels) against the same fp32 weights stepped on the CPU.
+    The matches first: the kernel and the plain version agree on each
+    device's costs, and where the devices' matches differ the costs differ
+    by rounding and the two assignments are a near-tie (within 2 x n x the
+    largest cost difference).  Then the loss within 2e-2 relative; the
+    card's parameters stay fp32 and every entry with a nonzero gradient
+    moves."""
+    import copy
+
+    from codetr_torch import build_codetr, tiny_test_config
+    from codetr_torch.ops import hungarian
+    from codetr_torch.parallel import losses
+    from codetr_torch.parallel.train import adamw, make_train_step, run_in_dtype
+
+    cpu = build_codetr(tiny_test_config(), device="cpu", seed=3)
+    gpu = copy.deepcopy(cpu).to(cuda_device)
+    batches = {"cpu": tiny_train_batch("cpu"), "cuda": tiny_train_batch(cuda_device)}
+    problems = {}
+    for dev, model in (("cpu", cpu), ("cuda", gpu)):
+        b = batches[dev]
+        with torch.no_grad():
+            out = run_in_dtype(model, torch.bfloat16, lambda m, x, mk: m.train_outputs(x, mk), *b[:2])
+        problems[dev] = [(c.cpu(), v.cpu()) for c, v in losses.matching_problems(out, *b[2:])]
+    for (cg, v), (cc, _) in zip(problems["cuda"], problems["cpu"]):
+        a_c = hungarian.linear_assignment_plain(cc, v)
+        assert torch.equal(hungarian.linear_assignment(cc.to(cuda_device), v.to(cuda_device)).cpu(), a_c)
+        a_g = hungarian.linear_assignment(cg.to(cuda_device), v.to(cuda_device)).cpu()
+        for i in range(len(v)):
+            if torch.equal(a_g[i][v[i]], a_c[i][v[i]]):
+                continue
+            rows = cc[i][v[i]]
+            gap = (rows.gather(1, a_g[i][v[i]][:, None]).double().sum()
+                   - rows.gather(1, a_c[i][v[i]][:, None]).double().sum()).item()
+            delta = (cg[i][v[i]] - rows).abs().max().item()
+            assert gap <= 2 * int(v[i].sum()) * delta, (i, gap, delta)
+    start = {n: p.detach().clone() for n, p in gpu.named_parameters()}
+    f0, b0, h0 = port_msda.launches, port_msda.launches_bwd, hungarian.launches
+    loss_g = make_train_step(gpu, adamw(gpu), compute_dtype=torch.bfloat16)(*batches["cuda"]).item()
+    torch.cuda.synchronize()
+    assert (port_msda.launches - f0, port_msda.launches_bwd - b0, hungarian.launches - h0) == (4, 4, 2)
+    loss_c = make_train_step(cpu, adamw(cpu), compute_dtype=torch.bfloat16)(*batches["cpu"]).item()
+    assert abs(loss_g - loss_c) <= 2e-2 * abs(loss_c), (loss_g, loss_c)
+    for n, p in gpu.named_parameters():
+        assert p.dtype == torch.float32, n
+        nz = p.grad != 0
+        assert not (nz & (p.detach() == start[n])).any(), n
