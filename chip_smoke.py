@@ -14,8 +14,9 @@ Phases (any failure raises, and the script exits non-zero without a result):
    queries, packed and q-minor layouts, the latter also through
    ``multi_scale_deformable_attention(grid_queries=True)``; decoder: 900
    queries with 4-coordinate references), and the forward's packed and
-   reference entries at R50's 608x608 shapes too (K = 30,785), value in
-   fp32 and in bf16; then the tiled grid-query entries (the packed forward
+   reference entries at R50's 608x608 shapes too (K = 30,785) and at
+   768x1152 with batch 4 (eval_coco's batch: value (4, 73,656, 8, 32)),
+   value in fp32 and in bf16; then the tiled grid-query entries (the packed forward
    and backward, K1 and K2, and the q-minor forward, K3) on taps placed
    against their shared-memory windows (edges, one pixel out, halo + 1,
    grid lines, far), batch 2, at both sizes; then the Hungarian matching
@@ -23,7 +24,10 @@ Phases (any failure raises, and the script exits non-zero without a result):
    assignment, ties included) and scipy (the valid rows' cost) at the
    losses' shapes (max_gt 32 with 7 valid over 900, 30,785 and 73,656
    queries; 100 of 100 valid) and on a mask with holes, no valid row,
-   integer costs and duplicated columns, each launch timed beside scipy;
+   integer costs and duplicated columns, and with more padded rows than
+   columns (max_gt 32 over 12 queries with 7, 15 and 32 valid; 100 over 90
+   with 95: the valid rows alone, or the transposed problem against scipy's
+   assignment), each launch timed beside scipy;
 4. check the full-width Swin-L model's inference forward on the card
    against the same model run on the CPU through the plain versions, at a
    small input;
@@ -89,7 +93,17 @@ Phases (any failure raises, and the script exits non-zero without a result):
    the reloaded fused program (uint8 in, preprocessing inside) on 5 images
    against the host-preprocess eager one; one traced Swin-L 768x1152 fp32
    image (``utils.profiling.trace``): the share of the window in which a
-   kernel ran and the five kernels with the most time; then the
+   kernel ran and the five kernels with the most time; then COCO
+   evaluation (``codetr_torch.eval_coco``) with the seed-0 Swin-L weights
+   as a ``.pth`` whose ``meta`` holds numpy values: on ten synthetic
+   ``.npy`` images (the last batch of 4 short), fp32 detections held, for
+   the first batch, against the raw outputs postprocessed on the CPU and
+   rescaled on the host in float64 as the JAX script does, then made the
+   ground truth and scored again at fp32 (determinism and the evaluator's
+   plumbing: mAP = AR_100 = 1); then the JAX script's defaults (bf16,
+   soft-NMS, batch 4; 12 forward-kernel launches a batch) twice over 100
+   images (25 full batches) against ground truth at COCO val2017's density,
+   with images per second, seconds per part and peak memory; then the
    ``kernels`` line and, last, the result line.
 
 The script leaves PyTorch's TF32 flags at their defaults (printed at the
@@ -179,20 +193,20 @@ def level_shapes(h: int, w: int):
     return tuple(shapes)
 
 
-def msda_inputs(shapes, num_queries, heads=8, dim=32, points=4, decoder=False):
-    """Seeded inputs on the card: value (1, K, h, d) fp32; locations (1, Q,
-    h, L, P, 2) and weights (1, Q, h, L, P) fp32.  Taps mix offsets of a
+def msda_inputs(shapes, num_queries, heads=8, dim=32, points=4, decoder=False, batch=1):
+    """Seeded inputs on the card: value (B, K, h, d) fp32; locations (B, Q,
+    h, L, P, 2) and weights (B, Q, h, L, P) fp32.  Taps mix offsets of a
     few pixels around each query, far-out taps (beyond the level) and
     exact-integer pixel taps."""
     dev = DEVICE
     g = torch.Generator(device=dev).manual_seed(SEED)
     K = sum(h * w for h, w in shapes)
-    Q, L = num_queries, len(shapes)
-    value = torch.randn(1, K, heads, dim, generator=g, device=dev)
+    Q, L, B = num_queries, len(shapes), batch
+    value = torch.randn(B, K, heads, dim, generator=g, device=dev)
     if decoder:
-        ctr = torch.rand(1, Q, 1, 1, 1, 2, generator=g, device=dev) * 0.8 + 0.1
-        wh = torch.rand(1, Q, 1, 1, 1, 2, generator=g, device=dev) * 0.3 + 0.02
-        off = torch.randn(1, Q, heads, L, points, 2, generator=g, device=dev) * 2.0
+        ctr = torch.rand(B, Q, 1, 1, 1, 2, generator=g, device=dev) * 0.8 + 0.1
+        wh = torch.rand(B, Q, 1, 1, 1, 2, generator=g, device=dev) * 0.3 + 0.02
+        off = torch.randn(B, Q, heads, L, points, 2, generator=g, device=dev) * 2.0
         loc = ctr + off / points * wh * 0.5
     else:
         refs = torch.cat([
@@ -202,7 +216,7 @@ def msda_inputs(shapes, num_queries, heads=8, dim=32, points=4, decoder=False):
             for h, w in shapes
         ])  # (K, 2) xy
         size = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32, device=dev)
-        off = torch.randn(1, Q, heads, L, points, 2, generator=g, device=dev) * 4.0
+        off = torch.randn(B, Q, heads, L, points, 2, generator=g, device=dev) * 4.0
         loc = refs[None, :, None, None, None, :] + off / size[None, None, None, :, None, :]
     far = torch.rand(loc.shape[:-1], generator=g, device=dev) < 0.05
     loc = torch.where(far[..., None], torch.rand(loc.shape, generator=g, device=dev) * 4 - 1.5, loc)
@@ -210,8 +224,8 @@ def msda_inputs(shapes, num_queries, heads=8, dim=32, points=4, decoder=False):
     size = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32, device=dev)[:, None, :]
     snapped = (torch.round(loc * size - 0.5) + 0.5) / size
     loc = torch.where(exact[..., None], snapped, loc).contiguous()
-    w = torch.randn(1, Q, heads, L * points, generator=g, device=dev).softmax(-1)
-    return value, loc, w.reshape(1, Q, heads, L, points).contiguous()
+    w = torch.randn(B, Q, heads, L * points, generator=g, device=dev).softmax(-1)
+    return value, loc, w.reshape(B, Q, heads, L, points).contiguous()
 
 
 def pack(loc, w):
@@ -364,18 +378,18 @@ def check_backward(name, value, grad_out, kernel_fn, plain_fn, stamp):
     return res
 
 
-def forward_checks(hw, stamp, points=4):
+def forward_checks(hw, stamp, points=4, batch=1):
     """The forward kernel's packed (encoder, Q = K) and reference-layout
     (decoder, Q = 900) entries against their plain versions at an input
-    size's level shapes -> ((encoder errors, decoder errors), (shapes,
-    value, loc_e, w_e, cpk, loc_d, w_d))."""
+    size's level shapes and a batch size -> ((encoder errors, decoder
+    errors), (shapes, value, loc_e, w_e, cpk, loc_d, w_d))."""
     shapes = level_shapes(*hw)
     K = sum(h * w for h, w in shapes)
-    size = f"{hw[0]}x{hw[1]}"
+    size = f"{hw[0]}x{hw[1]}" + (f" batch {batch}" if batch > 1 else "")
     print(f"levels at {size}: {shapes}, K = {K}")
-    value, loc_e, w_e = msda_inputs(shapes, K)
+    value, loc_e, w_e = msda_inputs(shapes, K, batch=batch)
     cpk = pack(loc_e, w_e)
-    _, loc_d, w_d = msda_inputs(shapes, 900, decoder=True)
+    _, loc_d, w_d = msda_inputs(shapes, 900, decoder=True, batch=batch)
     enc = check_kernel(
         f"encoder MSDA {size} (packed, Q={K})", value,
         lambda v: msda.msda_grid_packed(v, shapes, cpk, points),
@@ -811,7 +825,11 @@ def assignment_cases(rng):
     900 queries, 6 layers x 2 images, and over the encoder's 30,785 and
     73,656, 2 images; 100 of 100 valid, COCO's most boxes in an image) and
     the hard cases: a mask with holes, no valid row, integer costs and
-    duplicated columns (many optimal assignments)."""
+    duplicated columns (many optimal assignments); then more padded rows
+    than columns (max_gt 32 over the tiny config's 12 queries, 6 layers x 2
+    images), with 7 valid (V <= C: the valid rows alone) and with 15 and 32
+    valid (V > C: the transposed problem), and max_gt 100 over 90 with 95
+    valid, in the losses' form."""
     def make(P, R, C, n_valid=None, kind="normal", holes=False):
         if kind == "integer":
             cost = rng.integers(0, 5, (P, R, C)).astype(np.float32)
@@ -833,24 +851,39 @@ def assignment_cases(rng):
         ("no valid row 3x32x900", *make(3, 32, 900, 0)),
         ("integer costs 4x32x900, 20 valid", *make(4, 32, 900, 20, "integer")),
         ("duplicated columns 4x32x900, 20 valid", *make(4, 32, 900, 20, "duplicated")),
+        ("more rows than columns 12x32x12, 7 valid", *make(12, 32, 12, 7)),
+        ("more rows than columns 12x32x12, 15 valid", *make(12, 32, 12, 15)),
+        ("more rows than columns 12x32x12, 32 valid", *make(12, 32, 12)),
+        ("more rows than columns 4x100x90, 95 valid", *make(4, 100, 90, 95)),
     ]
 
 
 def scipy_assignment(cost, valid):
     """``scipy.optimize.linear_sum_assignment`` on each problem's valid rows,
-    from a host copy of the costs: the port's former matching.  Returns the
-    valid rows' total costs (float64) and the wall ms, copy included."""
+    from a host copy of the costs: the port's former matching.  A problem
+    with more valid rows than columns is solved transposed, its padding rows
+    at ``hungarian.INVALID_COST`` (optax's answer, which the kernel gives),
+    and its answer is put in ``linear_assignment``'s form (each row's
+    column, 0 for a row no column takes).  Returns the valid rows' total
+    costs (float64; NaN for the transposed problems), the transposed
+    problems' answers by problem index, and the wall ms, copy included."""
     from scipy.optimize import linear_sum_assignment
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     host, rows = cost.cpu().numpy(), valid.cpu().numpy()
-    totals = []
-    for c, v in zip(host, rows):
+    totals, transposed = [], {}
+    for p, (c, v) in enumerate(zip(host, rows)):
+        if v.sum() > c.shape[1]:
+            q, g = linear_sum_assignment(np.where(v[:, None], c, np.float32(hungarian.INVALID_COST)).T)
+            transposed[p] = np.zeros(len(v), np.int64)
+            transposed[p][g] = q
+            totals.append(np.nan)
+            continue
         sub = c[np.nonzero(v)[0]]
         r, k = linear_sum_assignment(sub)
         totals.append(float(sub[r, k].sum(dtype=np.float64)))
-    return np.array(totals), (time.perf_counter() - t0) * 1e3
+    return np.array(totals), transposed, (time.perf_counter() - t0) * 1e3
 
 
 def valid_totals(cost, valid, cols) -> np.ndarray:
@@ -897,8 +930,11 @@ def matching_bound_ms(cost, valid):
 def hungarian_checks(stamp):
     """The matching kernel against its plain version (the same assignment,
     ties included) and scipy (the valid rows' total cost within 1e-6
-    relative) on ``assignment_cases``; each call one launch, invalid rows 0;
-    its time per launch beside scipy's host time on the same problems."""
+    relative; where a problem has more valid rows than columns, scipy's
+    assignment of the transposed problem, its costs continuous so its
+    optimum is unique) on ``assignment_cases``; each call one launch,
+    invalid rows 0; its time per launch beside scipy's host time on the
+    same problems."""
     res = {}
     for name, cost, valid in assignment_cases(np.random.default_rng(SEED + 7)):
         before = hungarian.launches
@@ -906,22 +942,28 @@ def hungarian_checks(stamp):
         torch.cuda.synchronize()
         launched = hungarian.launches - before
         want = hungarian.linear_assignment_plain(cost, valid)
-        ref, scipy_ms = scipy_assignment(cost, valid)
+        ref, transposed, scipy_ms = scipy_assignment(cost, valid)
         mine = valid_totals(cost, valid, got)
-        rel = float(np.max(np.abs(mine - ref) / np.maximum(np.abs(ref), 1.0), initial=0.0))
+        short = ~np.isnan(ref)
+        rel = float(np.max(np.abs(mine[short] - ref[short]) / np.maximum(np.abs(ref[short]), 1.0), initial=0.0))
+        cols = got.cpu().numpy()
+        equal_transposed = all(np.array_equal(cols[p], a) for p, a in transposed.items())
         equal = torch.equal(got, want)
         ms = cuda_ms(lambda: hungarian.linear_assignment(cost, valid), 10)
         b_ms, b_by, nbytes, _ = matching_bound_ms(cost, valid)
         shared = hungarian.uses_shared_memory(*cost.shape[1:])
         res[name] = {"equal_to_plain": equal, "max_abs_err": (got - want).abs().max().item(),
-                     "cost_rel_err_vs_scipy": rel, "ms": ms,
+                     "cost_rel_err_vs_scipy": rel, "transposed_problems": len(transposed),
+                     "transposed_equal_to_scipy": equal_transposed, "ms": ms,
                      "scipy_ms": scipy_ms, "bound_ms": b_ms, "shared_memory": shared}
         print(f"hungarian {name}: equal to the plain version {equal}, valid cost vs scipy rel err "
-              f"{rel:.3e} (tol 1e-6), {launched} launch; kernel {ms:.4f} ms/launch "
+              f"{rel:.3e} (tol 1e-6), {len(transposed)} of {len(ref)} problems transposed (V > C), "
+              f"equal to scipy's {equal_transposed}, {launched} launch; kernel {ms:.4f} ms/launch "
               f"({'shared' if shared else 'global'}-memory state), scipy on the host {scipy_ms:.3f} ms "
               f"(copy included), bound {b_ms * 1e3:.3f} us ({b_by}: {nbytes / 1e6:.3f} MB) [{stamp}]")
-        if not equal or rel > 1e-6 or launched != 1 or got[~valid].any():
-            fail(f"hungarian {name}: the kernel disagrees (equal {equal}, rel {rel:.3e}, launches {launched})")
+        if not equal or rel > 1e-6 or not equal_transposed or launched != 1 or got[~valid].any():
+            fail(f"hungarian {name}: the kernel disagrees (equal {equal}, rel {rel:.3e}, transposed "
+                 f"equal {equal_transposed}, launches {launched})")
     return res
 
 
@@ -933,7 +975,7 @@ def matching_timings(problems, reps=20):
     for cost, valid in problems:
         r["ms"] += cuda_ms(lambda: hungarian.linear_assignment(cost, valid), reps)
         r["plain_ms"] += cuda_ms(lambda: hungarian.linear_assignment_plain(cost, valid), 1, warmup=1)
-        r["library_ms"] += statistics.median(scipy_assignment(cost, valid)[1] for _ in range(3))
+        r["library_ms"] += statistics.median(scipy_assignment(cost, valid)[2] for _ in range(3))
         r["bound_ms"] += matching_bound_ms(cost, valid)[0]
     r["bound_by"] = "bytes"
     return r
@@ -1818,6 +1860,234 @@ def trace_phase(tmp, image, stamp):
             "pieces": pieces, "top": [(name, t / 1e3, n) for name, (t, n) in top]}
 
 
+# ten COCO-like image sizes: at batch 4 the last batch holds two images
+EVAL_SIZES = ((480, 640), (427, 640), (640, 480), (375, 500), (612, 612), (333, 500), (640, 427),
+              (500, 375), (360, 480), (640, 640))
+EVAL_BATCH = 4  # the JAX eval_coco.py's default
+THROUGHPUT_IMAGES = 100  # pass 3: 25 full batches of EVAL_BATCH
+THROUGHPUT_RUNS = 2  # pass 3's readings in one call
+COCO_GTS_PER_IMAGE = 36781 / 5000  # COCO val2017: instances over images
+# COCO 2017's 80 category ids, of 1..90: the annotations' ids, densified to the model's labels
+COCO_CATEGORY_IDS = [i for i in range(1, 91) if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83)]
+BOX_TOL, SCORE_TOL = 0.1, 2e-4  # the ladder: boxes px, scores
+
+
+def eval_ground_truth(preds):
+    """COCO annotations that the detections ``preds`` score exactly against:
+    every detection scoring above a cut (non-crowd, ``bbox`` xywh, ``area``
+    w * h), the cut at least each image's 101st score (at most 100 gts an
+    image, so maxDets truncates none) and each zero-area box's score (a box
+    with no area overlaps nothing).  What stays below the cut ranks below
+    every gt's detection, so a second identical pass scores mAP = AR_100 = 1."""
+    cut = -np.inf
+    for p in preds:
+        scores = np.sort(p["scores"])[::-1]
+        if len(scores) > 100:
+            cut = max(cut, float(scores[100]))
+        b = p["boxes"]
+        flat = (b[:, 2] <= b[:, 0]) | (b[:, 3] <= b[:, 1])
+        if flat.any():
+            cut = max(cut, float(p["scores"][flat].max()))
+    anns = []
+    for image_id, p in enumerate(preds, 1):
+        for b, score, label in zip(p["boxes"].astype(np.float64), p["scores"], p["labels"]):
+            if score > cut:
+                w, h = b[2] - b[0], b[3] - b[1]
+                anns.append({"id": len(anns) + 1, "image_id": image_id, "iscrowd": 0, "area": w * h,
+                             "category_id": COCO_CATEGORY_IDS[int(label)], "bbox": [b[0], b[1], w, h]})
+    return anns, cut
+
+
+def coco_like_ground_truth(sizes, rng):
+    """Synthetic annotations at COCO val2017's density: a Poisson count of
+    gts an image (mean 7.36), categories uniform over COCO's 80 ids, boxes
+    inside the image with sides log-uniform from 2% to 60% of the image's
+    geometric mean side (small, medium and large areas all occur)."""
+    anns = []
+    for image_id, (h, w) in enumerate(sizes, 1):
+        for _ in range(rng.poisson(COCO_GTS_PER_IMAGE)):
+            side = np.sqrt(h * w) * np.exp(rng.uniform(np.log(0.02), np.log(0.6)))
+            aspect = np.exp(rng.uniform(-0.7, 0.7))
+            bw, bh = min(side * aspect, w - 1.0), min(side / aspect, h - 1.0)
+            x0, y0 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            anns.append({"id": len(anns) + 1, "image_id": image_id, "iscrowd": 0, "area": bw * bh,
+                         "category_id": int(rng.choice(COCO_CATEGORY_IDS)), "bbox": [x0, y0, bw, bh]})
+    return anns
+
+
+def write_instances(path, names, sizes, anns):
+    from codetr_torch.utils.coco import COCO_CLASSES
+
+    with open(path, "w") as f:
+        json.dump({"images": [{"id": i + 1, "file_name": n, "height": h, "width": w}
+                              for i, (n, (h, w)) in enumerate(zip(names, sizes))],
+                   "annotations": anns,
+                   "categories": [{"id": c, "name": COCO_CLASSES[i]} for i, c in enumerate(COCO_CATEGORY_IDS)]},
+                  f)
+    return path
+
+
+def unmatched_detections(got, want):
+    """Greedy set-wise match of two images' detections: each of ``want``'s
+    (highest score first) to an unused one of ``got`` with its label, its
+    score within SCORE_TOL and the nearest box -> (unmatched count, the
+    largest box difference among the matched, px)."""
+    used = np.zeros(len(got["scores"]), bool)
+    unmatched, worst = 0, 0.0
+    for j in np.argsort(-want["scores"], kind="stable"):
+        cand = np.nonzero((got["labels"] == want["labels"][j]) & ~used
+                          & (np.abs(got["scores"] - want["scores"][j]) <= SCORE_TOL))[0]
+        d = np.abs(got["boxes"][cand] - want["boxes"][j]).max(axis=1) if len(cand) else np.array([np.inf])
+        if d.min() > BOX_TOL:
+            unmatched += 1
+            continue
+        used[cand[np.argmin(d)]] = True
+        worst = max(worst, float(d.min()))
+    return unmatched, worst
+
+
+def host_rescaled_batch(model, inf, paths):
+    """One batch's detections by the JAX script's route after the forward:
+    the card's raw outputs moved to the host, postprocessed there (the plain
+    NMS, boxes left in canvas pixels), and rescaled in float64 by each
+    image's keep-ratio scale factor, computed here from its size
+    (``eval_coco.py``'s ``b / [sx, sy, sx, sy]``)."""
+    from codetr_torch.ops.nms import postprocess_detections
+    from codetr_torch.utils.image_io import read_image
+
+    images = [read_image(p) for p in paths]
+    head = model.cfg.head
+    with torch.inference_mode():
+        args, _ = inf._inputs(images)
+        raw = [t.cpu() for t in model(*args)]
+    b, s, l, keep = (t.numpy() for t in postprocess_detections(
+        *raw, score_threshold=inf.score_threshold, iou_threshold=inf.iou_threshold, scale_factor=None,
+        nms_type=inf.nms_type, nms_sigma=head.nms_sigma, nms_min_score=head.nms_min_score))
+    out = []
+    for j, im in enumerate(images):
+        oh, ow = im.shape[:2]
+        scale = min(WIDTH / ow, HEIGHT / oh)
+        sx, sy = int(ow * scale + 0.5) / ow, int(oh * scale + 0.5) / oh
+        k = keep[j]
+        out.append({"boxes": b[j][k].astype(np.float64) / np.array([sx, sy, sx, sy]),
+                    "scores": s[j][k], "labels": l[j][k]})
+    return out
+
+
+def eval_phase(tmp, stamp):
+    """COCO evaluation (``codetr_torch.eval_coco``) with the seed-0 Swin-L
+    weights passed as a ``.pth`` whose ``meta`` holds numpy values, on
+    synthetic ``.npy`` images and COCO instances files with COCO's 80
+    category ids.  Pass 1: ``predict`` at fp32 with NMS, batch 4, over ten
+    images (the last batch short); its first batch held set-wise against
+    ``host_rescaled_batch`` (same label, scores 2e-4, boxes 0.1 px), then
+    its detections made the ground truth (``eval_ground_truth``).  Pass 2:
+    ``eval_coco.main`` at fp32 with NMS against it must score mAP = AR_100
+    = 1 (to 1e-9): the detections are deterministic and the evaluator's
+    plumbing (files, category ids, image order) loses none.  Pass 3, run
+    THROUGHPUT_RUNS times: the JAX script's defaults (bf16, soft-NMS, batch
+    4) over 100 images against ground truth at COCO val2017's density
+    (``coco_like_ground_truth``), its metrics printed ungated (random
+    weights), its images per second, seconds per part and peak memory.
+    Each ``main`` call's batches launch the forward kernel 12 times each
+    (the launch counts set to 0 just before it and read just after)."""
+    from codetr_torch import eval_coco
+    from codetr_torch.utils.coco import COCO_CLASSES
+
+    root = os.path.join(tmp, "coco")
+    os.makedirs(root)
+    rng = np.random.default_rng(SEED + 11)
+    sizes = [EVAL_SIZES[i % len(EVAL_SIZES)] for i in range(THROUGHPUT_IMAGES)]
+    names = [f"{i:012d}.npy" for i in range(THROUGHPUT_IMAGES)]
+    for name, (h, w) in zip(names, sizes):
+        np.save(os.path.join(root, name), rng.integers(0, 256, (h, w, 3), np.uint8))
+    n_exact = len(EVAL_SIZES)  # passes 1 and 2
+    weights = os.path.join(root, "swin_l_seed0.pth")
+    model = build_codetr(CONFIG(), device="cpu", seed=SEED)
+    torch.save({"state_dict": model.state_dict(),
+                "meta": {"seed": np.int64(SEED), "iters": np.arange(3),
+                         "dataset_meta": {"CLASSES": list(COCO_CLASSES)}}}, weights)
+    del model
+    per_batch = launches_per_forward(CONFIG())  # 12 for Swin-L: 6 encoder + 6 decoder layers
+
+    # pass 1: the detections that become the ground truth, the first batch
+    # held against the host route
+    paths = [os.path.join(root, n) for n in names[:n_exact]]
+    model = build_codetr(CONFIG(), weights, dtype=torch.float32, device=DEVICE)
+    inf = Inferencer(model, height=HEIGHT, width=WIDTH, batch_size=EVAL_BATCH, nms_type="nms", device=DEVICE)
+    preds = eval_coco.predict(inf, paths)
+    host = host_rescaled_batch(model, inf, paths[:EVAL_BATCH])
+    del model, inf
+    torch.cuda.empty_cache()
+    if len(preds) != n_exact:
+        fail(f"predict gave {len(preds)} results for {n_exact} images")
+    for p in preds:
+        n = len(p["scores"])
+        if not (0 < n <= CONFIG().head.max_per_img and p["boxes"].shape == (n, 4) and p["labels"].shape == (n,)):
+            fail(f"predict: bad detections {p['boxes'].shape} {p['scores'].shape} {p['labels'].shape}")
+        if not (np.isfinite(p["boxes"]).all() and np.isfinite(p["scores"]).all()):
+            fail("predict: non-finite detections")
+    worst = 0.0
+    for j, (got, want) in enumerate(zip(preds, host)):
+        missed, w = unmatched_detections(got, want)
+        worst = max(worst, w)
+        if len(got["scores"]) != len(want["scores"]) or missed:
+            fail(f"eval_coco pass 1 image {j}: {len(got['scores'])} detections on the card, "
+                 f"{len(want['scores'])} by the host route, {missed} of the latter unmatched")
+    print(f"eval_coco pass 1, first batch: {sum(len(p['scores']) for p in host)} detections equal, set-wise, "
+          f"to the raw outputs postprocessed on the CPU and rescaled on the host in float64 (largest box "
+          f"difference {worst:.3e} px; tolerance {BOX_TOL} px, scores {SCORE_TOL}) [{stamp}]")
+    anns, cut = eval_ground_truth(preds)
+    exact_ann = write_instances(os.path.join(root, "instances_exact.json"), names[:n_exact], sizes, anns)
+    print(f"eval_coco pass 1 (predict, fp32, nms, batch {EVAL_BATCH}): {sum(len(p['scores']) for p in preds)} "
+          f"detections over {n_exact} images; {len(anns)} of them, scoring above {cut:.6f}, are the "
+          f"ground truth ({len({a['category_id'] for a in anns})} categories) [{stamp}]")
+    coco_anns = coco_like_ground_truth(sizes, rng)
+    coco_ann = write_instances(os.path.join(root, "instances_coco_like.json"), names, sizes, coco_anns)
+    print(f"eval_coco pass 3's ground truth: {len(coco_anns)} gts over {THROUGHPUT_IMAGES} images "
+          f"({len({a['category_id'] for a in coco_anns})} categories), at COCO val2017's density")
+
+    common = ["--img-dir", root, "--weights", weights]
+    runs = [("pass 2", ["--ann", exact_ann, "--dtype", "float32", "--nms-type", "nms"], n_exact)]
+    runs += [(f"pass 3 ({r + 1})", ["--ann", coco_ann], THROUGHPUT_IMAGES) for r in range(THROUGHPUT_RUNS)]
+    results = {}
+    for label, extra, n_images in runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        timings = {}
+        batches = -(-n_images // EVAL_BATCH)
+        msda.launches = msda.launches_qm = msda.launches_bwd = 0
+        t0 = time.perf_counter()
+        metrics = eval_coco.main(common + extra, timings)
+        wall = time.perf_counter() - t0
+        launches = (msda.launches, msda.launches_qm, msda.launches_bwd)
+        results[label] = {"metrics": metrics, "timings": timings, "wall_s": wall, "launches": launches,
+                          "images": n_images, "batches": batches,
+                          "peak_bytes": torch.cuda.max_memory_allocated()}
+        if launches != (per_batch * batches, 0, 0):
+            fail(f"eval_coco {label} launched (forward, q-minor, backward) kernels {launches}, not "
+                 f"({per_batch * batches}, 0, 0): {per_batch} a batch over {batches} batches")
+    m2 = results["pass 2"]["metrics"]
+    print(f"eval_coco pass 2 (fp32, nms, against pass 1's detections): mAP {m2['mAP']:.12f}, AR_100 "
+          f"{m2['AR_100']:.12f} (both must be 1 to 1e-9) [{stamp}]")
+    if abs(m2["mAP"] - 1.0) > 1e-9 or abs(m2["AR_100"] - 1.0) > 1e-9:
+        fail(f"eval_coco pass 2 scored {m2}, not mAP = AR_100 = 1")
+    for r in range(THROUGHPUT_RUNS):
+        r3 = results[f"pass 3 ({r + 1})"]
+        t, n, batches = r3["timings"], r3["images"], r3["batches"]
+        loop_s = t["read_s"] + t["serve_s"] + t["evaluate_s"]
+        print(f"eval_coco pass 3, run {r + 1} of {THROUGHPUT_RUNS} (the JAX script's defaults: swin-l "
+              f"{HEIGHT}x{WIDTH} bf16, soft-NMS, batch {EVAL_BATCH}; {n} images, {batches} batches): "
+              f"metrics (random weights, ungated) {json.dumps(r3['metrics'])}; {n / loop_s:.3f} images/s "
+              f"end to end (read + serve + evaluate; serving alone {n / t['serve_s']:.3f}), seconds read "
+              f"{t['read_s']:.4f}, serve (forward + postprocess) {t['serve_s']:.4f}, evaluate_detections "
+              f"{t['evaluate_s']:.4f}; main() {r3['wall_s']:.2f} s with the model's build from the .pth; "
+              f"peak memory allocated {r3['peak_bytes'] / 2**30:.3f} GiB; forward-kernel launches "
+              f"{r3['launches'][0]} ({r3['launches'][0] // batches} a batch) [{stamp}]")
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
@@ -1850,10 +2120,13 @@ def main() -> int:
     P = 4
     fwd_errs = {}
     for hw in sorted({(HEIGHT, WIDTH)} | {(h, w) for h, w, _ in R50_SERVING}, reverse=True):
-        fwd_errs[hw], inputs = forward_checks(hw, stamp)
+        fwd_errs[f"{hw[0]}x{hw[1]}"], inputs = forward_checks(hw, stamp)
         if hw == (HEIGHT, WIDTH):
             shapes, value, loc_e, w_e, cpk, loc_d, w_d = inputs
         del inputs
+    # and at eval_coco's batch: value (4, K, 8, 32), the batch strides
+    fwd_errs[f"{HEIGHT}x{WIDTH} batch {EVAL_BATCH}"] = forward_checks((HEIGHT, WIDTH), stamp, batch=EVAL_BATCH)[0]
+    torch.cuda.empty_cache()
     K = value.shape[1]
 
     # the backward kernel against the plain backward, same shapes; its
@@ -2139,7 +2412,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         wall["fused"], t0 = time.perf_counter() - t0, time.perf_counter()
         trace_phase(tmp, images[-1], stamp)
-        wall["trace"] = time.perf_counter() - t0
+        wall["trace"], t0 = time.perf_counter() - t0, time.perf_counter()
+        evaluation = eval_phase(tmp, stamp)
+        wall["eval_coco"] = time.perf_counter() - t0
     print("deployment phases, wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
     phase_s["deployment"] = time.perf_counter() - t_phase
     print("phases, wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
@@ -2155,7 +2430,7 @@ def main() -> int:
         "launches": main_launches,
         # over the checks at every serving size
         "max_abs_err": max(e["max_abs_err_fp32"] for pair in fwd_errs.values() for e in pair),
-        "checked_at": [f"{h}x{w}" for h, w in fwd_errs],
+        "checked_at": list(fwd_errs),
         # one fp32 forward's work: 6 encoder calls + 6 decoder calls
         "ms": n_enc * enc_r["ms"] + n_dec * dec_r["ms"],
         "plain_ms": n_enc * enc_r["plain_ms"] + n_dec * dec_r["plain_ms"],
@@ -2171,6 +2446,8 @@ def main() -> int:
         "launches_matrix_per_call": {spec_label(spec): r["msda_launches_per_call"]
                                      for spec, r in zip(MATRIX, matrix)},
         "launches_fused_inferencer": fused["launches"],
+        # eval_coco's pass 3 (the JAX script's defaults), over its served batches
+        "launches_eval_coco": evaluation["pass 3 (1)"]["launches"][0],
         "staged_share": {"microbenchmark": bench_share["fwd"], "swin_l_encoder": enc_stage["staged_share"],
                          "tile_adversarial": {k: r["staged_share"] for k, r in adversarial.items()}},
         "max_abs_err_tile_adversarial": {k: r["fwd"] for k, r in adversarial.items()},
@@ -2314,9 +2591,10 @@ def main() -> int:
         "per_case": matching,
         "sync_free_loss_launches": sync_free["launches"],
         "trainbench_ms_per_step": tb["matching_ms_per_step"],
-        "design": "one block per problem; per step one pass over the columns, a block argmin with the "
-                  "lowest-index tie rule; per-column state in shared memory up to ~9,000 columns, "
-                  "else in a global scratch",
+        "design": "one block per problem, its branch decided on the card from its valid rows V: the "
+                  "valid rows' search (V <= C) or the transposed problem (V > C, optax's answer); per "
+                  "step one pass over the columns, a block argmin with the lowest-index tie rule; "
+                  "per-column state in shared memory up to ~9,000 columns, else in a global scratch",
         "card": stamp,
     }]}
     print(json.dumps(kernels))

@@ -216,3 +216,7 @@ def tiny_test_config(num_levels: int = 5) -> CoDETRConfig:
         neck=NeckConfig(in_channels=swin.num_features, out_channels=32, num_outs=num_levels),
         head=head,
     )
+
+
+# the command-line tools' --config names
+CONFIGS = {"swin-l": co_dino_swin_l, "r50": co_dino_r50, "tiny": tiny_test_config}

@@ -24,10 +24,21 @@
 // Potentials and distances are fp64 (the cost is fp32, widened on read).
 // The plain version (codetr_torch/ops/hungarian.py:linear_assignment_plain)
 // does the same fp64 operations in the same order, so the two agree
-// exactly, ties included.  Only valid rows are solved: an invalid row of
-// the losses carries a flat cost, which cannot change the valid rows'
-// optimum, and solving it would put potentials near the flat cost (1e6)
-// beside costs of ~10.
+// exactly, ties included.
+//
+// Each problem takes one of two branches, on V, its count of valid rows,
+// which the block counts itself (a block reduction; no host read):
+//   V <= C: the search over the valid rows only.  An invalid row of the
+//     losses carries a flat cost, which cannot change the valid rows'
+//     optimum, and solving it would put potentials near the flat cost (1e6)
+//     beside costs of ~10.
+//   V > C: optax's answer to a problem with more rows than columns: the
+//     transposed problem, each of the C columns taking one of the R rows,
+//     an invalid row's cost read as kInvalidCost.  The same search with the
+//     strides swapped; a row no column takes gets 0.
+// Either way every row searched has a free column, so a search ends within
+// its column count of steps.  A step that finds no free column at a finite
+// distance (non-finite costs) stops the problem, whose rows all get -1.
 //
 // Design: one thread block per problem; its threads split the columns.  A
 // step is one pass over the columns (the minv update, fused with the
@@ -51,7 +62,9 @@
 // C entry points: hungarian_solve (launches; returns cudaGetLastError(), or
 // a negative code for arguments the kernel does not take; does not
 // synchronise), and hungarian_col_bytes / hungarian_uses_shared, which tell
-// the caller how much global scratch to allocate.
+// the caller how much global scratch to allocate.  A branch searches at
+// most R rows (V > C only where R > C) over at most max(R, C) columns, and
+// the state is sized so, for either branch.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -63,15 +76,17 @@ namespace {
 constexpr int kMaxWarps = 32;
 constexpr size_t kMaxSmem = 232448;  // a block's dynamic shared memory on H100
 constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr float kInvalidCost = 1e6f;  // a padding row's cost, transposed (ops/hungarian.py:INVALID_COST)
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
-// u (R + 1 doubles), the argmin's warp partials, the used-column list (R + 2)
+// u (R + 1 doubles), the argmin's warp partials, the used-column list (R + 2),
+// for R rows searched
 __host__ __device__ inline size_t fixed_bytes(int R) {
   return align16(size_t(R + 1) * 8 + kMaxWarps * 8 + kMaxWarps * 4 + size_t(R + 2) * 4);
 }
 
-// minv, v (fp64), way, p (int32), used (byte) for columns 0..C
+// minv, v (fp64), way, p (int32), used (byte) for columns 0..C searched
 __host__ __device__ inline size_t col_bytes(int C) {
   return align16(size_t(C + 1) * (8 + 8 + 4 + 4 + 1));
 }
@@ -80,43 +95,22 @@ __device__ inline bool before(double a, int ja, double b, int jb) {
   return a < b || (a == b && ja < jb);
 }
 
-template <bool kShared>
-__global__ void __launch_bounds__(1024)
-hungarian_kernel(const float* __restrict__ cost, const unsigned char* __restrict__ row_valid,
-                 long long* __restrict__ cols, int R, int C, unsigned char* __restrict__ scratch) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// The search over the rows of an (nrows, ncols) problem: row i0 and column
+// j at cost[(i0 - 1) * rs + (j - 1) * cs], the strides (rs, cs) being (C, 1)
+// or, transposed, (1, C).  Returns false if a step found no free column at
+// a finite distance.
+template <bool kTransposed>
+__device__ bool search(const float* __restrict__ cb, const unsigned char* __restrict__ valid, int C,
+                       int nrows, int ncols, double* u, double* red_val, int* red_idx, int* used_list,
+                       double* minv, double* v, int* way, int* p, unsigned char* used) {
   __shared__ int s_j0, s_nused, s_done;
   __shared__ double s_delta;
-
-  const int b = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
-  const float* cb = cost + size_t(b) * R * C;
-  const unsigned char* valid = row_valid + size_t(b) * R;
-  long long* out = cols + size_t(b) * R;
+  const size_t rs = kTransposed ? 1 : size_t(C), cs = kTransposed ? size_t(C) : 1;
 
-  double* u = reinterpret_cast<double*>(smem);
-  double* red_val = u + (R + 1);
-  int* red_idx = reinterpret_cast<int*>(red_val + kMaxWarps);
-  int* used_list = red_idx + kMaxWarps;
-  unsigned char* col_base = kShared ? smem + fixed_bytes(R) : scratch + size_t(b) * col_bytes(C);
-  double* minv = reinterpret_cast<double*>(col_base);
-  double* v = minv + (C + 1);
-  int* way = reinterpret_cast<int*>(v + (C + 1));
-  int* p = way + (C + 1);
-  unsigned char* used = reinterpret_cast<unsigned char*>(p + (C + 1));
-
-  for (int j = tid; j <= C; j += nt) {
-    v[j] = 0.0;
-    p[j] = 0;
-    used[j] = 0;
-  }
-  for (int i = tid; i <= R; i += nt) u[i] = 0.0;
-  for (int r = tid; r < R; r += nt) out[r] = 0;
-  __syncthreads();
-
-  for (int i = 1; i <= R; ++i) {
-    if (!valid[i - 1]) continue;  // the same for every thread
+  for (int i = 1; i <= nrows; ++i) {
+    if (!kTransposed && !valid[i - 1]) continue;  // the same for every thread
     if (tid == 0) {
       p[0] = i;
       s_j0 = 0;
@@ -133,15 +127,16 @@ hungarian_kernel(const float* __restrict__ cost, const unsigned char* __restrict
       const int j0 = s_j0;
       const int i0 = p[j0];
       const double ui0 = u[i0];
-      const float* crow = cb + size_t(i0 - 1) * C;
+      const float* crow = cb + size_t(i0 - 1) * rs;
       double best = INFINITY;
       int best_j = INT_MAX;
       // ascending j within a thread, so a strict < keeps the lowest index
 #pragma unroll 4
-      for (int j = 1 + tid; j <= C; j += nt) {
+      for (int j = 1 + tid; j <= ncols; j += nt) {
         if (used[j]) continue;
         double m = first ? INFINITY : minv[j] - pending;
-        const double cur = (double(crow[j - 1]) - ui0) - v[j];
+        const float c = kTransposed && !valid[j - 1] ? kInvalidCost : crow[size_t(j - 1) * cs];
+        const double cur = (double(c) - ui0) - v[j];
         if (cur < m) {
           m = cur;
           way[j] = j0;
@@ -179,21 +174,27 @@ hungarian_kernel(const float* __restrict__ cost, const unsigned char* __restrict
           }
         }
         if (lane == 0) {
-          const double delta = best;
-          for (int k = 0; k < s_nused; ++k) {
-            const int jc = used_list[k];
-            u[p[jc]] += delta;
-            v[jc] -= delta;
+          if (best_j == INT_MAX) {
+            s_done = -1;  // no free column at a finite distance
+          } else {
+            const double delta = best;
+            for (int k = 0; k < s_nused; ++k) {
+              const int jc = used_list[k];
+              u[p[jc]] += delta;
+              v[jc] -= delta;
+            }
+            s_delta = delta;
+            s_j0 = best_j;
+            s_done = p[best_j] == 0;
           }
-          s_delta = delta;
-          s_j0 = best_j;
-          s_done = p[best_j] == 0;
         }
       }
       __syncthreads();
+      const int done = s_done;
       pending = s_delta;
       first = false;
-      if (s_done) break;
+      if (done < 0) return false;  // the same for every thread
+      if (done) break;
     }
     __syncthreads();  // every thread has read s_done before it changes
     if (tid == 0) {
@@ -207,36 +208,89 @@ hungarian_kernel(const float* __restrict__ cost, const unsigned char* __restrict
     }
     __syncthreads();
   }
-  for (int j = 1 + tid; j <= C; j += nt) {
-    if (p[j]) out[p[j] - 1] = j - 1;
+  return true;
+}
+
+template <bool kShared>
+__global__ void __launch_bounds__(1024)
+hungarian_kernel(const float* __restrict__ cost, const unsigned char* __restrict__ row_valid,
+                 long long* __restrict__ cols, int R, int C, unsigned char* __restrict__ scratch) {
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int N = R > C ? R : C;  // the most columns a branch searches
+  const float* cb = cost + size_t(b) * R * C;
+  const unsigned char* valid = row_valid + size_t(b) * R;
+  long long* out = cols + size_t(b) * R;
+
+  double* u = reinterpret_cast<double*>(smem);
+  double* red_val = u + (R + 1);
+  int* red_idx = reinterpret_cast<int*>(red_val + kMaxWarps);
+  int* used_list = red_idx + kMaxWarps;
+  unsigned char* col_base = kShared ? smem + fixed_bytes(R) : scratch + size_t(b) * col_bytes(N);
+  double* minv = reinterpret_cast<double*>(col_base);
+  double* v = minv + (N + 1);
+  int* way = reinterpret_cast<int*>(v + (N + 1));
+  int* p = way + (N + 1);
+  unsigned char* used = reinterpret_cast<unsigned char*>(p + (N + 1));
+
+  int V = 0;  // the valid rows, the same in every thread
+  for (int r0 = 0; r0 < R; r0 += nt) V += __syncthreads_count(r0 + tid < R && valid[r0 + tid]);
+  const bool transposed = V > C;
+  const int nrows = transposed ? C : R, ncols = transposed ? R : C;
+
+  for (int j = tid; j <= ncols; j += nt) {
+    v[j] = 0.0;
+    p[j] = 0;
+    used[j] = 0;
+  }
+  for (int i = tid; i <= nrows; i += nt) u[i] = 0.0;
+  for (int r = tid; r < R; r += nt) out[r] = 0;
+  __syncthreads();
+
+  const bool ok = transposed
+      ? search<true>(cb, valid, C, nrows, ncols, u, red_val, red_idx, used_list, minv, v, way, p, used)
+      : search<false>(cb, valid, C, nrows, ncols, u, red_val, red_idx, used_list, minv, v, way, p, used);
+  if (!ok) {
+    for (int r = tid; r < R; r += nt) out[r] = -1;
+    return;
+  }
+  for (int j = 1 + tid; j <= ncols; j += nt) {
+    if (!p[j]) continue;
+    if (transposed) out[j - 1] = p[j] - 1;
+    else out[p[j] - 1] = j - 1;
   }
 }
 
-size_t smem_bytes(int R, int C, bool shared) { return fixed_bytes(R) + (shared ? col_bytes(C) : 0); }
+// at most R rows and max(R, C) columns searched, whichever the branch
+size_t smem_bytes(int R, int C, bool shared) {
+  return fixed_bytes(R) + (shared ? col_bytes(R > C ? R : C) : 0);
+}
 
 }  // namespace
 
 extern "C" {
 
-// Global scratch bytes a problem needs when its columns do not fit shared
-// memory (the caller allocates P times this).
-long long hungarian_col_bytes(int C) { return (long long)col_bytes(C); }
+// Global scratch bytes an (R, C) problem needs when its columns do not fit
+// shared memory (the caller allocates P times this).
+long long hungarian_col_bytes(int R, int C) { return (long long)col_bytes(R > C ? R : C); }
 
 // 1 if the kernel keeps the per-column state of an (R, C) problem in shared
 // memory (then it takes no scratch), else 0.
 int hungarian_uses_shared(int R, int C) { return smem_bytes(R, C, true) <= kMaxSmem ? 1 : 0; }
 
 // cost (P, R, C) fp32, row_valid (P, R) bytes, cols (P, R) int64 out, all
-// contiguous on the device; scratch P * hungarian_col_bytes(C) bytes, or
-// unused where hungarian_uses_shared.  Needs 1 <= R <= C.
+// contiguous on the device; scratch P * hungarian_col_bytes(R, C) bytes, or
+// unused where hungarian_uses_shared.
 int hungarian_solve(const float* cost, const unsigned char* row_valid, long long* cols, int P, int R,
                     int C, void* scratch, void* stream) {
-  if (P <= 0 || R <= 0 || C <= 0 || R > C) return -1;
+  if (P <= 0 || R <= 0 || C <= 0) return -1;
   const bool shared = hungarian_uses_shared(R, C);
   const size_t smem = smem_bytes(R, C, shared);
   if (smem > kMaxSmem) return -2;
   if (!shared && scratch == nullptr) return -3;
-  const int threads = C > 8192 ? 1024 : 256;
+  const int threads = (R > C ? R : C) > 8192 ? 1024 : 256;
   auto kern = shared ? hungarian_kernel<true> : hungarian_kernel<false>;
   if (smem > kDefaultSmem) {
     const cudaError_t err =

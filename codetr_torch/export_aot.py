@@ -23,15 +23,13 @@ import os
 import numpy as np
 import torch
 
-from codetr_torch.config import co_dino_r50, co_dino_swin_l, tiny_test_config
+from codetr_torch.config import CONFIGS
 from codetr_torch.inferencer import Inferencer
 from codetr_torch.models.codetr import build_codetr, check_device
 from codetr_torch.runtime.aot import (DTYPES, benchmark, compile_forward, load_executable,
                                       save_executable)
+from codetr_torch.utils.image_io import read_image
 from codetr_torch.utils.preprocess import preprocess_in_graph
-from codetr_torch.utils.visualize import import_cv2
-
-CONFIGS = {"swin-l": co_dino_swin_l, "r50": co_dino_r50, "tiny": tiny_test_config}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -57,26 +55,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--skip-benchmark", action="store_true")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap.parse_args(argv)
-
-
-def read_image(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 RGB from an ``.npy`` array or, through cv2, an image
-    file."""
-    if path.endswith(".npy"):
-        img = np.load(path)
-    else:
-        try:
-            cv2 = import_cv2()
-        except ImportError as e:
-            raise ImportError(f"cannot read {path}: pass an .npy (H, W, 3) uint8 RGB array, or "
-                              "install OpenCV (cv2) to read image files") from e
-        bgr = cv2.imread(path)
-        if bgr is None:
-            raise ValueError(f"cv2 cannot read {path}")
-        img = bgr[..., ::-1]
-    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"{path}: expected an (H, W, 3) uint8 RGB image, got {img.shape} {img.dtype}")
-    return np.ascontiguousarray(img)
 
 
 def drift_inputs(example, seed: int = 0):

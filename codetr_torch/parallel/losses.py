@@ -112,9 +112,10 @@ def hungarian_match(
 
     Returns (matched_pred_idx (max_gt,), match_valid (max_gt,)) on the
     logits' device: for each (padded) gt, the index of its assigned query;
-    invalid gts get query 0 with match_valid False.  One problem of
-    ``linear_assignment``; ``dino_detection_loss`` solves a stage's images
-    together."""
+    invalid gts get query 0 with match_valid False.  Non-finite costs give
+    -1 in every row (see ``match_stages``); the caller checks before
+    indexing with it.  One problem of ``linear_assignment``;
+    ``dino_detection_loss`` solves a stage's images together."""
     cost = matching_cost(cls_logits, pred_cxcywh, gt_cxcywh, gt_labels.long(),
                          cost_cls=cost_cls, cost_bbox=cost_bbox, cost_iou=cost_iou)
     return linear_assignment(cost[None], gt_valid[None])[0], gt_valid
@@ -185,10 +186,21 @@ def matching_problems(
 def match_stages(outputs, gt_boxes, gt_labels, gt_valid) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each supervised stage's matched query per gt: (nl, bs, max_gt) for
     the decoder layers and (bs, max_gt) for the encoder stage, in two
-    ``linear_assignment`` calls."""
+    ``linear_assignment`` calls.
+
+    ``linear_assignment`` gives -1 to every row of a problem whose
+    non-finite costs (from a NaN or infinite logit or box) leave a search
+    no free column at a finite distance; the losses' gathers cannot take
+    such an index.  So each result is asserted non-negative on
+    the device, without a host read: on the CPU the assert raises at once
+    with the message below; on the card it fails the next synchronising
+    call with a device-side assert of ``_assert_async``, which, as every
+    device-side assert, leaves the CUDA context unusable."""
     nl, bs = outputs["all_cls_logits"].shape[:2]
     dec, enc = (linear_assignment(*problems)
                 for problems in matching_problems(outputs, gt_boxes, gt_labels, gt_valid))
+    for matched in (dec, enc):
+        torch._assert_async((matched >= 0).all(), "the matching costs are not finite (NaN or inf outputs)")
     return dec.view(nl, bs, -1), enc
 
 

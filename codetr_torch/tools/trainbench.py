@@ -39,15 +39,15 @@ import time
 import numpy as np
 import torch
 
-from codetr_torch.config import co_dino_swin_l, tiny_test_config
+from codetr_torch.config import CONFIGS
 from codetr_torch.models.codetr import build_codetr, check_device
 from codetr_torch.ops import hungarian, msda
 from codetr_torch.ops.msda_grid import _anchor
 from codetr_torch.parallel.losses import matching_problems
 from codetr_torch.parallel.train import adamw, make_train_step, run_in_dtype, train_loss
+from codetr_torch.runtime.aot import DTYPES
 
-CONFIGS = {"swin-l": co_dino_swin_l, "tiny": tiny_test_config}  # the JAX script's model; the CPU tests' one
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TRAIN_CONFIGS = ("swin-l", "tiny")  # the JAX script's model; the CPU tests' one
 STRIDES = (4, 8, 16, 32, 64)
 
 
@@ -64,7 +64,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="square resolution of the gradcheck's encoder shapes")
     ap.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES),
                     help="compute dtype; the weights stay float32")
-    ap.add_argument("--config", default="swin-l", choices=sorted(CONFIGS))
+    ap.add_argument("--config", default="swin-l", choices=TRAIN_CONFIGS)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap.parse_args(argv)
 
@@ -133,12 +133,12 @@ def gradcheck(hw: int, device: torch.device) -> dict:
 
 
 def train_inputs(height: int, width: int, cfg, device: torch.device):
-    """The JAX script's inputs, drawn in its order from seed 0; max_gt 32,
-    or the config's query count where that is smaller (the tiny config's:
-    the matching takes at most one gt per query)."""
+    """The JAX script's inputs, drawn in its order from seed 0; max_gt 32
+    with 7 valid, for every config (the tiny one has 12 queries: the
+    matching solves its 7 valid rows)."""
     rng = np.random.default_rng(0)
     x = torch.from_numpy((rng.standard_normal((1, height, width, 3)) * 0.1).astype(np.float32))
-    max_gt = min(32, cfg.head.transformer.two_stage_num_proposals)
+    max_gt = 32
     num_classes = cfg.head.num_classes
     boxes = np.clip(rng.uniform(0.1, 0.9, (1, max_gt, 4)), 0.05, 0.3).astype(np.float32)
     labels = rng.integers(0, num_classes, (1, max_gt))

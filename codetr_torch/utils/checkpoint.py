@@ -287,8 +287,32 @@ def model_key_shapes(cfg: CoDETRConfig) -> Dict[str, Tuple[int, ...]]:
     return {k: tuple(v.shape) for k, v in model.state_dict().items()}
 
 
+def numpy_safe_globals() -> list:
+    """numpy's reconstructors, which a ``.pth`` needs where its ``meta``
+    holds numpy scalars or arrays: ``scalar`` and ``_reconstruct`` under
+    numpy 2's (``numpy._core``) and numpy 1's (``numpy.core``) module names,
+    ``ndarray``, ``dtype`` and the dtype classes of booleans, numbers and
+    strings (an unpickled dtype's state is set on an instance of its class).
+    Object arrays stay refused."""
+    try:
+        from numpy._core import multiarray
+    except ImportError:  # numpy 1
+        from numpy.core import multiarray
+    out: list = [np.ndarray, np.dtype]
+    for name in ("scalar", "_reconstruct"):
+        fn = getattr(multiarray, name)
+        out += [(fn, f"numpy.core.multiarray.{name}"), (fn, f"numpy._core.multiarray.{name}")]
+    codes = "?" + np.typecodes["AllInteger"] + np.typecodes["AllFloat"] + "SU"
+    out += list(dict.fromkeys(type(np.dtype(c)) for c in codes))
+    return out
+
+
 def _read(path: str) -> dict:
-    return torch.load(path, map_location="cpu", weights_only=True)
+    """``torch.load`` with ``weights_only=True``: tensors, containers and
+    numpy's reconstructors (``numpy_safe_globals``); a file whose pickle
+    names any other global raises ``pickle.UnpicklingError``."""
+    with torch.serialization.safe_globals(numpy_safe_globals()):
+        return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def load_torch_checkpoint(path: str, cfg: CoDETRConfig, *, convert_swin_original: bool = False

@@ -186,3 +186,80 @@ def test_get_dataset_meta_matches_jax(meta, tmp_path):
     want = jax_checkpoint.get_dataset_meta(path)
     assert {k: list(v) if isinstance(v, tuple) else v for k, v in got.items()} == \
         {k: list(v) if isinstance(v, tuple) else v for k, v in want.items()}
+
+
+def numpy_meta(classes):
+    """A training run's ``meta``: numpy scalars and arrays beside the
+    dataset metadata."""
+    return {"seed": np.int64(0), "arr": np.arange(3), "lr": np.float32(1e-4),
+            "hist": np.zeros((2, 3), np.float16), "name": np.str_("run"),
+            "dataset_meta": {"CLASSES": classes, "version": np.int64(2)}}
+
+
+def test_pth_with_numpy_values_in_its_meta_loads_like_jax(swin_pth, tmp_path):
+    """A ``.pth`` whose ``meta`` holds numpy scalars and arrays: the weights
+    and ``dataset_meta`` equal the JAX package's (which reads with
+    ``weights_only=False``), and the port still reads with
+    ``weights_only=True``."""
+    _, sd = swin_pth
+    path = save_pth(tmp_path / "numpy_meta.pth", sd, meta=numpy_meta([f"obj{i}" for i in range(7)]))
+    want = state_dict_from_jax(jax_checkpoint.load_torch_checkpoint(path, jax_tiny_test_config()),
+                               tiny_test_config())
+    assert_state_dicts_equal(checkpoint.load_torch_checkpoint(path, tiny_test_config()), want)
+    model = build_codetr(tiny_test_config(), path, device="cpu")
+    for k, v in model.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), want[k], err_msg=k)
+    got, want = checkpoint.get_dataset_meta(path), jax_checkpoint.get_dataset_meta(path)
+    assert got == want and got["version"] == 2 and type(got["version"]) is np.int64
+
+
+def test_numpy_1_module_names_load(tmp_path):
+    """numpy 1 pickles its reconstructors as ``numpy.core.multiarray.*``,
+    numpy 2 as ``numpy._core.multiarray.*``: a file naming either loads."""
+    import io
+
+    buf = io.BytesIO()
+    meta = {"seed": np.int64(5), "arr": np.arange(4, dtype=np.int32)}
+    torch.save({"state_dict": {}, "meta": meta}, buf, _use_new_zipfile_serialization=False)
+    raw = buf.getvalue()
+    names = (b"numpy._core.multiarray\n", b"numpy.core.multiarray\n")
+    for old, new in (names, names[::-1]):
+        path = tmp_path / f"{new.split(b'.')[1].decode()}.pth"
+        path.write_bytes(raw.replace(old, new))
+        assert new in path.read_bytes()
+        got = checkpoint._read(str(path))["meta"]
+        assert got["seed"] == 5 and type(got["seed"]) is np.int64
+        np.testing.assert_array_equal(got["arr"], meta["arr"])
+        assert got["arr"].dtype == np.int32
+
+
+class Reduces:
+    """Pickles as a call to ``fn(*args)``: what a malicious file does."""
+
+    def __init__(self, fn, *args):
+        self.fn, self.args = fn, args
+
+    def __reduce__(self):
+        return self.fn, self.args
+
+
+@pytest.mark.parametrize("payload", ["os.system", "object array", "eval"])
+def test_pth_naming_another_global_is_refused(payload, tmp_path):
+    """Only numpy's reconstructors are let through: a ``.pth`` whose pickle
+    names any other global (a ``__reduce__`` to ``os.system``, ``eval``) or
+    holds an object array is refused by both readers, and nothing runs."""
+    import builtins
+    import os
+    import pickle
+
+    marker = tmp_path / "ran"
+    value = {"os.system": Reduces(os.system, f"touch {marker}"),
+             "object array": np.array([1, "a"], dtype=object),
+             "eval": Reduces(builtins.eval, "1 + 1")}[payload]
+    path = str(tmp_path / "evil.pth")
+    torch.save({"state_dict": {}, "meta": {"x": value, "seed": np.int64(0)}}, path)
+    with pytest.raises(pickle.UnpicklingError):
+        checkpoint.load_torch_checkpoint(path, tiny_test_config())
+    with pytest.raises(pickle.UnpicklingError):
+        checkpoint.get_dataset_meta(path)
+    assert not marker.exists()

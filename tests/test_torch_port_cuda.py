@@ -21,6 +21,8 @@ import torch
 
 from codetr_torch.ops import msda as port_msda
 
+from torch_eval_truth import EVAL_SIZES, ground_truth, write_annotations
+
 # ceil-div, non-square pyramids with widths that are not multiples of 8
 SHAPES = [
     ((19, 13), (10, 7), (5, 4)),
@@ -970,3 +972,84 @@ def test_cuda_bf16_train_step_matches_cpu(cuda_device):
         assert p.dtype == torch.float32, n
         nz = p.grad != 0
         assert not (nz & (p.detach() == start[n])).any(), n
+
+
+# ---- the matching with more padded gts than queries (R > C) ----
+
+
+def tall_problems(rng, few_valid):
+    """Seeded (cost (P, R, C) float32, row_valid) with more padded rows than
+    columns: V <= C valid rows (holed), or V > C; continuous costs."""
+    out = []
+    for P, R, C in ((12, 32, 12), (3, 40, 7), (2, 100, 90), (4, 64, 33)):
+        cost = (rng.standard_normal((P, R, C)) * 3).astype(np.float32)
+        valid = np.zeros((P, R), bool)
+        for v in valid:
+            n = int(rng.integers(0, C + 1)) if few_valid else int(rng.integers(C + 1, R + 1))
+            v[rng.permutation(R)[:n]] = True
+        out.append((cost, valid))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("few_valid", [True, False], ids=["valid_le_columns", "valid_gt_columns"])
+def test_cuda_assignment_of_tall_problems_matches_plain_and_scipy(cuda_device, few_valid):
+    """R > C on the card, both branches: the kernel equals its plain version
+    (one launch a call) and scipy (V <= C: the valid rows solved alone;
+    V > C: the transposed problem, padding rows at ``INVALID_COST``)."""
+    from scipy.optimize import linear_sum_assignment
+
+    from codetr_torch.ops import hungarian
+
+    for cost, valid in tall_problems(np.random.default_rng(8 + few_valid), few_valid):
+        c, v = torch.from_numpy(cost).to(cuda_device), torch.from_numpy(valid).to(cuda_device)
+        before = hungarian.launches
+        got = hungarian.linear_assignment(c, v).cpu()
+        assert hungarian.launches - before == 1
+        assert torch.equal(got, hungarian.linear_assignment_plain(torch.from_numpy(cost), torch.from_numpy(valid)))
+        for cp, vp, g in zip(cost, valid, got.numpy()):
+            want = np.zeros(len(vp), np.int64)
+            if vp.sum() > cp.shape[1]:
+                q, k = linear_sum_assignment(np.where(vp[:, None], cp, np.float32(hungarian.INVALID_COST)).T)
+                want[k] = q
+            else:
+                rows = np.nonzero(vp)[0]
+                r, k = linear_sum_assignment(cp[rows])
+                want[rows[r]] = k
+            np.testing.assert_array_equal(g, want)
+
+
+# ---- COCO evaluation (codetr_torch/eval_coco.py) ----
+
+
+@pytest.mark.gpu
+def test_cuda_eval_coco_matches_cpu(cuda_device, tmp_path):
+    """``eval_coco.main`` at the tiny config (fp32, batch 4 over 5 images, the
+    ``.pth`` with numpy values in its ``meta``) on the card against the same
+    call on the CPU: the ground truth is built from the CPU's detections
+    (``ground_truth``), so the metrics agree to 1e-12; each served batch
+    launches the forward kernel once per MSDA layer (2 + 2)."""
+    from codetr_torch import build_codetr, eval_coco, tiny_test_config
+    from codetr_torch.inferencer import Inferencer
+
+    model = build_codetr(tiny_test_config(), device="cpu", seed=3)
+    weights = str(tmp_path / "tiny.pth")
+    torch.save({"state_dict": model.state_dict(), "meta": {"seed": np.int64(3), "iters": np.arange(3)}}, weights)
+    rng = np.random.default_rng(9)
+    names = [f"im{i}" for i in range(len(EVAL_SIZES))]
+    for name, (h, w) in zip(names, EVAL_SIZES):
+        np.save(tmp_path / f"{name}.npy", rng.integers(0, 256, (h, w, 3), np.uint8))
+    preds = eval_coco.predict(Inferencer(model, height=128, width=128, batch_size=4, device="cpu"),
+                              [str(tmp_path / f"{n}.npy") for n in names])
+    anns, made = ground_truth(preds)
+    assert made >= 5
+    ann = write_annotations(tmp_path / "instances.json", names, ".npy", anns)
+    args = ["--ann", ann, "--img-dir", str(tmp_path), "--config", "tiny", "--height", "128", "--width", "128",
+            "--dtype", "float32", "--weights", weights]
+    want = eval_coco.main(args + ["--device", "cpu"])
+    before = port_msda.launches
+    got = eval_coco.main(args)  # the card, by default
+    assert port_msda.launches - before == 4 * 2  # 2 batches of 4
+    assert want["mAP"] > 0
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-12, (k, got[k], want[k])

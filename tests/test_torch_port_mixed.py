@@ -189,3 +189,20 @@ def test_trainbench_cli_on_the_cpu(capsys):
         assert key in last, key
     assert last["device"] == "cpu" and last["peak_gib"] is None and last["dtype"] == "bfloat16"
     assert last["fwd_ms"] > 0 and last == {k: v for k, v in result.items() if k != "gradcheck"}
+
+
+@pytest.mark.parametrize("config", ["swin-l", "tiny"])
+def test_trainbench_inputs_are_the_jax_scripts(config):
+    """max_gt 32 with 7 valid for every config, as ``tools/trainbench.py``
+    draws them (seed 0, in its order); the tiny config's 12 queries no
+    longer cap max_gt.  Swin-L's draws equal the JAX script's."""
+    cfg = trainbench.CONFIGS[config]()
+    x, mask, boxes, labels, valid = trainbench.train_inputs(16, 24, cfg, torch.device("cpu"))
+    assert boxes.shape == (1, 32, 4) and labels.shape == (1, 32) and valid.shape == (1, 32)
+    assert valid.sum().item() == 7 and valid[0, :7].all() and not mask.any()
+    if config == "swin-l":
+        rng = np.random.default_rng(0)
+        np.testing.assert_array_equal(x.numpy(), (rng.standard_normal((1, 16, 24, 3)) * 0.1).astype(np.float32))
+        np.testing.assert_array_equal(boxes.numpy(), np.clip(rng.uniform(0.1, 0.9, (1, 32, 4)), 0.05, 0.3)
+                                      .astype(np.float32))
+        np.testing.assert_array_equal(labels.numpy(), rng.integers(0, 80, (1, 32)))
