@@ -34,7 +34,15 @@ Phases (any failure raises, and the script exits non-zero without a result):
 5. the serving path: 3 synthetic images of different sizes through the
    Swin-L ``Inferencer`` at 768x1152 in fp32 and one in bf16, checking the
    outputs and that each forward launched the forward kernel 12 times (6
-   encoder + 6 decoder layers); then the on-card MSDA gate
+   encoder + 6 decoder layers), with the postprocess (score gate,
+   per-class (soft-)NMS, rescale; the ``Inferencer`` captures it in a CUDA
+   graph, ``runtime.aot.Replay``) timed on the model's outputs captured and
+   eager at batch 1 and 4 and as one eager call per image; on the fp32
+   path the captured postprocess is held against the eager one on the card
+   bit for bit and against the CPU (keep masks and labels equal, scores
+   and boxes 1e-6) for nms, soft_nms and soft_nms_gaussian at batch 1 and
+   4, and one ``Inferencer`` call over 9 images at batch 4 against three
+   separate calls (each batch's own detections); then the on-card MSDA gate
    (``codetr_torch.bench.verify_msda_on_card``, the JAX ``bench.py
    --verify``) at 1280x1920 in fp32 and bf16, which launches the q-minor
    kernel; then the R50 family: its full-width model on the card against
@@ -93,7 +101,8 @@ Phases (any failure raises, and the script exits non-zero without a result):
    the reloaded fused program (uint8 in, preprocessing inside) on 5 images
    against the host-preprocess eager one; one traced Swin-L 768x1152 fp32
    image (``utils.profiling.trace``): the share of the window in which a
-   kernel ran and the five kernels with the most time; then COCO
+   kernel ran, the captured postprocess's kernels and their device time,
+   and the five kernels with the most time; then COCO
    evaluation (``codetr_torch.eval_coco``) with the seed-0 Swin-L weights
    as a ``.pth`` whose ``meta`` holds numpy values: on ten synthetic
    ``.npy`` images (the last batch of 4 short), fp32 detections held, for
@@ -141,7 +150,8 @@ from codetr_torch.parallel import losses as losses_module
 from codetr_torch.parallel.losses import dino_detection_loss, matching_problems
 from codetr_torch.parallel.train import adamw, make_train_step, run_in_dtype
 from codetr_torch.tools import trainbench
-from codetr_torch.runtime.aot import DTYPES, compile_forward, load_executable, msda_nodes, save_executable
+from codetr_torch.ops.nms import postprocess_detections
+from codetr_torch.runtime.aot import DTYPES, Replay, compile_forward, load_executable, msda_nodes, save_executable
 from codetr_torch.utils.preprocess import preprocess
 from codetr_torch.utils.profiling import trace
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -156,6 +166,8 @@ CP_BATCH = 6  # a train batch whose step does not fit the card without SwinConfi
 EXPORTED = (0, 3)  # the matrix configurations exported, saved and reloaded (R50 fp32, Swin-L 1280x1920)
 MATRIX_ITERATIONS = 20  # per configuration and mode: 5 blocks of 4
 KERNELS = ("msda_fwd", "msda_bwd", "msda_shift_fwd", "gatherbench", "hungarian")
+NMS_TYPES = ("nms", "soft_nms", "soft_nms_gaussian")
+POST_BATCHES = (1, 4)  # the postprocess's batch sizes: latency, and eval_coco's and the matrix's batch 4
 TRAINBENCH_HW = (608, 608)  # the JAX tools/trainbench.py's size: the sync-free loss's shapes
 SEED = 0
 DEVICE = "cuda"
@@ -1231,15 +1243,138 @@ def timed(fn):
     return r, (time.perf_counter() - t0) * 1e3
 
 
-def serve(cfg, height, width, dtype, images, warmup):
+def postprocess_fn(cfg, nms_type):
+    """The ``Inferencer``'s postprocess at the config's thresholds:
+    (boxes, scores, labels, scale factors) -> (boxes, scores, labels, keep)."""
+    head = cfg.head
+    kw = dict(score_threshold=head.score_threshold, iou_threshold=head.nms_iou_threshold, nms_type=nms_type,
+              nms_sigma=head.nms_sigma, nms_min_score=head.nms_min_score)
+    return lambda b, s, l, sf: postprocess_detections(b, s, l, scale_factor=sf, **kw)
+
+
+def raw_batch(model, cfg, height, width, images):
+    """The model's raw (boxes, scores, labels) for ``images``, one forward
+    each, stacked as one batch, and their (n, 1, 4) scale factors."""
+    outs, sfs = [], []
+    with torch.inference_mode():
+        for im in images:
+            x, mk, sf, _ = preprocess(im, height, width, cfg.preprocess, device=DEVICE)
+            outs.append(model(x[None], mk[None]))
+            sfs.append([sf[0], sf[1], sf[0], sf[1]])
+    raw = tuple(torch.cat(t) for t in zip(*outs))
+    return raw + (torch.tensor(sfs, dtype=torch.float32, device=DEVICE)[:, None, :],)
+
+
+def postprocess_times(args, post):
+    """ms per image of the postprocess ``post`` on the batch ``args`` cut to
+    each of POST_BATCHES: the captured program (an ``aot.Replay``, as the
+    ``Inferencer`` runs it: inputs copied in, outputs cloned out) and the
+    eager batched call, both between CUDA events; at the largest batch also
+    the former design, one eager call per image."""
+    out = {}
+    with torch.inference_mode():
+        for bs in POST_BATCHES:
+            a = tuple(t[:bs] for t in args)
+            replay = Replay(post, a)
+            out[f"captured_bs{bs}"] = cuda_ms(lambda: replay(*a), 20) / bs
+            out[f"eager_bs{bs}"] = cuda_ms(lambda: post(*a), 3, warmup=1) / bs
+        bs = POST_BATCHES[-1]
+        a = tuple(t[:bs] for t in args)
+        out[f"per_image_eager_bs{bs}"] = cuda_ms(
+            lambda: [post(*(t[j:j + 1] for t in a)) for j in range(bs)], 2, warmup=1) / bs
+    return out
+
+
+def post_text(t) -> str:
+    bs = POST_BATCHES[-1]
+    return (f"captured {t['captured_bs1']:.3f} (batch 1), {t[f'captured_bs{bs}']:.3f} (batch {bs}); eager "
+            f"batched {t['eager_bs1']:.3f}, {t[f'eager_bs{bs}']:.3f}; one eager call per image at batch {bs} "
+            f"{t[f'per_image_eager_bs{bs}']:.3f} ms per image")
+
+
+def ladder_errors(got, want) -> dict:
+    """The card's postprocess against the CPU's at the parity ladder of
+    ``test_postprocess_matches_jax``: keep masks and labels equal, scores
+    and boxes within 1e-6 (absolute and relative); -inf where the other is."""
+    g = [t.cpu() for t in got]
+    err = {"keep_differ": int((g[3] != want[3]).sum()), "labels_differ": int((g[2] != want[2]).sum())}
+    for name, i in (("scores", 1), ("boxes", 0)):
+        a, b = g[i].double(), want[i].double()
+        fin = torch.isfinite(b)
+        err[f"{name}_inf_differ"] = int((torch.isfinite(a) != fin).sum() + (a[~fin] != b[~fin]).sum())
+        diff = (a[fin] - b[fin]).abs()
+        err[name] = float(diff.max()) if diff.numel() else 0.0
+        err[f"{name}_over"] = int((diff > 1e-6 + 1e-6 * b[fin].abs()).sum())
+    return err
+
+
+def postprocess_checks(model, cfg, raw, stamp):
+    """The slice's path on the model's own outputs (``raw``: a batch of 4
+    and its scale factors): for nms, soft_nms and soft_nms_gaussian at
+    batch 1 and 4, the captured postprocess (``aot.Replay``, as the
+    ``Inferencer`` runs it) against the eager batched call on the card, bit
+    for bit, and against the same inputs postprocessed on the CPU
+    (``ladder_errors``), each timed; then one ``Inferencer`` call over 9
+    images at batch 4 (three batches, the last padded) against three
+    separate calls: equal, each batch its own detections, 12 forward-kernel
+    launches a batch, one captured program replayed 6 times."""
+    out = {}
+    with torch.inference_mode():
+        for nms_type in NMS_TYPES:
+            post = postprocess_fn(cfg, nms_type)
+            for bs in POST_BATCHES:
+                a = tuple(t[:bs] for t in raw)
+                eager = post(*a)
+                got = Replay(post, a)(*a)
+                exact = all(torch.equal(x, y) for x, y in zip(got, eager))
+                err = ladder_errors(got, post(*(t.cpu() for t in a)))
+                kept = int(got[3].sum())
+                print(f"postprocess {nms_type} batch {bs} on the Swin-L {HEIGHT}x{WIDTH} fp32 model's outputs: "
+                      f"captured {'equal' if exact else 'NOT equal'} to eager bit for bit; against the CPU "
+                      f"keep masks differing {err['keep_differ']}, labels {err['labels_differ']}, max score "
+                      f"diff {err['scores']:.3e}, box {err['boxes']:.3e} px (tol 1e-6 + 1e-6 relative); "
+                      f"{kept} kept [{stamp}]")
+                if not exact:
+                    fail(f"the captured postprocess ({nms_type}, batch {bs}) differs from the eager one")
+                if any(err[k] for k in ("keep_differ", "labels_differ", "scores_inf_differ", "boxes_inf_differ",
+                                        "scores_over", "boxes_over")):
+                    fail(f"the card's postprocess ({nms_type}, batch {bs}) differs from the CPU's: {err}")
+                out[f"{nms_type} batch {bs}"] = err
+            t = out[f"{nms_type} times"] = postprocess_times(raw, post)
+            print(f"postprocess {nms_type} on the model's outputs: {post_text(t)} [{stamp}]")
+
+    rng = np.random.default_rng(SEED + 12)
+    nine = [rng.integers(0, 256, (h, w, 3), np.uint8) for h, w in EVAL_SIZES[:9]]
+    inf = Inferencer(model, height=HEIGHT, width=WIDTH, batch_size=4, device=DEVICE)
+    msda.launches = msda.launches_qm = msda.launches_bwd = 0
+    together = inf(nine)
+    launches = (msda.launches, msda.launches_qm, msda.launches_bwd)
+    apart = inf(nine[:4]) + inf(nine[4:8]) + inf(nine[8:])
+    differ = sum(int(not np.array_equal(getattr(g, f), getattr(w, f)))
+                 for g, w in zip(together, apart) for f in ("boxes", "scores", "labels", "keep"))
+    replays = [p.calls for p in inf.postprocess_programs.values()]
+    print(f"Inferencer Swin-L {HEIGHT}x{WIDTH} fp32 batch 4, 9 images in one call (3 batches, the last padded) "
+          f"against 3 calls: {differ} fields differing; launches (forward, q-minor, backward) {launches} in the "
+          f"one call; captured postprocess programs {len(replays)}, replays {replays} [{stamp}]")
+    check_detections(together, 9, cfg.head.max_per_img)
+    if differ or len(together) != 9:
+        fail("a multi-batch Inferencer call did not return each batch's own detections")
+    if launches != (3 * launches_per_forward(cfg), 0, 0) or replays != [6]:
+        fail(f"the multi-batch Inferencer launched {launches} and replayed {replays}, not "
+             f"({3 * launches_per_forward(cfg)}, 0, 0) and [6]")
+    out["multi_batch"] = {"differ": differ, "launches": launches[0], "replays": replays}
+    return out
+
+
+def serve(cfg, height, width, dtype, images, warmup, stamp, post_checks=False):
     """One serving configuration: the ``Inferencer`` at batch 1 after one
     warm-up image, then each of ``images`` timed on the host clock with the
     launch counts set to 0 before and read after (each forward must launch
     the forward kernel once per encoder and decoder layer, and no other);
-    then one forward of the last image timed piece by piece."""
-    from codetr_torch.ops.nms import postprocess_detections
-    from codetr_torch.utils.preprocess import preprocess
-
+    then one forward of the last image timed piece by piece, and the
+    postprocess on the model's outputs for the warm-up image and
+    ``images`` (repeated to a batch of 4) timed captured and eager
+    (``postprocess_times``); with ``post_checks``, ``postprocess_checks``."""
     model = build_codetr(cfg, dtype=dtype, device=DEVICE, seed=SEED)
     inf = Inferencer(model, height=height, width=width, batch_size=1, device=DEVICE)
     inf([warmup])  # library handles, allocator, cached masks
@@ -1265,13 +1400,15 @@ def serve(cfg, height, width, dtype, images, warmup):
         x, mk = pre[0][None], pre[1][None]
         feats, t_feat = timed(lambda: model.features(x))
         det, t_det = timed(lambda: model.detect(feats, mk))
-        _, t_post = timed(lambda: postprocess_detections(
-            *det, score_threshold=0.0, iou_threshold=cfg.head.nms_iou_threshold,
-            nms_type=cfg.head.nms_type))
-    del model, inf, feats, det
+    del feats, det
+    raw = raw_batch(model, cfg, height, width, (([warmup] + list(images)) * 4)[:4])
+    t_post = postprocess_times(raw, postprocess_fn(cfg, cfg.head.nms_type))
+    checks = postprocess_checks(model, cfg, raw, stamp) if post_checks else None
+    del model, inf, raw
     torch.cuda.empty_cache()
     return {"latencies": latencies, "split": (t_pre, t_feat, t_det, t_post), "peak": peak,
-            "held": held, "launches": launches[0], "kept": [int(d.keep.sum()) for d in dets]}
+            "held": held, "launches": launches[0], "kept": [int(d.keep.sum()) for d in dets],
+            "nms_type": cfg.head.nms_type, "postprocess": checks}
 
 
 def print_serving(label, r, images, stamp):
@@ -1280,7 +1417,7 @@ def print_serving(label, r, images, stamp):
     print(f"latency {label} median: {statistics.median(r['latencies']):.2f} ms per image [{stamp}]")
     t_pre, t_feat, t_det, t_post = r["split"]
     print(f"{label} split, one image: preprocess {t_pre:.2f} ms, backbone+neck {t_feat:.2f} ms, "
-          f"head {t_det:.2f} ms, soft-NMS {t_post:.2f} ms [{stamp}]")
+          f"head {t_det:.2f} ms; postprocess ({r['nms_type']}) {post_text(t_post)} [{stamp}]")
     print(f"peak memory allocated, {label}: {r['peak'] / 2**30:.3f} GiB, of which "
           f"{r['held'] / 2**30:.3f} GiB held before the serving path [{stamp}]")
 
@@ -1814,10 +1951,44 @@ def union_us(spans) -> float:
     return total
 
 
+def trace_pieces(events, kernels) -> dict:
+    """Each annotated range of a trace (preprocess, forward, postprocess):
+    its host ms, the share of it in which a kernel ran, and, by correlation
+    id, the kernels that its launch calls started wherever those ran (a CUDA
+    graph's kernels carry its launch's id and run after its host range):
+    their count, device span and busy time, and the range's host time in
+    each runtime call."""
+    calls = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    started = collections.defaultdict(list)
+    for e in events:
+        if e.get("cat") == "kernel" and "correlation" in e.get("args", {}):
+            started[e["args"]["correlation"]].append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    pieces = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"] in ("preprocess", "forward", "postprocess"):
+            a, b = float(e["ts"]), float(e["ts"]) + float(e["dur"])
+            inside = [(max(ka, a), min(kb, b)) for ka, kb, _ in kernels if kb > a and ka < b]
+            own = [c for c in calls if a <= float(c["ts"]) <= b]
+            spans = [k for c in own for k in started.get(c.get("args", {}).get("correlation"), [])]
+            span = (max(kb for _, kb in spans) - min(ka for ka, _ in spans)) if spans else 0.0
+            pieces[e["name"]] = {
+                "ms": (b - a) / 1e3, "kernel_share": union_us(inside) / max(b - a, 1e-9),
+                "kernels_started": len(spans), "kernel_ms": union_us(spans) / 1e3, "device_span_ms": span / 1e3,
+                "launch_calls": dict(collections.Counter(c["name"] for c in own
+                                                         if started.get(c.get("args", {}).get("correlation")))),
+                "host_call_ms": {n: sum(float(c["dur"]) for c in own if c["name"] == n) / 1e3
+                                 for n in sorted({c["name"] for c in own})},
+            }
+    return pieces
+
+
 def trace_phase(tmp, image, stamp):
     """One traced image through the Swin-L 768x1152 fp32 Inferencer (after
-    a warm-up image): the share of the traced window in which a kernel ran,
-    each annotated piece's, and the five kernels with the most time."""
+    a warm-up image, which captured its postprocess): the share of the
+    traced window in which a kernel ran, each annotated piece's, the
+    kernels that the postprocess range's launch calls started (by
+    correlation id: a CUDA graph runs after its host range) and the device
+    time they spanned, and the five kernels with the most time."""
     cfg = co_dino_swin_l()
     model = build_codetr(cfg, dtype=torch.float32, device=DEVICE, seed=SEED)
     inf = Inferencer(model, height=HEIGHT, width=WIDTH, device=DEVICE)
@@ -1836,12 +2007,7 @@ def trace_phase(tmp, image, stamp):
     t0 = min(float(e["ts"]) for e in events)
     t1 = max(float(e["ts"]) + float(e["dur"]) for e in events)
     busy = union_us([(a, b) for a, b, _ in kernels])
-    pieces = {}
-    for e in events:
-        if e.get("cat") == "user_annotation" and e["name"] in ("preprocess", "forward", "postprocess"):
-            a, b = float(e["ts"]), float(e["ts"]) + float(e["dur"])
-            inside = [(max(ka, a), min(kb, b)) for ka, kb, _ in kernels if kb > a and ka < b]
-            pieces[e["name"]] = {"ms": (b - a) / 1e3, "kernel_share": union_us(inside) / max(b - a, 1e-9)}
+    pieces = trace_pieces(events, kernels)
     by_name = collections.defaultdict(lambda: [0.0, 0])
     for a, b, name in kernels:
         by_name[name][0] += b - a
@@ -1852,6 +2018,16 @@ def trace_phase(tmp, image, stamp):
           f"running {busy / 1e3:.2f} ms ({share:.4f}; idle {1 - share:.4f}), {len(kernels)} kernel launches; "
           + ", ".join(f"{k} {v['ms']:.2f} ms (kernel share {v['kernel_share']:.4f})" for k, v in pieces.items())
           + f" [{stamp}]")
+    post = pieces.get("postprocess")
+    if post:
+        print(f"trace postprocess ({cfg.head.nms_type}, the captured program): host range {post['ms']:.3f} ms; "
+              f"its launch calls {post['launch_calls']} started {post['kernels_started']} kernels"
+              + (f", which ran over {post['device_span_ms']:.3f} ms of the device, a kernel running "
+                 f"{post['kernel_ms']:.3f} ms of it ({post['kernel_ms'] / max(post['device_span_ms'], 1e-9):.4f})"
+                 if post["kernels_started"] else
+                 " (no kernel event carries their correlation ids: the profiler shows the graph as one launch)")
+              + "; host time in its runtime calls: "
+              + ", ".join(f"{n} {ms:.3f} ms" for n, ms in post["host_call_ms"].items()) + f" [{stamp}]")
     print("trace: the five kernels with the most time: " + "; ".join(
         f"{name[:90]} {t / 1e3:.3f} ms in {n}" for name, (t, n) in top))
     del model, inf
@@ -2183,11 +2359,11 @@ def main() -> int:
     # 5. the main path: Swin-L Inferencer at 768x1152, fp32 then bf16
     rng = np.random.default_rng(SEED)
     images = [rng.integers(0, 256, s, np.uint8) for s in ((480, 640, 3), (1280, 720, 3), (900, 1600, 3))]
-    swin = serve(cfg, HEIGHT, WIDTH, torch.float32, images, images[0])
+    swin = serve(cfg, HEIGHT, WIDTH, torch.float32, images, images[0], stamp, post_checks=True)
     main_launches = swin["launches"]
     print(f"main path fp32: {len(images)} images, kernel launches {main_launches} "
           f"({launches_per_forward(cfg)} per forward), kept detections {swin['kept']}")
-    swin_bf16 = serve(cfg, HEIGHT, WIDTH, torch.bfloat16, images[1:2], images[0])
+    swin_bf16 = serve(cfg, HEIGHT, WIDTH, torch.bfloat16, images[1:2], images[0], stamp)
 
     # bytes left allocated after each phase from here to training, whose
     # peak memory they count in
@@ -2211,7 +2387,7 @@ def main() -> int:
     cfg_r50 = co_dino_r50()
     compare_models(cfg_r50, CHECK_HW, stamp, label="R50")
     held["after R50 card vs CPU"] = torch.cuda.memory_allocated()
-    r50 = {(h, w, dt): serve(cfg_r50, h, w, dt, images, images[0]) for h, w, dt in R50_SERVING}
+    r50 = {(h, w, dt): serve(cfg_r50, h, w, dt, images, images[0], stamp) for h, w, dt in R50_SERVING}
     held["after R50 serving"] = torch.cuda.memory_allocated()
     for (h, w, dt), r in r50.items():
         print(f"R50 {h}x{w} {dt}: {len(images)} images, kernel launches {r['launches']} "

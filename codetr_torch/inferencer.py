@@ -2,7 +2,9 @@
 
 Per batch of images: keep-ratio resize, pad, normalise and mask on the
 model's device; one forward; per-class (soft-)NMS with static shapes on the
-device; boxes rescaled to original-image pixels.  Results come back as
+device, one loop for the batch (on the card one captured CUDA graph a
+batch shape: the JAX ``jax.jit(postprocess_detections)``); boxes rescaled
+to original-image pixels.  Results come back as
 fixed-size numpy arrays plus a keep mask.  With ``device_preprocess=True``
 (the fused-serving form) only the resize runs before the forward, onto a
 fixed uint8 canvas; normalise, pad and mask run inside it
@@ -13,13 +15,14 @@ from __future__ import annotations
 
 import json
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from codetr_torch.models.codetr import CoDETR, check_device
 from codetr_torch.ops.nms import postprocess_detections
+from codetr_torch.runtime.aot import Replay
 from codetr_torch.utils.coco import COCO_CLASSES
 from codetr_torch.utils.preprocess import preprocess, preprocess_in_graph, resize_to_canvas
 from codetr_torch.utils.profiling import annotate
@@ -58,6 +61,12 @@ class Inferencer:
     Thresholds default to the config's test_cfg (score 0, soft-NMS at iou
     0.8).  ``device`` must be the model's; CUDA by default, and without a
     card it raises.
+
+    On the card the postprocess (score gate, per-class (soft-)NMS, rescale)
+    is captured in a CUDA graph at the first batch of each (shapes, dtypes,
+    nms type, thresholds) and replayed for every later one
+    (``postprocess_programs``); a capture that fails raises.  On the CPU it
+    runs eagerly.
 
     ``compiled_fn`` replaces the model's forward: an exported program
     (``runtime.aot.compile_forward`` / ``load_executable``) whose inputs are
@@ -108,6 +117,7 @@ class Inferencer:
                 return model(x.to(input_dtype), m)
 
         self._fwd = model if compiled_fn is None else compiled_fn
+        self.postprocess_programs: Dict[tuple, Replay] = {}
 
     def _inputs(self, chunk):
         """One batch's forward arguments and (bs, 1, 4) scale factors."""
@@ -126,11 +136,28 @@ class Inferencer:
                           device=self.device)[:, None, :]
         return args, sf
 
+    def postprocess(self, boxes, scores, labels, scale_factor):
+        """One batch's (boxes, scores, labels, keep) in original-image
+        pixels: the captured program on the card, eager calls on the CPU."""
+        head = self.cfg.head
+        kw = dict(score_threshold=self.score_threshold, iou_threshold=self.iou_threshold,
+                  nms_type=self.nms_type, nms_sigma=head.nms_sigma, nms_min_score=head.nms_min_score)
+
+        def post(b, s, l, sf):
+            return postprocess_detections(b, s, l, scale_factor=sf, **kw)
+
+        args = (boxes, scores, labels, scale_factor)
+        if self.device.type != "cuda":
+            return post(*args)
+        key = tuple((a.shape, a.dtype) for a in args) + tuple(kw.values())
+        if key not in self.postprocess_programs:
+            self.postprocess_programs[key] = Replay(post, args)
+        return self.postprocess_programs[key](*args)
+
     @torch.inference_mode()
     def __call__(self, images: Sequence[np.ndarray]) -> List[Detections]:
         """images: (H, W, 3) RGB uint8 arrays, any count."""
         bs = self.batch_size
-        head = self.cfg.head
         pending = []
         for i in range(0, len(images), bs):
             chunk = list(images[i:i + bs])
@@ -141,15 +168,7 @@ class Inferencer:
             with annotate("forward"):
                 boxes, scores, labels = self._fwd(*args)
             with annotate("postprocess"):
-                post = postprocess_detections(
-                    boxes, scores, labels,
-                    score_threshold=self.score_threshold,
-                    iou_threshold=self.iou_threshold,
-                    scale_factor=sf,
-                    nms_type=self.nms_type,
-                    nms_sigma=head.nms_sigma,
-                    nms_min_score=head.nms_min_score,
-                )
+                post = self.postprocess(boxes, scores, labels, sf)
             pending.append((n, post))
         outs: List[Detections] = []
         for n, post in pending:

@@ -23,6 +23,9 @@ counterpart of the JAX package's ``runtime/aot.py`` (there ``jax.jit`` +
   the timed loop); ``graph=False`` puts the events around eager calls, what
   a Python caller pays.  On the CPU (tests) only ``graph=False`` exists and
   times with ``perf_counter``.
+- ``Replay(fn, args)``: ``fn`` captured once on the card over static copies
+  of ``args`` and replayed on each call (the ``Inferencer``'s postprocess,
+  the counterpart of the JAX ``jax.jit(postprocess_detections)``).
 
 Not carried over: the JAX ``split=True`` form (backbone and head as two
 executables) and the weights-as-arguments ``.params.npz`` companion worked
@@ -225,6 +228,43 @@ def capture(fn: Callable, args: Sequence[torch.Tensor]) -> torch.cuda.CUDAGraph:
     return graph
 
 
+def warm_up(fn: Callable, args: Sequence[torch.Tensor], n: int) -> None:
+    """``n`` calls of ``fn(*args)`` on a side stream of the card (what a
+    capture needs done first: library handles, workspaces), then a sync."""
+    device = device_of(args)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(n):
+            fn(*args)
+    torch.cuda.current_stream(device).wait_stream(side)
+    torch.cuda.synchronize(device)
+
+
+class Replay:
+    """``fn`` captured once in a CUDA graph over static copies of ``args``
+    (after one warm-up call); each call copies its arguments in, replays the
+    graph and returns clones of its outputs, since the next replay
+    overwrites the graph's own.  The arguments must have the shapes and
+    dtypes of the captured ones.  A capture that fails raises (``capture``);
+    ``calls`` counts the replays."""
+
+    def __init__(self, fn: Callable, args: Sequence[torch.Tensor]):
+        if device_of(args).type != "cuda":
+            raise ValueError("Replay captures a CUDA graph: it needs the card")
+        self.inputs = [a.clone() for a in args]
+        warm_up(fn, self.inputs, 1)
+        self.graph = capture(fn, self.inputs)
+        self.calls = 0
+
+    def __call__(self, *args: torch.Tensor):
+        for dst, src in zip(self.inputs, args):
+            dst.copy_(src)
+        self.graph.replay()
+        self.calls += 1
+        return tuple(t.clone() for t in self.graph.outputs)
+
+
 def make_loop_timer(fn: Callable, args: Sequence[torch.Tensor], *, graph: bool = True,
                     warmup: int = 3) -> Callable[[int], float]:
     """-> ``run(n)``, the ms per iteration of n runs of ``fn(*args)`` with
@@ -252,13 +292,7 @@ def make_loop_timer(fn: Callable, args: Sequence[torch.Tensor], *, graph: bool =
 
         return run_cpu
 
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        for _ in range(warmup):
-            fn(*args)
-    torch.cuda.current_stream(device).wait_stream(side)
-    torch.cuda.synchronize(device)
+    warm_up(fn, args, warmup)
     if graph:
         captured = capture(fn, args)
         step = captured.replay

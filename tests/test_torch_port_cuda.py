@@ -1053,3 +1053,187 @@ def test_cuda_eval_coco_matches_cpu(cuda_device, tmp_path):
     assert want["mAP"] > 0
     for k in want:
         assert abs(got[k] - want[k]) <= 1e-12, (k, got[k], want[k])
+
+
+# ---- the postprocess (codetr_torch/ops/nms.py), captured on the card ----
+
+SCORE_THRESHOLD = 0.1
+NMS_TYPES = ["nms", "soft_nms", "soft_nms_gaussian"]
+
+
+def postprocess_kwargs(nms_type, iou=None):
+    """The keyword arguments of ``postprocess_detections`` for one case (iou
+    0.5 for NMS, 0.8 for soft-NMS by default)."""
+    if iou is None:
+        iou = 0.5 if nms_type == "nms" else 0.8
+    return dict(score_threshold=SCORE_THRESHOLD, iou_threshold=iou, nms_type=nms_type, nms_sigma=0.5,
+                nms_min_score=1e-3)
+
+
+def postprocess_inputs(seed=0, n=300, num_classes=80):
+    """A served batch of 4 at Swin-L's ``max_per_img`` as float32 numpy
+    (boxes (4, n, 4), scores (4, n), labels (4, n) int32, scale factors (4,
+    1, 4)): boxes clustered and half the labels in 3 classes, so that
+    boxes suppress one another.  Image 0: every score below
+    SCORE_THRESHOLD.  Image 1: its last 40 rows -inf (padding).  Image 2:
+    scores on a 1/32 grid (ties across classes) and 30 pairs of boxes with
+    one label and one score each, 25 of them overlapping at IoU ~0.9 and 5
+    identical (ties within a class).  Image 3: coordinates 13x the others'
+    (1333 px), so a class offset taken over the batch would change the
+    other images' IoUs."""
+    rng = np.random.default_rng(seed)
+    size = np.array([100.0, 100.0, 100.0, 1333.0])[:, None, None]
+    centers = rng.uniform(0.1, 0.9, (4, 6, 2)) * size
+    pick = rng.integers(0, 6, (4, n))
+    c = np.take_along_axis(centers, pick[..., None], axis=1) + rng.normal(0, 0.01, (4, n, 2)) * size
+    wh = rng.uniform(0.15, 0.25, (4, n, 2)) * size
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], axis=-1)
+    scores = rng.uniform(SCORE_THRESHOLD, 1.0, (4, n))
+    labels = np.where(rng.random((4, n)) < 0.5, rng.integers(0, 3, (4, n)), rng.integers(0, num_classes, (4, n)))
+    scores[0] = rng.uniform(0.0, 0.9 * SCORE_THRESHOLD, n)
+    scores[1, -40:] = -np.inf
+    boxes[1, -40:] = 0.0
+    scores[2] = np.maximum(np.round(scores[2] * 32) / 32, SCORE_THRESHOLD)
+    for k in range(30):
+        a, b = 2 * k, 2 * k + 1
+        labels[2, b], scores[2, b] = labels[2, a], scores[2, a]
+        boxes[2, b] = boxes[2, a] + (0.0 if k < 5 else 0.5)
+    sf = np.tile(rng.uniform(0.5, 2.0, (4, 1, 2)), (1, 1, 2))
+    return (boxes.astype(np.float32), scores.astype(np.float32), labels.astype(np.int32),
+            sf.astype(np.float32))
+
+
+def tied_inputs(n=300, group=5):
+    """Every score 0.5 in two images of n/group far-apart groups of ``group``
+    nearly coincident boxes (IoU >= 0.8), one label a group; the second image
+    is the first in a shuffled row order.  -> boxes, scores, labels (int32)
+    and each image's first row of each group, the row that the first-index
+    tie rule keeps (NMS) or leaves at 0.5 (soft-NMS)."""
+    rng = np.random.default_rng(5)
+    groups = n // group
+    gid = np.repeat(np.arange(groups), group)
+    origin = np.stack([gid % 10 * 100.0, gid // 10 * 100.0], axis=-1) + rng.uniform(0, 1, (n, 2))
+    box = np.concatenate([origin, origin + 40.0], axis=-1)
+    label = gid % 7
+    perm = rng.permutation(n)
+    boxes = np.stack([box, box[perm]]).astype(np.float32)
+    labels = np.stack([label, label[perm]]).astype(np.int32)
+    firsts = np.zeros((2, n), bool)
+    for j, g in enumerate((gid, gid[perm])):
+        _, first = np.unique(g, return_index=True)
+        firsts[j, first] = True
+    return boxes, np.full((2, n), 0.5, np.float32), labels, firsts
+
+
+def postprocess_on(device, arrays, nms_type, iou=None):
+    """``postprocess_detections`` of numpy ``arrays`` on ``device``."""
+    from codetr_torch.ops.nms import postprocess_detections
+
+    boxes, scores, labels, sf = (torch.from_numpy(a).to(device) for a in arrays)
+    return postprocess_detections(boxes, scores, labels, scale_factor=sf, **postprocess_kwargs(nms_type, iou))
+
+
+def assert_postprocess_close(got, want):
+    """The parity ladder of the postprocess: keep masks and labels equal,
+    scores and boxes within 1e-6."""
+    (gb, gs, gl, gk), (wb, ws, wl, wk) = ([np.asarray(t.cpu() if torch.is_tensor(t) else t) for t in r]
+                                          for r in (got, want))
+    np.testing.assert_array_equal(gk, wk)
+    np.testing.assert_array_equal(gl, wl)
+    np.testing.assert_allclose(gs, ws, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(gb, wb, rtol=1e-6, atol=1e-6)
+
+
+def captured_postprocess(args, nms_type):
+    """The postprocess captured over on-card ``args`` (``aot.Replay``)."""
+    from codetr_torch.ops.nms import postprocess_detections
+    from codetr_torch.runtime.aot import Replay
+
+    kw = postprocess_kwargs(nms_type)
+    return Replay(lambda b, s, l, sf: postprocess_detections(b, s, l, scale_factor=sf, **kw), args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nms_type", NMS_TYPES)
+def test_cuda_captured_postprocess_never_syncs(cuda_device, nms_type):
+    """The postprocess at bs 4, N 300, eager and then captured and replayed,
+    under ``torch.cuda.set_sync_debug_mode("error")``: no host read and no
+    host-to-device copy; the replay's results equal the eager call's."""
+    from codetr_torch.ops.nms import postprocess_detections
+
+    args = tuple(torch.from_numpy(a).to(cuda_device) for a in postprocess_inputs())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = postprocess_detections(*args[:3], scale_factor=args[3], **postprocess_kwargs(nms_type))
+        got = captured_postprocess(args, nms_type)(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g, e in zip(got, eager):
+        assert torch.equal(g, e)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nms_type", NMS_TYPES)
+def test_cuda_captured_postprocess_equals_eager(cuda_device, nms_type):
+    """Replays of the captured postprocess equal the eager call bit for bit
+    (the same kernels in the same order), twice on other inputs and once
+    more on the first (the static buffers are refilled each call), and the
+    CPU within the parity ladder."""
+    arrays = postprocess_inputs()
+    other = postprocess_inputs(seed=1)
+    replay = captured_postprocess([torch.from_numpy(x).to(cuda_device) for x in arrays], nms_type)
+    for a in (other, arrays, other):
+        args = [torch.from_numpy(x).to(cuda_device) for x in a]
+        got = replay(*args)
+        eager = postprocess_on(cuda_device, a, nms_type)
+        for g, e in zip(got, eager):
+            assert torch.equal(g, e)
+        assert_postprocess_close(got, postprocess_on("cpu", a, nms_type))
+    assert replay.calls == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nms_type", NMS_TYPES)
+def test_cuda_tied_scores_take_the_first_index(cuda_device, nms_type):
+    """Equal scores resolve to the first index on the card, eager and
+    captured, as on the CPU (JAX's argsort and argmax): NMS keeps each
+    group's first row, soft-NMS leaves it at 0.5 and decays the rest."""
+    boxes, scores, labels, firsts = tied_inputs()
+    sf = np.ones((2, 1, 4), np.float32)
+    arrays = (boxes, scores, labels, sf)
+    cpu = postprocess_on("cpu", arrays, nms_type)
+    eager = postprocess_on(cuda_device, arrays, nms_type)
+    args = [torch.from_numpy(x).to(cuda_device) for x in arrays]
+    for got in (eager, captured_postprocess(args, nms_type)(*args)):
+        assert_postprocess_close(got, cpu)
+        keep, s = got[3].cpu().numpy(), got[1].cpu().numpy()
+        if nms_type == "nms":
+            np.testing.assert_array_equal(keep, firsts)
+        else:
+            assert np.all(s[firsts] == 0.5) and np.all(s[~firsts] < 0.5)
+
+
+@pytest.mark.gpu
+def test_cuda_inferencer_batches_keep_their_own_detections(cuda_device):
+    """One ``Inferencer`` call over 9 images at batch 4 (three batches, the
+    last padded) returns what three separate calls return: each replay's
+    outputs are copied out before the next replay overwrites them.  One
+    captured program serves all six batches."""
+    from codetr_torch import build_codetr, tiny_test_config
+    from codetr_torch.inferencer import Inferencer
+
+    model = build_codetr(tiny_test_config(), device=cuda_device, seed=3)
+    inf = Inferencer(model, height=128, width=128, batch_size=4, device=cuda_device)
+    rng = np.random.default_rng(6)
+    images = [rng.integers(0, 256, (int(rng.integers(64, 200)), int(rng.integers(64, 200)), 3), np.uint8)
+              for _ in range(9)]
+    together = inf(images)
+    apart = inf(images[:4]) + inf(images[4:8]) + inf(images[8:])
+    assert len(together) == len(apart) == 9
+    for g, w in zip(together, apart):
+        for f in ("boxes", "scores", "labels", "keep"):
+            np.testing.assert_array_equal(getattr(g, f), getattr(w, f))
+    assert not all(np.array_equal(together[0].scores, d.scores) for d in together[1:])
+    (program,) = inf.postprocess_programs.values()
+    assert program.calls == 6
