@@ -112,8 +112,22 @@ Phases (any failure raises, and the script exits non-zero without a result):
    plumbing: mAP = AR_100 = 1); then the JAX script's defaults (bf16,
    soft-NMS, batch 4; 12 forward-kernel launches a batch) twice over 100
    images (25 full batches) against ground truth at COCO val2017's density,
-   with images per second, seconds per part and peak memory; then the
-   ``kernels`` line and, last, the result line.
+   with images per second, seconds per part and peak memory;
+9. checkpoint day (``codetr_torch.tools.rehearsal`` at the JAX
+   ``tools/rehearsal.py``'s defaults, Swin-L 608x608, 2 images): a seed-0
+   fp32 writer on the host with trained-like sampling offsets written as a
+   ``.pth`` (numpy values in its meta), read by a bf16 reader on the card
+   and scored against the writer (12 forward-kernel launches a forward;
+   ``pass``, box IoU p50 >= 0.9, reported beside the fp32 writer's own
+   scores on bf16-rounded inputs and weights), the staged share of its
+   encoder taps per layer beside seed 0's and its exported forward's
+   replay times; an fp32 reader of the same file against the writer on the
+   ladder (scores 2e-4, boxes 0.1 px set-wise; where a near-tied proposal
+   changed rank between the devices, ``compare_models``' 1e-3 and 0.5 px);
+   K1 against its plain version on
+   the first encoder layer's taps of seed 0's model and of offset drift 1.0
+   and 2.0, timed, with their staged shares; then the ``kernels`` line and,
+   last, the result line.
 
 The script leaves PyTorch's TF32 flags at their defaults (printed at the
 start), as a user's process has them: the port's fp32 forward and train
@@ -149,7 +163,7 @@ from codetr_torch.ops import hungarian, msda, msda_grid, msda_tiles
 from codetr_torch.parallel import losses as losses_module
 from codetr_torch.parallel.losses import dino_detection_loss, matching_problems
 from codetr_torch.parallel.train import adamw, make_train_step, run_in_dtype
-from codetr_torch.tools import trainbench
+from codetr_torch.tools import rehearsal, trainbench
 from codetr_torch.ops.nms import postprocess_detections
 from codetr_torch.runtime.aot import DTYPES, Replay, compile_forward, load_executable, msda_nodes, save_executable
 from codetr_torch.utils.preprocess import preprocess
@@ -176,6 +190,11 @@ CONFIG = co_dino_swin_l
 # FLOP/s outside the tensor cores (the kernel's FMAs run on the CUDA cores)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+# a full-width model on the card against the CPU (``compare_models``): the
+# decoder starts from the top-900 encoder proposals, and a near-tied one can
+# differ between the devices, which moves every query a little through the
+# decoder's self-attention; scores, boxes px
+MODEL_SCORE_TOL, MODEL_BOX_TOL = 1e-3, 0.5
 
 
 def fail(msg: str) -> None:
@@ -1210,15 +1229,15 @@ def compare_models(cfg, shape_hw, stamp, label="Swin-L"):
     for b, lab in zip(cb, cl):
         cand = np.where((gl == lab) & ~used)[0]
         d = np.abs(gb[cand] - b).max(axis=1) if len(cand) else np.array([np.inf])
-        if d.min() > 0.5:
+        if d.min() > MODEL_BOX_TOL:
             unmatched += 1
             continue
         used[cand[np.argmin(d)]] = True
     print(f"{label} {h}x{w} card vs CPU: features rel err {feat_err:.3e}, encoder memory "
           f"{mem_err:.3e}, encoder class logits {cls_err:.3e} (tol 2e-4 each); "
-          f"{k - shared}/{k} top-k proposals differ; scores err {score_err:.3e} (tol 1e-3), "
-          f"unmatched boxes {unmatched}/{len(cb)} at 0.5 px (tol {len(cb) // 100}) [{stamp}]")
-    if (max(feat_err, mem_err, cls_err) > 2e-4 or score_err > 1e-3
+          f"{k - shared}/{k} top-k proposals differ; scores err {score_err:.3e} (tol {MODEL_SCORE_TOL}), "
+          f"unmatched boxes {unmatched}/{len(cb)} at {MODEL_BOX_TOL} px (tol {len(cb) // 100}) [{stamp}]")
+    if (max(feat_err, mem_err, cls_err) > 2e-4 or score_err > MODEL_SCORE_TOL
             or unmatched > len(cb) // 100):
         fail("the model on the card disagrees with the CPU reference")
 
@@ -1613,7 +1632,6 @@ def encoder_stage(cfg, image, stamp, reps=3):
     that the tiled encoder kernel serves from shared memory (the staged
     share; at least 0.7 overall).  Returns the per-layer out-of-envelope
     counts and staged shares, the launches and both impls' times."""
-    from codetr_torch.models import msda_module
     from codetr_torch.models.transformer import DetrTransformerEncoder
     from codetr_torch.utils.preprocess import preprocess
 
@@ -1635,19 +1653,9 @@ def encoder_stage(cfg, image, stamp, reps=3):
         launches = {"msda_shift_fwd": msda.launches_shift, "msda_qm_fwd": msda.launches_qm,
                     "msda_fwd": msda.launches}
         layer_counts = list(counts)
-        shares, packed = [], msda_module.msda_grid_packed
-
-        def capture(value, shapes, cpk, points):  # the layer's taps under its tile plan
-            plan = msda_tiles.encoder_tile_plan(shapes, value.dtype, head_dim=value.shape[3])
-            shares.append(msda_tiles.staged_share(
-                plan, *msda._unpack(cpk, value.shape[2], len(shapes), points)))
-            return packed(value, shapes, cpk, points)
-
-        msda_module.msda_grid_packed = capture
-        try:
+        with rehearsal.capture_encoder_taps() as calls:  # each layer's taps under its tile plan
             mem_auto = tf.encode(feats, masks, pos)[0]
-        finally:
-            msda_module.msda_grid_packed = packed
+        shares = [c["share"] for c in calls]
         err = rel_to_scale(mem_grid, mem_auto)
         times = {}
         for impl, enc in (("grid_pallas", grid_enc), ("auto", None)):
@@ -2103,18 +2111,18 @@ def write_instances(path, names, sizes, anns):
     return path
 
 
-def unmatched_detections(got, want):
+def unmatched_detections(got, want, score_tol=SCORE_TOL, box_tol=BOX_TOL):
     """Greedy set-wise match of two images' detections: each of ``want``'s
     (highest score first) to an unused one of ``got`` with its label, its
-    score within SCORE_TOL and the nearest box -> (unmatched count, the
+    score within ``score_tol`` and the nearest box -> (unmatched count, the
     largest box difference among the matched, px)."""
     used = np.zeros(len(got["scores"]), bool)
     unmatched, worst = 0, 0.0
     for j in np.argsort(-want["scores"], kind="stable"):
         cand = np.nonzero((got["labels"] == want["labels"][j]) & ~used
-                          & (np.abs(got["scores"] - want["scores"][j]) <= SCORE_TOL))[0]
+                          & (np.abs(got["scores"] - want["scores"][j]) <= score_tol))[0]
         d = np.abs(got["boxes"][cand] - want["boxes"][j]).max(axis=1) if len(cand) else np.array([np.inf])
-        if d.min() > BOX_TOL:
+        if d.min() > box_tol:
             unmatched += 1
             continue
         used[cand[np.argmin(d)]] = True
@@ -2262,6 +2270,182 @@ def eval_phase(tmp, stamp):
               f"peak memory allocated {r3['peak_bytes'] / 2**30:.3f} GiB; forward-kernel launches "
               f"{r3['launches'][0]} ({r3['launches'][0] // batches} a batch) [{stamp}]")
     return results
+
+
+REHEARSAL_HW = (608, 608)  # the JAX tools/rehearsal.py's default size
+REHEARSAL_SCALES = (1.0, 2.0)  # the offset drift of the rehearsal's file, and twice it
+
+
+def rehearsal_taps(model, cal_x):
+    """The staged share of each encoder layer's taps (``share_summary``)
+    and the first layer's taps, on the rehearsal's calibration batch."""
+    with rehearsal.capture_encoder_taps(keep=1) as calls:
+        rehearsal.detections(model, list(cal_x), torch.device(DEVICE))
+    return rehearsal.share_summary(calls), calls[0]["taps"]
+
+
+def rounding_controls(reader, detail):
+    """How far bf16 rounding alone moves this checkpoint's detections: the
+    fp32 reader (the writer's function) in fp32 compute on the images
+    rounded to bf16, then with its weights rounded to bf16 on the images as
+    they are, each scored as the rehearsal scores its reader (box IoU
+    p50 / min, mAP against the writer's ground truth).  Leaves the reader's
+    weights rounded."""
+    from codetr_torch.utils.coco_eval import evaluate_detections
+
+    def score(dets):
+        preds = [{"boxes": b, "scores": s, "labels": l} for b, s, l, _ in dets]
+        ious = rehearsal.box_match_ious(detail["ground_truth"], preds)
+        return {"box_match_iou_p50": float(np.median(ious)), "box_match_iou_min": float(ious.min()),
+                "mAP": evaluate_detections(preds, detail["ground_truth"], detail["cfg"].head.num_classes)["mAP"]}
+
+    dev = torch.device(DEVICE)
+    rounded = [torch.from_numpy(im).bfloat16().float().numpy() for im in detail["images"]]
+    out = {"inputs": score(rehearsal.detections(reader, rounded, dev))}
+    with torch.no_grad():
+        for t in reader.state_dict().values():
+            if t.is_floating_point():
+                t.copy_(t.bfloat16().float())
+    out["weights"] = score(rehearsal.detections(reader, detail["images"], dev))
+    return out
+
+
+def rehearsal_phase(tmp, seed0, stamp):
+    """Checkpoint day (``codetr_torch.tools.rehearsal`` at the JAX tool's
+    defaults): the Swin-L writer (seed 0, fp32, on the host) with offsets
+    drifted at scale 1.0, written as a ``.pth`` with numpy values in its
+    meta, read by a bf16 reader on the card (another init seed) and scored
+    against the writer's top-20: 12 forward-kernel launches a forward (the
+    launch counts set to 0 just before the reader's forwards and read just
+    after) and finite detections of the right shapes are gated; ``pass``
+    (box IoU p50 >= 0.9) is printed beside ``rounding_controls`` (the
+    writer's function in fp32 on bf16-rounded inputs, then weights), the
+    staged share per layer beside seed 0's (``encoder_stage``), the
+    replays' p50 / p95 / min.  Then an fp32 reader of the same file on the
+    same images against the writer: on the ladder (scores 2e-4, index by
+    index and set-wise with boxes 0.1 px; at most 1% unmatched) where both
+    decoders started from the same proposals at the same ranks, else at
+    ``compare_models``' tolerance (a near-tied proposal that swaps ranks
+    gives its query another content embedding), with its
+    ``ap_vs_writer``.  Then K1 on the first encoder layer's own taps of
+    the calibration batch, fp32 models: seed 0's (no drift), the file's
+    (scale 1.0) and scale 2.0's, each held against the plain version
+    (``check_kernel``), timed in fp32 and bf16 beside its plain version and
+    bound, with each model's staged share (reported, not gated)."""
+    from codetr_torch.utils.coco_eval import evaluate_detections
+
+    h, w = REHEARSAL_HW
+    t0 = time.perf_counter()
+    record, detail = rehearsal.rehearse(rehearsal.parse_args(
+        ["--height", str(h), "--width", str(w), "--out", os.path.join(tmp, "rehearsal.pth")]))
+    torch.cuda.empty_cache()
+    cfg, n_img = detail["cfg"], record["images"]
+    print(f"rehearsal record: {json.dumps(record)}")
+    per_forward = launches_per_forward(cfg)
+    la, lat, share = record["msda_launches"], record["latency_ms"], record["staged_share"]
+    print(f"rehearsal Swin-L {h}x{w} {record['dtype']} reader of a seed-{SEED} fp32 writer's .pth (offset scale "
+          f"{record['offset_scale']}): pass {record['pass']}, box IoU p50 {record['box_match_iou_p50']:.6f}, min "
+          f"{record['box_match_iou_min']:.6f}, mAP {record['ap_vs_writer']['mAP']:.4f}, top-k proposals shared "
+          f"with the writer {[round(x, 6) for x in record['proposals_shared']]}, at the same rank "
+          f"{[round(x, 6) for x in record['proposals_in_place']]}; forward launches "
+          f"{la['forward']} over {n_img} forwards (q-minor {la['q_minor']}, backward {la['backward']}); the "
+          f"exported forward replayed p50 {lat['p50']:.3f} ms, p95 {lat['p95']:.3f}, min {lat['min']:.3f} "
+          f"[{stamp}]")
+    print(f"rehearsal staged share ({record['dtype']} plan, {h}x{w}, the calibration batch) per layer "
+          f"{[round(x, 6) for x in share['per_layer']]}, overall {share['overall']:.6f}; seed {SEED}'s "
+          f"(encoder_stage, fp32 plan, {HEIGHT}x{WIDTH}, an image) "
+          f"{[round(x, 6) for x in seed0['staged_share_per_layer']]}, overall {seed0['staged_share']:.6f} [{stamp}]")
+    if (la["forward"], la["q_minor"], la["backward"]) != (per_forward * n_img, 0, 0):
+        fail(f"the rehearsal's bf16 reader launched {la}, not {per_forward} forward kernels a forward")
+    n_det = cfg.head.max_per_img
+    for b, s, _, _ in detail["reader"]:
+        if b.shape != (n_det, 4) or s.shape != (n_det,) or not (np.isfinite(b).all() and np.isfinite(s).all()):
+            fail(f"the rehearsal's reader gave boxes {b.shape}, scores {s.shape} or non-finite values")
+
+    # the fp32 reader of the same file, on the same images, against the writer
+    reader = build_codetr(cfg, detail["pth"], dtype=torch.float32, device=DEVICE, seed=detail["reader_seed"])
+    msda.launches = 0
+    dets = rehearsal.detections(reader, detail["images"], torch.device(DEVICE))
+    launches = msda.launches
+    # the ladder where both devices took the same top-900 proposals at the
+    # same ranks; where near-tied ones differ or swap ranks, compare_models'
+    # tolerance for full-width models
+    ladder = []
+    for (gb, gs, gl, _), (wb, ws, wl, _), shared, in_place in zip(
+            dets, detail["writer"], rehearsal.proposals_shared(dets, detail["writer"]),
+            rehearsal.proposals_in_place(dets, detail["writer"])):
+        score_tol, box_tol = (SCORE_TOL, BOX_TOL) if in_place == 1 else (MODEL_SCORE_TOL, MODEL_BOX_TOL)
+        unmatched, worst = unmatched_detections({"boxes": gb, "scores": gs, "labels": gl},
+                                                {"boxes": wb, "scores": ws, "labels": wl}, score_tol, box_tol)
+        strict = unmatched_detections({"boxes": gb, "scores": gs, "labels": gl},
+                                      {"boxes": wb, "scores": ws, "labels": wl})[0]
+        ladder.append({"proposals_shared": shared, "proposals_in_place": in_place,
+                       "score_err": float(np.abs(gs - ws).max()), "score_tol": score_tol, "box_tol": box_tol,
+                       "unmatched": unmatched, "worst_px": worst,
+                       "unmatched_on_the_ladder": strict, "n": len(ws)})
+    ap32 = evaluate_detections([{"boxes": b, "scores": s, "labels": l} for b, s, l, _ in dets],
+                               detail["ground_truth"], cfg.head.num_classes)
+    for i, r in enumerate(ladder):
+        print(f"rehearsal fp32 reader on the card against the fp32 writer on the host, image {i}: top-k proposals "
+              f"shared {r['proposals_shared']:.6f}, at the same rank {r['proposals_in_place']:.6f}; score error "
+              f"{r['score_err']:.3e} (tol {r['score_tol']}), "
+              f"unmatched {r['unmatched']} of {r['n']} at {r['box_tol']} px (tol {max(1, r['n'] // 100)}), largest "
+              f"matched box difference {r['worst_px']:.6f} px; on the ladder (scores {SCORE_TOL}, boxes {BOX_TOL} "
+              f"px) {r['unmatched_on_the_ladder']} unmatched [{stamp}]")
+    print(f"rehearsal fp32 reader: ap_vs_writer {json.dumps(ap32)}; forward launches {launches} [{stamp}]")
+    if any(r["score_err"] > r["score_tol"] or r["unmatched"] > max(1, r["n"] // 100) for r in ladder) \
+            or launches != per_forward * n_img:
+        fail("the fp32 reader on the card disagrees with the writer")
+
+    # K1 on the first encoder layer's own taps: seed 0's, the file's, scale 2.0's
+    base = build_codetr(cfg, device="cpu", seed=SEED)
+    sd0 = {k: v.numpy().copy() for k, v in base.state_dict().items()}
+    base = base.to(DEVICE)
+    runs = {"seed 0": rehearsal_taps(base, detail["cal_x"]), f"scale {REHEARSAL_SCALES[0]}":
+            rehearsal_taps(reader, detail["cal_x"])}
+    controls = rounding_controls(reader, detail)
+    del reader
+    print(f"rehearsal controls, the fp32 reader (the writer's function: the ladder above) in fp32 compute against "
+          f"the writer's ground truth, with only its inputs rounded to bf16: {json.dumps(controls['inputs'])}; "
+          f"with only its weights rounded to bf16: {json.dumps(controls['weights'])}; the bf16 reader: box IoU "
+          f"p50 {record['box_match_iou_p50']:.6f}, min {record['box_match_iou_min']:.6f}, mAP "
+          f"{record['ap_vs_writer']['mAP']:.6f}; pass (box IoU p50 >= {rehearsal.PASS_IOU}) reported, not gated "
+          f"[{stamp}]")
+    for scale in REHEARSAL_SCALES[1:]:
+        sd = rehearsal.perturb_offsets(dict(sd0), scale, SEED)
+        base.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
+        runs[f"scale {scale}"] = rehearsal_taps(base, detail["cal_x"])
+    del base, sd0
+    k1 = {}
+    for name, (shares, (value, shapes, cpk, P)) in runs.items():
+        K, heads = value.shape[1], value.shape[2]
+        errs = check_kernel(
+            f"K1 on the rehearsal's {name} taps {h}x{w} (first encoder layer, Q={K})", value,
+            lambda v: msda.msda_grid_packed(v, shapes, cpk, P),
+            lambda v: msda.msda_grid_packed_plain(v, shapes, cpk, P), stamp)
+        x, y, wt = msda._unpack(cpk, heads, len(shapes), P)
+        b_ms, b_by, nbytes, flops = bound_ms(value, shapes, torch.stack([x, y], -1), wt, torch.float32)
+        vb = value.to(torch.bfloat16)
+        r = k1[name] = {
+            "ms": cuda_ms(functools.partial(msda.msda_grid_packed, value, shapes, cpk, P), 20),
+            "ms_bf16": cuda_ms(functools.partial(msda.msda_grid_packed, vb, shapes, cpk, P), 20),
+            "plain_ms": cuda_ms(functools.partial(msda.msda_grid_packed_plain, value, shapes, cpk, P), 3),
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": errs["max_abs_err_fp32"],
+            "max_abs_err_bf16": errs["max_abs_err_bf16"], "staged_share_first_layer": shares["per_layer"][0],
+            "staged_share_per_layer": shares["per_layer"], "staged_share": shares["overall"],
+        }
+        print(f"K1 on the rehearsal's {name} taps {h}x{w}: {r['ms']:.4f} ms/call fp32, {r['ms_bf16']:.4f} bf16, "
+              f"plain {r['plain_ms']:.4f}, bound {b_ms:.4f} ms ({b_by}); staged share (fp32 plan) first layer "
+              f"{r['staged_share_first_layer']:.6f}, per layer {[round(x, 6) for x in shares['per_layer']]}, "
+              f"overall {r['staged_share']:.6f} [{stamp}]")
+        del value, cpk, vb
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    print(f"rehearsal phase {wall:.1f} s wall (write {record['synthesize_s']:.1f}, convert "
+          f"{record['convert_s']:.1f}, share {record['calibrate_s']:.1f}, serve {record['serve_s']:.1f}, export "
+          f"and timing {record['time_s']:.1f}) [{stamp}]")
+    return {"record": record, "fp32_ladder": ladder, "fp32_ap": ap32, "fp32_launches": launches, "k1": k1,
+            "controls": controls}
 
 
 def main() -> int:
@@ -2592,7 +2776,11 @@ def main() -> int:
         evaluation = eval_phase(tmp, stamp)
         wall["eval_coco"] = time.perf_counter() - t0
     print("deployment phases, wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
-    phase_s["deployment"] = time.perf_counter() - t_phase
+    phase_s["deployment"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
+    # 9. checkpoint day: the rehearsal
+    with tempfile.TemporaryDirectory() as tmp:
+        rehearsed = rehearsal_phase(tmp, enc_stage, stamp)
+    phase_s["rehearsal"] = time.perf_counter() - t_phase
     print("phases, wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     tc = cfg.head.transformer
@@ -2624,7 +2812,14 @@ def main() -> int:
         "launches_fused_inferencer": fused["launches"],
         # eval_coco's pass 3 (the JAX script's defaults), over its served batches
         "launches_eval_coco": evaluation["pass 3 (1)"]["launches"][0],
+        # the checkpoint rehearsal's bf16 reader (the counts set to 0 before
+        # its forwards), its fp32 reader, and K1 on the first encoder layer's
+        # taps of seed 0's, the file's and the scale-2.0 model
+        "launches_rehearsal": rehearsed["record"]["msda_launches"]["forward"],
+        "launches_rehearsal_fp32": rehearsed["fp32_launches"],
+        "rehearsal_taps": rehearsed["k1"],
         "staged_share": {"microbenchmark": bench_share["fwd"], "swin_l_encoder": enc_stage["staged_share"],
+                         "rehearsal_bf16_reader": rehearsed["record"]["staged_share"]["overall"],
                          "tile_adversarial": {k: r["staged_share"] for k, r in adversarial.items()}},
         "max_abs_err_tile_adversarial": {k: r["fwd"] for k, r in adversarial.items()},
         "card": stamp,

@@ -164,8 +164,9 @@ def build_codetr(
     """Build the model with seeded random weights, in eval mode, on
     ``device`` (CUDA by default; raises if there is no card) in ``dtype``.
     ``weights``: an mmdet ``.pth`` loaded over them
-    (``utils.checkpoint.load_torch_checkpoint``; keys it lacks keep their
-    init, and the report names them).  ``msda_impl`` goes to every MSDA
+    (``utils.checkpoint.load_torch_checkpoint``, which raises ``KeyError``
+    on a file that lacks a key of the model, so every weight comes from the
+    file).  ``msda_impl`` goes to every MSDA
     layer; the grid impls raise in the decoder, as the JAX package's
     ``build_codetr`` does."""
     device = check_device(device)
@@ -174,5 +175,5 @@ def build_codetr(
         from codetr_torch.utils.checkpoint import load_torch_checkpoint
 
         sd = load_torch_checkpoint(weights, cfg)
-        model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=False)
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
     return model.to(device=device, dtype=dtype).eval()

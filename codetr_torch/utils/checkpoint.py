@@ -325,7 +325,9 @@ def load_torch_checkpoint(path: str, cfg: CoDETRConfig, *, convert_swin_original
     ignored and BatchNorm's ``num_batches_tracked`` dropped (the port's
     frozen BatchNorm has none); relative-position-bias tables are resized
     to the config's window.  The load report names missing and unexpected
-    keys."""
+    keys; then a key of the model (``model_key_shapes``) that the file lacks
+    raises ``KeyError`` naming it, as the JAX package's conversion does, so
+    the result holds exactly the model's keys."""
     from codetr_torch.utils.logging import log_load_report
 
     ckpt = _read(path)
@@ -348,6 +350,9 @@ def load_torch_checkpoint(path: str, cfg: CoDETRConfig, *, convert_swin_original
         out[k] = v
     missing = [k for k in expected if k not in out]
     log_load_report(len(out), missing, unexpected, path)
+    if missing:
+        raise KeyError(f"{path} lacks {len(missing)} of the model's keys: {', '.join(missing[:5])}"
+                       + (" ..." if len(missing) > 5 else ""))
     return out
 
 

@@ -49,7 +49,7 @@ def log_load_report(matched: int, missing: Iterable[str], unexpected: Iterable[s
     missing, unexpected = list(missing), list(unexpected)
     logger.info("loaded %d params from %s", matched, source)
     if missing:
-        logger.warning("missing %d keys (kept at init): %s%s", len(missing),
+        logger.warning("missing %d keys: %s%s", len(missing),
                        ", ".join(missing[:5]), " ..." if len(missing) > 5 else "")
     if unexpected:
         logger.warning("unexpected %d checkpoint keys (ignored): %s%s", len(unexpected),

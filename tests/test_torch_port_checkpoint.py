@@ -1,16 +1,19 @@
 """The port's mmdet ``.pth`` loading against the JAX package's.
 
 Each ``.pth`` is written by the test itself: the torch oracle's tiny Swin
-model with trained-like sampling offsets and a ``meta.dataset_meta`` (as
-``tools/rehearsal.py`` writes one), and a narrow R50 whose BatchNorms carry
+model with trained-like sampling offsets (the rehearsal's
+``perturb_offsets``, held bit for bit against ``tools/rehearsal.py``'s by
+``test_torch_port_rehearsal.py``) and a ``meta.dataset_meta``, and a narrow R50 whose BatchNorms carry
 ``num_batches_tracked``.  The port's ``load_torch_checkpoint`` must give,
 key for key and bit for bit, ``state_dict_from_jax`` of the JAX
 ``load_torch_checkpoint``; ``swin_original_to_mmdet``,
 ``resize_bias_table`` and ``get_dataset_meta`` must equal the JAX
-functions.
+functions.  A file that lacks a key of the model raises ``KeyError`` in
+both packages.
 """
 
 import logging
+import re
 
 import numpy as np
 import pytest
@@ -20,6 +23,7 @@ from codetr_tpu.config import tiny_test_config as jax_tiny_test_config
 from codetr_tpu.utils import checkpoint as jax_checkpoint
 from codetr_torch.config import tiny_test_config
 from codetr_torch.models.codetr import build_codetr
+from codetr_torch.tools.rehearsal import perturb_offsets
 from codetr_torch.utils import checkpoint
 from codetr_torch.utils.checkpoint import state_dict_from_jax
 from codetr_torch.utils.logging import get_logger
@@ -28,19 +32,6 @@ from test_torch_port_model import perturbed_jax_params
 from test_torch_port_r50 import H as R50_HW
 from test_torch_port_r50 import narrow_r50_configs
 from torch_oracle import TorchCoDETR, init_oracle, oracle_state_dict_numpy
-
-
-def perturb_offsets(sd, scale, seed):
-    """Trained-like sampling offsets (``tools/rehearsal.py:perturb_offsets``):
-    the grid bias scaled and jittered, small nonzero projection weights."""
-    rng = np.random.default_rng(seed)
-    for k in [k for k in sd if "sampling_offsets" in k]:
-        v = sd[k]
-        if k.endswith(".bias"):
-            sd[k] = (v * scale + rng.normal(0, 0.25 * scale, v.shape)).astype(v.dtype)
-        else:
-            sd[k] = rng.normal(0, 0.3 * scale / np.sqrt(v.shape[1]), v.shape).astype(v.dtype)
-    return sd
 
 
 def save_pth(path, sd, wrapper="state_dict", meta=None, prefix=""):
@@ -263,3 +254,25 @@ def test_pth_naming_another_global_is_refused(payload, tmp_path):
     with pytest.raises(pickle.UnpicklingError):
         checkpoint.get_dataset_meta(path)
     assert not marker.exists()
+
+
+@pytest.mark.parametrize("key", [
+    "query_head.transformer.decoder.layers.1.attentions.1.sampling_offsets.bias",
+    "backbone.stages.1.blocks.0.attn.w_msa.qkv.weight",
+], ids=["decoder_msda", "swin"])
+def test_missing_key_raises_like_jax(key, tmp_path):
+    """A ``.pth`` that lacks one key of the model: the JAX loader raises
+    ``KeyError`` (its conversion reads every key), and so do the port's
+    ``load_torch_checkpoint`` and ``build_codetr``, naming the key; the
+    port no longer serves the key at its seeded init."""
+    model = build_codetr(tiny_test_config(), device="cpu", seed=0)
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    assert key in sd
+    del sd[key]
+    path = save_pth(tmp_path / "holed.pth", sd)
+    with pytest.raises(KeyError, match=re.escape(key)):
+        jax_checkpoint.load_torch_checkpoint(path, jax_tiny_test_config())
+    with pytest.raises(KeyError, match=re.escape(key)):
+        checkpoint.load_torch_checkpoint(path, tiny_test_config())
+    with pytest.raises(KeyError, match=re.escape(key)):
+        build_codetr(tiny_test_config(), path, device="cpu", seed=0)

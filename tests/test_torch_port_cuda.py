@@ -1237,3 +1237,41 @@ def test_cuda_inferencer_batches_keep_their_own_detections(cuda_device):
     assert not all(np.array_equal(together[0].scores, d.scores) for d in together[1:])
     (program,) = inf.postprocess_programs.values()
     assert program.calls == 6
+
+
+def unmatched_boxes(got, want, box_tol=0.1):
+    """Greedy set-wise match: each of ``want``'s (boxes, labels) to an unused
+    one of ``got`` with its label within ``box_tol`` px -> unmatched count."""
+    (gb, gl), (wb, wl) = got, want
+    used = np.zeros(len(gb), bool)
+    unmatched = 0
+    for b, lab in zip(wb, wl):
+        cand = np.nonzero((gl == lab) & ~used)[0]
+        d = np.abs(gb[cand] - b).max(axis=1) if len(cand) else np.array([np.inf])
+        if d.min() > box_tol:
+            unmatched += 1
+            continue
+        used[cand[np.argmin(d)]] = True
+    return unmatched
+
+
+@pytest.mark.gpu
+def test_cuda_rehearsal_tiny_fp32_matches_cpu(cuda_device, tmp_path):
+    """The tiny rehearsal on the card in fp32 at 128x128: ``pass``, the
+    forward kernel launched once per MSDA layer (2 + 2) and image, the
+    exported forward timed; its reader's detections against the same
+    reader on the CPU (scores 2e-4, boxes 0.1 px set-wise)."""
+    from codetr_torch import build_codetr, tiny_test_config
+    from codetr_torch.tools import rehearsal
+
+    record, detail = rehearsal.rehearse(rehearsal.parse_args(
+        ["--config", "tiny", "--dtype", "float32", "--height", "128", "--width", "128", "--trials", "2",
+         "--out", str(tmp_path / "tiny.pth")]))
+    assert record["pass"] and record["device"] == "cuda"
+    assert (record["msda_launches"]["forward"], record["msda_launches"]["backward"]) == (4 * record["images"], 0)
+    assert record["latency_ms"]["p50"] > 0
+    cpu = build_codetr(tiny_test_config(), detail["pth"], device="cpu", seed=detail["reader_seed"])
+    for (gb, gs, gl, _), (cb, cs, cl, _) in zip(detail["reader"],
+                                          rehearsal.detections(cpu, detail["images"], torch.device("cpu"))):
+        assert np.abs(gs - cs).max() < 2e-4
+        assert unmatched_boxes((gb, gl), (cb, cl)) <= max(1, len(cb) // 100)
