@@ -71,7 +71,15 @@ Phases (any failure raises, and the script exits non-zero without a result):
    at a batch that does not fit the card without it, checking that each
    step launched the forward and the backward kernel 12 times each and that
    the loss stays finite, and that each step launched the matching kernel
-   twice; then ``dino_detection_loss`` at the Swin-L 608x608 shapes (batch
+   twice; then the same step at batch 1, without and with ``with_cp``,
+   captured in one CUDA graph (``parallel.train.capture_train_step``, AdamW
+   with ``capturable=True``) beside an eager twin of the same seed and
+   optimizer: 3 replays against 3 eager steps (the losses and every
+   parameter, gradient and AdamW state tensor), the replays' times between
+   CUDA events, one traced replay's kernels by name (K1 and K2 once per
+   encoder layer, the decoder's entries once per decoder layer, the
+   matching twice: the host counters count only at capture) and the peak
+   memory with the graph's pool; then ``dino_detection_loss`` at the Swin-L 608x608 shapes (batch
    2) under ``torch.cuda.set_sync_debug_mode("error")`` (no host
    synchronisation; 2 matching launches), one bf16-compute step over fp32
    weights on the card against the CPU's at a small input (each device's
@@ -82,7 +90,8 @@ Phases (any failure raises, and the script exits non-zero without a result):
    ``codetr_torch.tools.trainbench --gradcheck`` (the JAX
    ``tools/trainbench.py``: the production MSDA gradient against autograd
    of the plain one at 320x320, then Swin-L 608x608 bf16 fwd, fwd+bwd and
-   step times, peak memory, the matching's time a step);
+   step times, each stage replayed as one captured CUDA graph (the JAX
+   keys) and as eager calls, peak memory, the matching's time a step);
 7. time the kernels, their plain versions (the tiled entries also beside
    the direct-gather design on the same taps, with those taps' staged
    share; K3 beside packing its coordinates for K1 and running K1), the
@@ -162,12 +171,13 @@ from codetr_torch.ops import _build
 from codetr_torch.ops import hungarian, msda, msda_grid, msda_tiles
 from codetr_torch.parallel import losses as losses_module
 from codetr_torch.parallel.losses import dino_detection_loss, matching_problems
-from codetr_torch.parallel.train import adamw, make_train_step, run_in_dtype
+from codetr_torch.parallel.train import adamw, capture_train_step, make_train_step, run_in_dtype, train_loss
 from codetr_torch.tools import rehearsal, trainbench
 from codetr_torch.ops.nms import postprocess_detections
-from codetr_torch.runtime.aot import DTYPES, Replay, compile_forward, load_executable, msda_nodes, save_executable
+from codetr_torch.runtime.aot import (DTYPES, Replay, compile_forward, load_executable, msda_nodes, pool_bytes,
+                                     save_executable)
 from codetr_torch.utils.preprocess import preprocess
-from codetr_torch.utils.profiling import trace
+from codetr_torch.utils.profiling import kernel_counts, trace
 from torch.utils._python_dispatch import TorchDispatchMode
 
 HEIGHT, WIDTH = 768, 1152  # the serving size
@@ -183,6 +193,14 @@ KERNELS = ("msda_fwd", "msda_bwd", "msda_shift_fwd", "gatherbench", "hungarian")
 NMS_TYPES = ("nms", "soft_nms", "soft_nms_gaussian")
 POST_BATCHES = (1, 4)  # the postprocess's batch sizes: latency, and eval_coco's and the matrix's batch 4
 TRAINBENCH_HW = (608, 608)  # the JAX tools/trainbench.py's size: the sync-free loss's shapes
+# a captured step's fp32 gradient against the eager step's from the same
+# state: the largest |difference| over every leaf, relative to the largest
+# |gradient|.  Not zero: the MSDA backward kernels and PyTorch's
+# scatter-adds (the bias tables' index backward) sum with float atomics in
+# no fixed order, and a second eager backward differs as much (printed);
+# leaves that are zero in exact arithmetic are pure rounding noise, so no
+# per-leaf bound holds for them
+CAPTURE_GRAD_TOL = 1e-5
 SEED = 0
 DEVICE = "cuda"
 CONFIG = co_dino_swin_l
@@ -848,6 +866,126 @@ def fwd_bwd_peak(cfg, batch):
     gc.collect()
     torch.cuda.empty_cache()
     return peak
+
+
+def train_state(model, opt):
+    """name -> tensor: every parameter, its gradient and its AdamW state."""
+    names = {p: n for n, p in model.named_parameters()}
+    out = {}
+    for n, p in model.named_parameters():
+        out[n], out[f"{n}.grad"] = p.detach(), p.grad
+    for p, st in opt.state.items():
+        out.update({f"{names[p]}.{k}": v for k, v in st.items()})
+    return out
+
+
+def captured_training(cfg, batch, stamp, steps=3, timed=5):
+    """The train step captured in one CUDA graph (``capture_train_step``,
+    fp32, AdamW with ``capturable=True``) beside an eager twin of the same
+    seed and optimizer, ``steps`` steps each.  Each step: the losses equal
+    bit for bit; the replay's gradient within ``CAPTURE_GRAD_TOL`` of each
+    leaf's scale of the eager step's (float atomics sum in no fixed order in
+    the MSDA backward kernels and PyTorch's scatter-adds; a second eager
+    backward from the same state gives the eager step's own spread, printed
+    beside it); the twin's AdamW then steps on the replay's gradient and
+    must land on the replay's parameters and moments bit for bit, so both
+    start the next step from one state.  Then ``timed`` replays between CUDA
+    events, one traced replay (each MSDA kernel once per layer, the matching
+    twice, counted by kernel name: the host counters count only at capture)
+    and the peak memory with the graph's pool."""
+    x, mask, targets = train_batch(cfg, batch)
+    args = (x, mask, *targets)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_codetr(cfg, device=DEVICE, seed=SEED)
+    twin = copy.deepcopy(model).cpu()  # on the card after the capture's memory is read
+    opt = adamw(model, capturable=True)
+    counters = (msda.launches, msda.launches_bwd, hungarian.launches)
+    t0 = time.perf_counter()
+    step = capture_train_step(model, opt, args)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    at_capture = tuple(c - c0 for c, c0 in zip((msda.launches, msda.launches_bwd, hungarian.launches), counters))
+    peak = torch.cuda.max_memory_allocated()  # the warm-up's eager steps and the capture
+    # the graph's private pool, and every live tensor; no empty_cache() while
+    # the graph lives (runtime/aot.py's note)
+    pool, held = pool_bytes(step.replay.graph), torch.cuda.memory_allocated()
+    twin = twin.to(DEVICE)
+    twin_opt = adamw(twin, capturable=True)
+
+    def eager_grads():
+        twin.zero_grad(set_to_none=True)
+        loss = train_loss(twin, args, backward=True)
+        return loss, {n: p.grad for n, p in twin.named_parameters()}
+
+    def gap(got, want):
+        """(the largest gap over every leaf, of the largest gradient; the leaf
+        with the largest gap of its own scale, and that gap)"""
+        scale = max(w.abs().max().item() for w in want.values())
+        own = {n: ((got[n] - w).abs().max() / w.abs().max().clamp_min(1e-30)).item() for n, w in want.items()}
+        worst = max(own, key=own.get)
+        return max((got[n] - w).abs().max().item() for n, w in want.items()) / scale, worst, own[worst]
+
+    losses, eager_losses, grad_gaps, eager_spread, unequal = [], [], [], [], []
+    for _ in range(steps):
+        loss = step(*args)
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        eager_loss, want = eager_grads()
+        eager_spread.append(gap(eager_grads()[1], want))
+        losses.append(loss.item())
+        eager_losses.append(eager_loss.item())
+        if not torch.equal(loss, eager_loss):
+            fail(f"a captured step's loss {loss.item()!r} differs from the eager twin's {eager_loss.item()!r}")
+        grad_gaps.append(gap(grads, want))
+        for n, p in twin.named_parameters():
+            p.grad = grads[n]
+        twin_opt.step()
+        after, twin_after = train_state(model, opt), train_state(twin, twin_opt)
+        unequal.append(sum(not torch.equal(after[n], t) for n, t in twin_after.items() if not n.endswith(".grad")))
+    del twin, twin_opt, grads, want, after, twin_after
+    gc.collect()
+    step_ms = []
+    for _ in range(timed):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(*args)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            step(*args)
+            torch.cuda.synchronize()
+        counts = kernel_counts(tmp)
+    tc = cfg.head.transformer
+    want_counts = {"msda_tile_fwd_kernel": tc.num_encoder_layers, "msda_fwd_kernel": tc.num_decoder_layers,
+                   "msda_tile_bwd_kernel": tc.num_encoder_layers, "msda_bwd_kernel": tc.num_decoder_layers,
+                   "hungarian_kernel": 2}
+    label = f"train fp32 {HEIGHT}x{WIDTH} batch {batch}, with_cp {cfg.swin.with_cp}, captured"
+    print(f"{label}: capture {capture_s:.1f} s (warm-up included; host counters at capture: MSDA forward, "
+          f"backward, matching {at_capture}); {steps} replays against {steps} eager steps of a twin: losses "
+          f"{losses} vs {eager_losses} (bit for bit); each step's largest gradient gap of the largest "
+          f"gradient " + ", ".join(f"{g:.3e}" for g, _, _ in grad_gaps) + f" (tol {CAPTURE_GRAD_TOL:.0e}; a "
+          f"second eager backward's: " + ", ".join(f"{g:.3e}" for g, _, _ in eager_spread) + "), the largest "
+          f"of a leaf's own scale " + ", ".join(f"{g:.3e} ({n})" for _, n, g in grad_gaps) + " (the second eager "
+          f"backward's: " + ", ".join(f"{g:.3e} ({n})" for _, n, g in eager_spread) + "); parameter and AdamW "
+          f"tensors unequal after the twin's AdamW on the replay's gradient {unequal}; replays "
+          f"{fmt_ms(step_ms)} ms (CUDA events); one replay's kernels {counts}; peak {peak / 2**30:.3f} GiB "
+          f"allocated over the warm-up and the capture; the graph's pool {pool / 2**30:.3f} GiB, "
+          f"{held / 2**30:.3f} GiB allocated after the capture (the weights, AdamW's moments, the static "
+          f"batch, the gradients in the pool) [{stamp}]")
+    del step, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    if {k: counts[k] for k in want_counts} != want_counts:
+        fail(f"a captured step's replay launched {counts}, not {want_counts}")
+    if max(g for g, _, _ in grad_gaps) > CAPTURE_GRAD_TOL or any(unequal):
+        fail("the captured train step disagrees with the eager twin")
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite captured training loss {losses}")
+    return {"step_ms": step_ms, "losses": losses, "counts": counts, "at_capture": at_capture,
+            "peak_bytes": peak, "pool": pool, "held": held, "capture_s": capture_s, "grad_gaps": grad_gaps,
+            "eager_spread": eager_spread}
 
 
 def assignment_cases(rng):
@@ -2596,6 +2734,8 @@ def main() -> int:
     train = run_training(cfg, 1, split=True)
     cfg_cp = replace(cfg, swin=replace(cfg.swin, with_cp=True))
     train_cp = run_training(cfg_cp, 1)
+    # the same steps captured in one CUDA graph, beside eager twins
+    captured = {"fp32": captured_training(cfg, 1, stamp), "fp32 with_cp": captured_training(cfg_cp, 1, stamp)}
     no_cp_peak = fwd_bwd_peak(cfg, CP_BATCH)
     train_cp_big = run_training(cfg_cp, CP_BATCH, timed=2)
 
@@ -2609,10 +2749,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     tb = trainbench.main(["--gradcheck"])
     print(f"trainbench (the lines above): Swin-L {tb['H']}x{tb['W']} {tb['dtype']} compute over fp32 "
-          f"weights, gradcheck pass {tb['gradcheck']['pass']}, fwd {tb['fwd_ms']:.2f} ms, fwd+bwd "
-          f"{tb['fwdbwd_ms']:.2f} ms, step {tb['step_ms']:.2f} ms, bwd/fwd {tb['bwd_over_fwd']}, peak "
-          f"{tb['peak_gib']:.3f} GiB, matching {tb['matching_ms_per_step']:.4f} ms a step in "
-          f"{tb['matching_launches_per_step']} launches [{stamp}]")
+          f"weights, gradcheck pass {tb['gradcheck']['pass']}; replayed (one CUDA graph a stage, the JAX "
+          f"keys): fwd {tb['fwd_ms']:.2f} ms, fwd+bwd {tb['fwdbwd_ms']:.2f} ms, step {tb['step_ms']:.2f} ms, "
+          f"bwd/fwd {tb['bwd_over_fwd']}, medians {tb['median_ms']}, spread {tb['spread']}, the step's "
+          f"warm-up and capture peak {tb['peak_captured_gib']:.3f} GiB, its graph's pool "
+          f"{tb['pool_captured_gib']:.3f} GiB; eager: fwd {tb['fwd_eager_ms']:.2f} ms, fwd+bwd "
+          f"{tb['fwdbwd_eager_ms']:.2f} ms, step {tb['step_eager_ms']:.2f} ms, medians "
+          f"{tb['median_eager_ms']}, spread {tb['spread_eager']}, peak {tb['peak_gib']:.3f} GiB; matching "
+          f"{tb['matching_ms_per_step']:.4f} ms a step in {tb['matching_launches_per_step']} launches [{stamp}]")
     if not tb["gradcheck"]["pass"] or tb["matching_launches_per_step"] != 2:
         fail("trainbench: the gradcheck failed or the step did not launch the matching kernel twice")
     torch.cuda.empty_cache()
@@ -2751,6 +2895,13 @@ def main() -> int:
           f"backward alone: "
           + ("out of memory" if no_cp_peak is None else f"peak {no_cp_peak / 2**30:.3f} GiB")
           + f" (card {total / 2**30:.1f} GiB) [{stamp}]")
+    for (k, r), eager in zip(captured.items(), (train, train_cp)):
+        print(f"train {k} {HEIGHT}x{WIDTH} batch 1, the step captured in one CUDA graph: replays "
+              f"{fmt_ms(r['step_ms'])} ms (CUDA events; the eager step above {fmt_ms(eager['step_ms'])} ms, "
+              f"host clock to a sync); memory: the graph's pool {r['pool'] / 2**30:.3f} GiB, "
+              f"{r['held'] / 2**30:.3f} GiB allocated after the capture, peak {r['peak_bytes'] / 2**30:.3f} "
+              f"GiB allocated over the warm-up and capture (the eager steps' peak "
+              f"{eager['peak_bytes'] / 2**30:.3f}) [{stamp}]")
 
     phase_s["timings"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
     # 8. the deployment path: BASELINE configs[0] and [3] exported, saved and
@@ -2807,6 +2958,9 @@ def main() -> int:
         # the exported, reloaded programs (each forward, launches at capture for
         # the graph replays), the matrix's per call, the fused Inferencer's
         "launches_reloaded_per_forward": {k: r["launches"] for k, r in reloaded.items()},
+        # one replay of each captured train step, from its trace (K1 and the decoder's entry)
+        "launches_captured_step": {k: {n: r["counts"][n] for n in ("msda_tile_fwd_kernel", "msda_fwd_kernel")}
+                                   for k, r in captured.items()},
         "launches_matrix_per_call": {spec_label(spec): r["msda_launches_per_call"]
                                      for spec, r in zip(MATRIX, matrix)},
         "launches_fused_inferencer": fused["launches"],
@@ -2858,6 +3012,9 @@ def main() -> int:
         "replaces": "codetr_tpu/ops/msda_win_bwd.py:306",
         "launches": train["launches"]["msda_bwd"],  # over the 3 timed train steps
         "launches_per_step": n_enc + n_dec,
+        # one replay of each captured train step, from its trace (K2 and the decoder's entry)
+        "launches_captured_step": {k: {n: r["counts"][n] for n in ("msda_tile_bwd_kernel", "msda_bwd_kernel")}
+                                   for k, r in captured.items()},
         "max_abs_err": max(enc_b["max_abs_err_fp32"], dec_b["max_abs_err_fp32"]),
         # one fp32 train step's work: 6 encoder calls + 6 decoder calls
         "ms": n_enc * per_call_bwd["encoder"]["ms"] + n_dec * per_call_bwd["decoder"]["ms"],
@@ -2946,6 +3103,8 @@ def main() -> int:
         "replaces": "codetr_tpu/parallel/losses.py:116",
         "launches": train["launches"]["hungarian"],  # over the 3 timed train steps
         "launches_per_step": 2,
+        # one replay of each captured train step, from its trace
+        "launches_captured_step": {k: r["counts"]["hungarian_kernel"] for k, r in captured.items()},
         # column indices against the plain version's (equal: 0)
         "max_abs_err": max(r["max_abs_err"] for r in matching.values()),
         # the valid rows' total cost against scipy's

@@ -21,6 +21,7 @@ need grid queries: a module built with one and without them raises.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -45,6 +46,34 @@ def grid_offset_bias(num_heads: int, num_levels: int, num_points: int) -> torch.
     grid = grid[:, None, None, :].repeat(1, num_levels, num_points, 1)
     grid = grid * torch.arange(1, num_points + 1, dtype=torch.float64)[None, None, :, None]
     return grid.reshape(-1).float()
+
+
+def _level_table(shapes: Tuple[Tuple[int, int], ...], kind: str, device: torch.device) -> torch.Tensor:
+    rows = {"hw": [[hh, ww] for hh, ww in shapes],
+            "wh": [[ww, hh] for hh, ww in shapes],
+            "inv_wh": [[1.0 / ww, 1.0 / hh] for hh, ww in shapes]}[kind]
+    return torch.tensor(rows, dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _level_table_cached(shapes: Tuple[Tuple[int, int], ...], kind: str, device: torch.device) -> torch.Tensor:
+    # a normal tensor even when first asked for under inference_mode (the
+    # Inferencer's): an inference tensor cannot be saved for a backward pass
+    with torch.inference_mode(False):
+        return _level_table(shapes, kind, device)
+
+
+def level_table(spatial_shapes: Sequence[Tuple[int, int]], kind: str, device: torch.device) -> torch.Tensor:
+    """(L, 2) float32 table of the level sizes: per level (h, w) for ``kind``
+    "hw", (w, h) for "wh", (1/w, 1/h) for "inv_wh".
+    Cached per shapes and device: made from host data, it is a host-to-device
+    copy that a CUDA-graph capture refuses, so a captured step must find it
+    made by its warm-up.  While ``torch.export`` traces, it is made anew (a
+    constant of the program), as ``swin.shifted_window_attn_mask`` is."""
+    shapes = tuple((int(hh), int(ww)) for hh, ww in spatial_shapes)
+    if torch.compiler.is_compiling():
+        return _level_table(shapes, kind, device)
+    return _level_table_cached(shapes, kind, device)
 
 
 class MultiScaleDeformableAttention(nn.Module):
@@ -99,7 +128,7 @@ class MultiScaleDeformableAttention(nn.Module):
             off_qm = off.permute(0, 2, 3, 4, 5, 1)  # (bs, h, L, P, 2, K)
             attn_qm = raw_attn.transpose(1, 2).reshape(bs, h, L * P, nq).softmax(2)
             ref_qm = ref.permute(0, 2, 3, 1)  # (bs, L, 2, K)
-            norm = torch.tensor(spatial_shapes, dtype=torch.float32, device=query.device)  # (L, hw)
+            norm = level_table(spatial_shapes, "hw", query.device)
             x = ref_qm[:, None, :, 0, None, :] + off_qm[..., 0, :] / norm[:, 1].view(1, 1, L, 1, 1)
             y = ref_qm[:, None, :, 1, None, :] + off_qm[..., 1, :] / norm[:, 0].view(1, 1, L, 1, 1)
             out = msda_grid_qm(v, spatial_shapes, x.contiguous(), y.contiguous(),
@@ -112,10 +141,7 @@ class MultiScaleDeformableAttention(nn.Module):
             if ref.shape != (bs, nq, L, 2):
                 raise ValueError(f"grid queries take (bs, K, L, 2) refs, got {tuple(ref.shape)}")
             # multiply by the reciprocal level sizes, as the packed JAX path does
-            inv = torch.tensor(
-                [[1.0 / ww, 1.0 / hh] for hh, ww in spatial_shapes], dtype=torch.float32,
-                device=query.device,
-            )  # (L, 2) xy
+            inv = level_table(spatial_shapes, "inv_wh", query.device)  # (L, 2) xy
             loc = ref[:, :, None, :, None, :] + off * inv[None, None, None, :, None, :]
             cpk = torch.cat(
                 [loc[..., 0].reshape(bs, nq, -1), loc[..., 1].reshape(bs, nq, -1),
@@ -125,10 +151,7 @@ class MultiScaleDeformableAttention(nn.Module):
             out = msda_grid_packed(v, spatial_shapes, cpk, P)
         else:
             if ref.shape[-1] == 2:
-                normalizer = torch.tensor(
-                    [[ww, hh] for hh, ww in spatial_shapes], dtype=torch.float32,
-                    device=query.device,
-                )
+                normalizer = level_table(spatial_shapes, "wh", query.device)
                 loc = ref[:, :, None, :, None, :] + off / normalizer[None, None, None, :, None, :]
             elif ref.shape[-1] == 4:
                 loc = ref[:, :, None, :, None, :2] + off / P * ref[:, :, None, :, None, 2:] * 0.5

@@ -18,6 +18,13 @@ fp32 leaves in fp32, and AdamW updates fp32 leaves with fp32 state.  A
 model whose parameters are not fp32 is refused: AdamW's first steps move a
 weight by ~lr, below half a bf16 ulp of most weights, so bf16 leaves would
 lose most updates.  The sharded (dp x tp) variants are not ported.
+
+``capture_train_step`` is the one-device counterpart of the JAX package's
+``jit_train_step`` (and of ``jax.jit(step)``): the whole step, zero_grad to
+``optimizer.step()``, captured once on the card in one CUDA graph and
+replayed for each batch.  Its warm-up does not train: the parameters,
+buffers and optimizer state are put back in place after the capture, so
+the first replay is the first step.
 """
 
 from __future__ import annotations
@@ -30,13 +37,17 @@ from torch import nn
 
 from codetr_torch.models.codetr import full_fp32
 from codetr_torch.parallel.losses import dino_detection_loss
+from codetr_torch.runtime import aot
 
 
-def adamw(model: nn.Module, lr: float = 1e-4) -> torch.optim.AdamW:
+def adamw(model: nn.Module, lr: float = 1e-4, *, capturable: bool = False) -> torch.optim.AdamW:
     """The optimizer equal to ``optax.adamw(lr)``: betas (0.9, 0.999), eps
-    1e-8 and optax's weight decay of 1e-4 (not torch's default 0.01)."""
+    1e-8 and optax's weight decay of 1e-4 (not torch's default 0.01).
+    ``capturable=True`` keeps its step count on the device, as
+    ``capture_train_step`` needs; the arithmetic is the same."""
     return torch.optim.AdamW(
-        model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4
+        model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4,
+        capturable=capturable,
     )
 
 
@@ -117,4 +128,93 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
         optimizer.step()
         return total
 
+    return step
+
+
+def snapshot_train_state(model: nn.Module, optimizer: torch.optim.Optimizer) -> Callable[[], None]:
+    """Copies of the model's parameters and buffers and of the optimizer's
+    state as they are now; returns ``restore()``, which writes them back in
+    place (the same storage, so a captured graph's pointers stay valid).
+    Optimizer state made after the snapshot is zeroed in place: a fresh
+    Adam's or AdamW's (step 0, moments 0)."""
+    with torch.no_grad():
+        saved = [(t, t.detach().clone())
+                 for t in itertools.chain(model.parameters(), model.buffers())]
+        held = {p: {k: v.clone() for k, v in s.items() if torch.is_tensor(v)}
+                for p, s in optimizer.state.items()}
+
+    def restore() -> None:
+        with torch.no_grad():
+            for t, copy in saved:
+                t.copy_(copy)
+            for p, s in optimizer.state.items():
+                before = held.get(p, {})
+                for k, v in s.items():
+                    if not torch.is_tensor(v):
+                        continue
+                    if k in before:
+                        v.copy_(before[k])
+                    else:
+                        v.zero_()
+
+    return restore
+
+
+# eager steps before the capture: the first makes AdamW's state, the second
+# runs the step as every replay will
+WARMUP_STEPS = 2
+
+
+def _capturable(optimizer: torch.optim.Optimizer) -> bool:
+    return (isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW))
+            and all(g.get("capturable", False) for g in optimizer.param_groups))
+
+
+def capture_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
+                       example_batch: Sequence[torch.Tensor], *,
+                       compute_dtype: Optional[torch.dtype] = None) -> Callable[..., torch.Tensor]:
+    """``make_train_step``'s step captured once on the card in one CUDA graph
+    (``runtime.aot.Replay``): zero_grad, ``train_outputs``, the losses and
+    their two matching launches, the backward with the MSDA backward
+    kernels, and ``optimizer.step()``.  Returns ``step(*batch) -> loss``,
+    which copies the batch into the graph's static inputs, replays it and
+    returns a clone of the loss; like the eager step it updates the
+    parameters, their ``.grad`` and the optimizer's state in place.  The
+    batch must have ``example_batch``'s shapes and dtypes.
+
+    ``optimizer`` must be an Adam or AdamW built with ``capturable=True``
+    (``adamw(model, capturable=True)``), else ``ValueError``; so must a
+    model on the CPU (a graph needs the card: there is no eager fallback).
+    The ``WARMUP_STEPS`` steps that the capture needs run on a side stream
+    and are undone (``snapshot_train_state``): after the capture the model
+    and the optimizer are as they were, the gradients zero, and the first
+    replay is the first step.  A capture that fails raises, naming the op it
+    stopped at, with the model and optimizer put back as well.  The graph's
+    memory pool holds one step's activations for as long as the returned
+    step lives (``step.replay``); do not call ``torch.cuda.empty_cache()``
+    until it is dropped (``runtime/aot.py``)."""
+    _check_master_weights(model, compute_dtype)
+    if not _capturable(optimizer):
+        raise ValueError("capture_train_step needs an Adam or AdamW built with capturable=True "
+                         "(adamw(model, capturable=True))")
+    if next(model.parameters()).device.type != "cuda":
+        raise ValueError("capture_train_step captures a CUDA graph: it needs the model on the card")
+    shapes = [(t.shape, t.dtype) for t in example_batch]
+    body = make_train_step(model, optimizer, compute_dtype=compute_dtype)
+    restore = snapshot_train_state(model, optimizer)
+    try:
+        replay = aot.Replay(lambda *batch: (body(*batch),), example_batch, warmup=WARMUP_STEPS)
+    finally:
+        restore()
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.grad is not None:
+                p.grad.zero_()
+
+    def step(*batch) -> torch.Tensor:
+        if [(t.shape, t.dtype) for t in batch] != shapes:
+            raise ValueError(f"the step was captured for {shapes}, got {[(t.shape, t.dtype) for t in batch]}")
+        return replay(*batch)[0]
+
+    step.replay = replay
     return step

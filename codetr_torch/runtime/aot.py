@@ -25,7 +25,14 @@ counterpart of the JAX package's ``runtime/aot.py`` (there ``jax.jit`` +
   times with ``perf_counter``.
 - ``Replay(fn, args)``: ``fn`` captured once on the card over static copies
   of ``args`` and replayed on each call (the ``Inferencer``'s postprocess,
-  the counterpart of the JAX ``jax.jit(postprocess_detections)``).
+  the counterpart of the JAX ``jax.jit(postprocess_detections)``; the train
+  step's, ``parallel/train.py:capture_train_step``); ``pool_bytes(graph)``
+  the memory its graph holds.  Keep ``torch.cuda.empty_cache()`` away from
+  a captured train step while it lives: called between trainbench's capture
+  of the bf16 Swin-L step and its first replay, the replay crashed the
+  process (a segmentation fault in ``cudaGraphLaunch``), after two earlier
+  graphs of the same model had been captured and dropped; the cause is not
+  known (a small graph of GEMMs and their backward does not show it).
 
 Not carried over: the JAX ``split=True`` form (backbone and head as two
 executables) and the weights-as-arguments ``.params.npz`` companion worked
@@ -243,17 +250,17 @@ def warm_up(fn: Callable, args: Sequence[torch.Tensor], n: int) -> None:
 
 class Replay:
     """``fn`` captured once in a CUDA graph over static copies of ``args``
-    (after one warm-up call); each call copies its arguments in, replays the
+    (after ``warmup`` calls); each call copies its arguments in, replays the
     graph and returns clones of its outputs, since the next replay
     overwrites the graph's own.  The arguments must have the shapes and
     dtypes of the captured ones.  A capture that fails raises (``capture``);
     ``calls`` counts the replays."""
 
-    def __init__(self, fn: Callable, args: Sequence[torch.Tensor]):
+    def __init__(self, fn: Callable, args: Sequence[torch.Tensor], warmup: int = 1):
         if device_of(args).type != "cuda":
             raise ValueError("Replay captures a CUDA graph: it needs the card")
         self.inputs = [a.clone() for a in args]
-        warm_up(fn, self.inputs, 1)
+        warm_up(fn, self.inputs, warmup)
         self.graph = capture(fn, self.inputs)
         self.calls = 0
 
@@ -263,6 +270,15 @@ class Replay:
         self.graph.replay()
         self.calls += 1
         return tuple(t.clone() for t in self.graph.outputs)
+
+
+def pool_bytes(graph: torch.cuda.CUDAGraph) -> int:
+    """The bytes of ``graph``'s private memory pool: the card's memory that a
+    captured graph holds for as long as it lives, beside the tensors made
+    before the capture."""
+    pool = tuple(graph.pool())
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == pool)
 
 
 def make_loop_timer(fn: Callable, args: Sequence[torch.Tensor], *, graph: bool = True,

@@ -20,11 +20,20 @@ calls between two CUDA events (on the CPU: the host clock):
   fwd+bwd    the same loss and its backward pass
   step       ``make_train_step(model, adamw(model), compute_dtype=dtype)``
 
-all in ``--dtype`` compute.  The JSON lines carry the JAX keys ``fwd_ms``,
-``fwdbwd_ms``, ``step_ms`` (the best trial, as the JAX script reports) and
-``bwd_over_fwd``, and beside them each stage's median, the peak memory
-over the steps, the Hungarian matching kernel's time per step (its two
-launches on this step's costs) and the card's name and power limit.  The
+all in ``--dtype`` compute, first as eager calls and then, on the card, as
+captured programs: each stage captured once in a CUDA graph
+(``runtime.aot.Replay``; the step by ``capture_train_step`` with
+``adamw(model, capturable=True)``) and replayed, the counterparts of the
+JAX script's ``jax.jit(loss_fn)``, ``jax.jit(jax.value_and_grad(loss_fn))``
+and ``jax.jit(step)``.  The JSON lines carry the JAX keys ``fwd_ms``,
+``fwdbwd_ms``, ``step_ms`` and ``bwd_over_fwd`` from the replays (the best
+trial, as the JAX script reports; ``null`` on the CPU, where there is no
+graph), the eager figures beside them (``fwd_eager_ms``, ...), each
+stage's median and spread (slowest over fastest trial) in both modes, the
+peak memory over the eager steps and over the captured step's warm-up and
+capture, the captured step's graph pool, the Hungarian matching kernel's
+time per step (its two launches on this step's costs) and the card's name
+and power limit.  The
 JAX script's canary is n/a: a chip call holds a dedicated card.
 """
 
@@ -44,8 +53,9 @@ from codetr_torch.models.codetr import build_codetr, check_device
 from codetr_torch.ops import hungarian, msda
 from codetr_torch.ops.msda_grid import _anchor
 from codetr_torch.parallel.losses import matching_problems
-from codetr_torch.parallel.train import adamw, make_train_step, run_in_dtype, train_loss
-from codetr_torch.runtime.aot import DTYPES
+from codetr_torch.parallel.train import (WARMUP_STEPS, adamw, capture_train_step, make_train_step, run_in_dtype,
+                                         train_loss)
+from codetr_torch.runtime.aot import DTYPES, Replay, pool_bytes
 
 TRAIN_CONFIGS = ("swin-l", "tiny")  # the JAX script's model; the CPU tests' one
 STRIDES = (4, 8, 16, 32, 64)
@@ -191,24 +201,47 @@ def main(argv=None) -> dict:
     batch = train_inputs(args.height, args.width, cfg, device)
     timer = make_timer(device, args.iters, args.trials)
 
-    def fwd():
+    def fwd(*b):
         with torch.no_grad():
-            return train_loss(model, batch, compute_dtype=dtype)
+            return (train_loss(model, b, compute_dtype=dtype),)
 
-    def fwd_bwd():
+    def fwd_bwd(*b):
         model.zero_grad(set_to_none=True)
-        return train_loss(model, batch, compute_dtype=dtype, backward=True)
+        return (train_loss(model, b, compute_dtype=dtype, backward=True),)
 
-    times = {"fwd": timer(fwd), "fwd+bwd": timer(fwd_bwd)}
+    def reset_peak():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda" else None
+
+    eager = {"fwd": timer(lambda: fwd(*batch)), "fwd+bwd": timer(lambda: fwd_bwd(*batch))}
     step = make_train_step(model, adamw(model), compute_dtype=dtype)
+    reset_peak()
+    eager["step"] = timer(lambda: step(*batch))
+    peak = peak_gib()
+    del step
+    replay, captured_peak, pool = {}, None, None
     if device.type == "cuda":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-    times["step"] = timer(lambda: step(*batch))
-    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
-    for name, ms in times.items():
-        print(json.dumps({"stage": name, "ms_per_trial": ms, "best_ms": min(ms),
-                          "median_ms": statistics.median(ms)}), flush=True)
+        for name, fn in (("fwd", fwd), ("fwd+bwd", fwd_bwd)):
+            program = Replay(fn, batch, warmup=WARMUP_STEPS)
+            replay[name] = timer(lambda: program(*batch))
+            del program
+        torch.cuda.empty_cache()
+        reset_peak()
+        step = capture_train_step(model, adamw(model, capturable=True), batch, compute_dtype=dtype)
+        captured_peak = peak_gib()
+        pool = pool_bytes(step.replay.graph) / 2**30
+        # no empty_cache() while the graph lives (runtime/aot.py's note)
+        replay["step"] = timer(lambda: step(*batch))
+        del step
+        torch.cuda.empty_cache()
+    for mode, times in (("eager", eager), ("replay", replay)):
+        for name, ms in times.items():
+            print(json.dumps({"stage": name, "mode": mode, "ms_per_trial": ms, "best_ms": min(ms),
+                              "median_ms": statistics.median(ms)}), flush=True)
 
     # the matching: this step's two launches on its own costs
     with torch.no_grad():
@@ -218,13 +251,20 @@ def main(argv=None) -> dict:
     match_ms = timer(lambda: [hungarian.linear_assignment(*p) for p in problems])
     per_step = (hungarian.launches - before) // (1 + args.trials * args.iters) if device.type == "cuda" else 0
 
-    fwd_ms, fwdbwd_ms, step_ms = (min(times[k]) for k in ("fwd", "fwd+bwd", "step"))
+    def keys(times, suffix):
+        if not times:
+            return {f"{k}{suffix}_ms": None for k in ("fwd", "fwdbwd", "step")} | {
+                f"bwd_over_fwd{suffix}": None, f"median{suffix}_ms": None, f"spread{suffix}": None}
+        f, fb = min(times["fwd"]), min(times["fwd+bwd"])
+        return {f"fwd{suffix}_ms": f, f"fwdbwd{suffix}_ms": fb, f"step{suffix}_ms": min(times["step"]),
+                f"bwd_over_fwd{suffix}": round((fb - f) / f, 2),
+                f"median{suffix}_ms": {k: statistics.median(v) for k, v in times.items()},
+                f"spread{suffix}": {k: max(v) / min(v) for k, v in times.items()}}
+
     result.update({
         "H": args.height, "W": args.width, "config": args.config, "dtype": args.dtype,
-        "fwd_ms": fwd_ms, "fwdbwd_ms": fwdbwd_ms, "step_ms": step_ms,
-        "bwd_over_fwd": round((fwdbwd_ms - fwd_ms) / fwd_ms, 2),
-        "median_ms": {k: statistics.median(v) for k, v in times.items()},
-        "peak_gib": None if peak is None else peak / 2**30,
+        **keys(replay, ""), **keys(eager, "_eager"),
+        "peak_gib": peak, "peak_captured_gib": captured_peak, "pool_captured_gib": pool,
         "matching_ms_per_step": min(match_ms),
         "matching_launches_per_step": per_step,
         "matching_shapes": [list(p[0].shape) for p in problems],

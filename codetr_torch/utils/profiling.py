@@ -10,6 +10,10 @@
 - ``latency_report(fn, args)``: device compute per call (a replayed CUDA
   graph on the card, ``runtime.aot.make_loop_timer``), host end to end and
   the dispatch cost of one call.
+- ``kernel_counts(logdir)``: the port's hand-written kernels in a trace,
+  counted by function name (``PORT_KERNELS``): a CUDA graph's replay
+  launches what its capture recorded, which the wrappers' host counters
+  (``msda.launches``, ...) counted once, at capture.
 - ``save_graph(exported, path)``: an exported program's graph as text (the
   JAX ``save_hlo``).
 - ``cost_analysis(fn, args)``: FLOPs counted by
@@ -20,7 +24,9 @@
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import re
 import time
 from typing import Sequence
 
@@ -83,6 +89,27 @@ def latency_report(fn, args: Sequence[torch.Tensor], *, iterations: int = 20) ->
         "iterations": iterations,
         "device": device_name(device),
     }
+
+
+# the port's kernels on the train step's path, by CUDA function name:
+# K1 (encoder MSDA forward, packed), the decoder's forward (direct gather),
+# K2 (encoder MSDA backward, packed), the decoder's backward, the matching
+PORT_KERNELS = ("msda_tile_fwd_kernel", "msda_fwd_kernel", "msda_tile_bwd_kernel", "msda_bwd_kernel",
+                "hungarian_kernel")
+
+
+def kernel_counts(logdir: str, names: Sequence[str] = PORT_KERNELS) -> dict:
+    """Kernel events of ``logdir/trace.json`` (``trace``) whose function is
+    one of ``names``, counted per name; ``"all"`` counts every kernel."""
+    with open(os.path.join(logdir, "trace.json")) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    counts = {n: 0 for n in names}
+    for e in events:
+        for n in names:
+            if re.search(rf"\b{n}\b", e["name"]):
+                counts[n] += 1
+    counts["all"] = len(events)
+    return counts
 
 
 def save_graph(exported, path: str) -> str:

@@ -1275,3 +1275,172 @@ def test_cuda_rehearsal_tiny_fp32_matches_cpu(cuda_device, tmp_path):
                                           rehearsal.detections(cpu, detail["images"], torch.device("cpu"))):
         assert np.abs(gs - cs).max() < 2e-4
         assert unmatched_boxes((gb, gl), (cb, cl)) <= max(1, len(cb) // 100)
+
+
+# ---- the train step as one captured program (parallel/train.py:capture_train_step) ----
+
+CAPTURE_CASES = [(torch.float32, False), (torch.bfloat16, False), (torch.float32, True)]
+CAPTURE_IDS = ["fp32", "bf16", "fp32_with_cp"]
+# a replay's gradient against the eager step's from the same state: the
+# largest |difference| over every leaf, relative to the largest |gradient|.
+# Not zero: the MSDA backward kernels and PyTorch's scatter-adds (the bias
+# tables' index backward) sum with float atomics in no fixed order, so the
+# eager step differs from itself as much; leaves that are zero in exact
+# arithmetic (the norm biases that a GroupNorm cancels, attention key
+# biases) are pure rounding noise, so no per-leaf bound holds for them
+CAPTURE_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def tiny_train_model(device, with_cp=False, seed=3):
+    from dataclasses import replace
+
+    from codetr_torch import build_codetr, tiny_test_config
+
+    cfg = tiny_test_config()
+    return build_codetr(replace(cfg, swin=replace(cfg.swin, with_cp=with_cp)), device=device, seed=seed)
+
+
+def train_state(model, opt):
+    """name -> tensor: every parameter, its gradient and its AdamW state."""
+    names = {p: n for n, p in model.named_parameters()}
+    out = {}
+    for n, p in model.named_parameters():
+        out[n], out[f"{n}.grad"] = p.detach(), p.grad
+    for p, s in opt.state.items():
+        out.update({f"{names[p]}.{k}": v for k, v in s.items()})
+    return out
+
+
+def state_gaps(got, want) -> dict:
+    """name -> max |got - want| relative to the largest |want| of that tensor."""
+    return {n: ((got[n].double() - w.double()).abs().max() / w.double().abs().max().clamp_min(1e-30)).item()
+            for n, w in want.items()}
+
+
+def gradient_gap(got, want) -> float:
+    """The largest |got - want| over every leaf, relative to the largest |want|."""
+    scale = max(w.abs().max().item() for w in want.values())
+    return max((got[n] - w).abs().max().item() for n, w in want.items()) / scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,with_cp", CAPTURE_CASES, ids=CAPTURE_IDS)
+def test_cuda_captured_train_step_equals_eager_twin(cuda_device, dtype, with_cp):
+    """3 replays of the captured step against 3 eager steps of a twin with
+    the same capturable AdamW.  The first replay is the first step (the
+    capture's warm-up was undone).  Each step: the losses equal bit for bit;
+    the gradients within ``CAPTURE_GRAD_TOL`` of the largest gradient (float
+    atomics, see there); then the twin's AdamW steps on the replay's gradient and must land on
+    the replay's parameters and moments bit for bit, so the next step starts
+    from one state on both sides."""
+    import copy
+
+    from codetr_torch.parallel.train import adamw, capture_train_step, train_loss
+
+    model = tiny_train_model(cuda_device, with_cp)
+    twin = copy.deepcopy(model)
+    batch = tiny_train_batch(cuda_device)
+    opt, twin_opt = adamw(model, capturable=True), adamw(twin, capturable=True)
+    step = capture_train_step(model, opt, batch, compute_dtype=dtype)
+    for i in range(3):
+        got = step(*batch)
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        twin.zero_grad(set_to_none=True)
+        want = train_loss(twin, batch, compute_dtype=dtype, backward=True)
+        assert torch.equal(got, want), (i, got.item(), want.item())
+        gap = gradient_gap(grads, {n: p.grad for n, p in twin.named_parameters()})
+        assert gap <= CAPTURE_GRAD_TOL[dtype], (i, gap)
+        for n, p in twin.named_parameters():
+            p.grad = grads[n]
+        twin_opt.step()
+        after, twin_after = train_state(model, opt), train_state(twin, twin_opt)
+        assert sorted(after) == sorted(twin_after)
+        unequal = [n for n, t in twin_after.items() if not torch.equal(after[n], t)]
+        assert not unequal, (i, unequal[:5])
+    assert all(v.item() == 3 for k, v in train_state(model, opt).items() if k.endswith(".step"))
+
+
+@pytest.mark.gpu
+def test_cuda_captured_train_step_matches_cpu(cuda_device):
+    """One replay of the captured fp32 step against the CPU's eager step of
+    the same weights: the loss within 1e-4 relative, each gradient leaf
+    within max(1e-4, 3 x its spread) of its scale, the spread measured as
+    ``chip_smoke.py:compare_train_steps`` does (the median, over 3 seeded
+    1e-7 moves of every weight, of how far the card's own gradient of the
+    leaf moves)."""
+    import copy
+    import statistics
+
+    from codetr_torch.parallel.train import adamw, capture_train_step, make_train_step
+
+    cpu = tiny_train_model("cpu")
+    start = copy.deepcopy(cpu)
+    gpu = copy.deepcopy(cpu).to(cuda_device)
+    batch = tiny_train_batch(cuda_device)
+    step = capture_train_step(gpu, adamw(gpu, capturable=True), batch)
+    loss_g = step(*batch).item()
+    grads_g = {n: p.grad.cpu() for n, p in gpu.named_parameters()}
+    loss_c = make_train_step(cpu, adamw(cpu))(*(t.cpu() for t in batch)).item()
+    grads_c = {n: p.grad for n, p in cpu.named_parameters()}
+    moved = {n: [] for n in grads_g}
+    for i in range(3):
+        m = copy.deepcopy(start).to(cuda_device)
+        gen = torch.Generator().manual_seed(5 + i)
+        with torch.no_grad():
+            for p in m.parameters():
+                p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=gen).to(cuda_device))
+        make_train_step(m, adamw(m))(*batch)
+        for n, g in state_gaps({n: p.grad.cpu() for n, p in m.named_parameters()}, grads_g).items():
+            moved[n].append(g)
+    gaps = state_gaps(grads_g, grads_c)
+    over = {n: (g, statistics.median(moved[n])) for n, g in gaps.items()
+            if g > max(1e-4, 3 * statistics.median(moved[n]))}
+    assert abs(loss_g - loss_c) <= 1e-4 * abs(loss_c), (loss_g, loss_c)
+    assert not over, over
+
+
+@pytest.mark.gpu
+def test_cuda_captured_train_step_never_syncs(cuda_device):
+    """A replay of the captured step (its copy-in and the loss's clone
+    included) under ``torch.cuda.set_sync_debug_mode("error")``."""
+    from codetr_torch.parallel.train import adamw, capture_train_step
+    from codetr_torch.runtime.aot import pool_bytes
+
+    model = tiny_train_model(cuda_device)
+    batch = tiny_train_batch(cuda_device)
+    step = capture_train_step(model, adamw(model, capturable=True), batch)
+    assert pool_bytes(step.replay.graph) > 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = step(*batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(loss).item()
+
+
+@pytest.mark.gpu
+def test_cuda_captured_train_step_launches_each_kernel_from_a_trace(cuda_device, tmp_path):
+    """A traced replay launches the encoder MSDA forward and backward
+    kernels (K1, K2) once per encoder layer, the decoder's once per decoder
+    layer, and the matching kernel twice; the wrappers' host counters do
+    not move (they count at capture)."""
+    from codetr_torch.ops import hungarian
+    from codetr_torch.parallel.train import adamw, capture_train_step
+    from codetr_torch.utils.profiling import kernel_counts, trace
+
+    model = tiny_train_model(cuda_device)
+    tc = model.cfg.head.transformer
+    batch = tiny_train_batch(cuda_device)
+    step = capture_train_step(model, adamw(model, capturable=True), batch)
+    step(*batch)
+    torch.cuda.synchronize()
+    before = (port_msda.launches, port_msda.launches_bwd, hungarian.launches)
+    with trace(str(tmp_path)):
+        step(*batch)
+        torch.cuda.synchronize()
+    assert (port_msda.launches, port_msda.launches_bwd, hungarian.launches) == before
+    counts = kernel_counts(str(tmp_path))
+    assert counts == {"msda_tile_fwd_kernel": tc.num_encoder_layers, "msda_fwd_kernel": tc.num_decoder_layers,
+                      "msda_tile_bwd_kernel": tc.num_encoder_layers, "msda_bwd_kernel": tc.num_decoder_layers,
+                      "hungarian_kernel": 2, "all": counts["all"]}, counts

@@ -184,11 +184,17 @@ def test_trainbench_cli_on_the_cpu(capsys):
     lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert lines[0]["gradcheck"]["pass"] and lines[0]["gradcheck"]["resolution"] == [64, 64]
     assert [d["stage"] for d in lines[1:4]] == ["fwd", "fwd+bwd", "step"]
+    assert {d["mode"] for d in lines[1:4]} == {"eager"} and "stage" not in lines[4]  # no graph on the CPU
     last = lines[-1]
-    for key in ("fwd_ms", "fwdbwd_ms", "step_ms", "bwd_over_fwd", "peak_gib", "matching_ms_per_step", "card"):
-        assert key in last, key
-    assert last["device"] == "cpu" and last["peak_gib"] is None and last["dtype"] == "bfloat16"
-    assert last["fwd_ms"] > 0 and last == {k: v for k, v in result.items() if k != "gradcheck"}
+    for key in ("fwd_ms", "fwdbwd_ms", "step_ms", "bwd_over_fwd", "median_ms", "spread", "peak_gib",
+                "peak_captured_gib", "pool_captured_gib"):
+        assert key in last and last[key] is None, key  # the replays' keys, and the card's memory
+    assert last["matching_ms_per_step"] > 0 and last["card"] == "cpu"
+    for key in ("fwd_eager_ms", "fwdbwd_eager_ms", "step_eager_ms"):
+        assert last[key] > 0, key
+    assert set(last["median_eager_ms"]) == set(last["spread_eager"]) == {"fwd", "fwd+bwd", "step"}
+    assert last["device"] == "cpu" and last["dtype"] == "bfloat16" and isinstance(last["bwd_over_fwd_eager"], float)
+    assert last == {k: v for k, v in result.items() if k != "gradcheck"}
 
 
 @pytest.mark.parametrize("config", ["swin-l", "tiny"])

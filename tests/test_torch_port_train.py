@@ -273,7 +273,13 @@ def test_params_after_adamw_steps_match_jax(jax_run, port_run):
     the parameter, on the entries whose JAX gradient is at least 1e-2 of its
     leaf's scale at every step (there the two gradients agree to ~1e-3 of
     themselves, so the two Adam steps agree)."""
-    start, got, want = _leaves(jax_run[0]), _leaves(port_run[2]), _leaves(jax_run[3])
+    assert_steps_match_jax(jax_run, port_run[0], port_run[2])
+
+
+def assert_steps_match_jax(jax_run, losses, params):
+    """``test_params_after_adamw_steps_match_jax``'s bounds on the port's
+    losses and params (a flax tree) after ``STEPS`` steps."""
+    start, got, want = _leaves(jax_run[0]), _leaves(params), _leaves(jax_run[3])
     assert sorted(got) == sorted(want)
     grads = [_leaves(g) for g in jax_run[2]]
     checked = 0
@@ -287,7 +293,25 @@ def test_params_after_adamw_steps_match_jax(jax_run, port_run):
         assert np.all(err <= 1e-2 * LR + np.spacing(np.abs(w[above_noise]))), k
         checked += above_noise.sum()
     assert checked > 0.1 * sum(w.size for w in want.values())
-    assert rel(port_run[0][-1], jax_run[1][-1]) < 1e-4
+    assert rel(losses[0], jax_run[1][0]) < 1e-5
+    assert rel(losses[-1], jax_run[1][-1]) < 1e-4
+
+
+def test_restored_steps_match_jax(jax_run):
+    """The captured step's warm-up undone (``snapshot_train_state``, as
+    ``capture_train_step`` runs it; here two eager steps on the CPU): the
+    next STEPS steps are held against the JAX ``jax.jit`` step with
+    ``optax.adamw`` under ``test_params_after_adamw_steps_match_jax``'s
+    bounds.  ``test_torch_port_train_capture.py`` holds them against a
+    fresh twin's eager steps bit for bit."""
+    from test_torch_port_train_capture import restored_steps
+
+    model = port_from_jax(jax_run[0])
+    args = [torch.from_numpy(a) for a in train_inputs()]
+    args[3] = args[3].long()
+    losses, before, after = restored_steps(model, adamw(model, LR), args)
+    assert before == after
+    assert_steps_match_jax(jax_run, [x.item() for x in losses], port_params(model))
 
 
 def test_adamw_weight_decay_and_eps_match_optax():
