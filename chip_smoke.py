@@ -135,8 +135,18 @@ Phases (any failure raises, and the script exits non-zero without a result):
    changed rank between the devices, ``compare_models``' 1e-3 and 0.5 px);
    K1 against its plain version on
    the first encoder layer's taps of seed 0's model and of offset drift 1.0
-   and 2.0, timed, with their staged shares; then the ``kernels`` line and,
-   last, the result line.
+   and 2.0, timed, with their staged shares;
+10. stage attribution (``codetr_torch.tools.attr``, the JAX ``tools/attr.py``,
+   ``swinattr.py``, ``encattr.py`` and ``membench.py``) at 1280x1920 bf16
+   on one seed-0 Swin-L model: the ``model`` suite (features, detect, full)
+   and the ``encoder`` suite (its eleven parts) with ``--verify`` (K1's
+   encoder and decoder entries against the plain version on the modules'
+   own inputs) and a traced replay each, the ``swin`` suite over stages
+   0-3 and the ``mem`` suite; each stage's ms beside its floor at the GEMM
+   and copy ceilings measured in the same run (fails on a kernel check, a
+   stage with no time, ``features + detect`` more than 15% off ``full``, a
+   trace without its kernels); then the ``kernels`` line and, last, the
+   result line.
 
 The script leaves PyTorch's TF32 flags at their defaults (printed at the
 start), as a user's process has them: the port's fp32 forward and train
@@ -151,6 +161,7 @@ import contextlib
 import copy
 import functools
 import gc
+import io
 import json
 import os
 import statistics
@@ -172,7 +183,8 @@ from codetr_torch.ops import hungarian, msda, msda_grid, msda_tiles
 from codetr_torch.parallel import losses as losses_module
 from codetr_torch.parallel.losses import dino_detection_loss, matching_problems
 from codetr_torch.parallel.train import adamw, capture_train_step, make_train_step, run_in_dtype, train_loss
-from codetr_torch.tools import rehearsal, trainbench
+from codetr_torch.tools import attr, rehearsal, trainbench
+from codetr_torch.tools.attr import union_us
 from codetr_torch.ops.nms import postprocess_detections
 from codetr_torch.runtime.aot import (DTYPES, Replay, compile_forward, load_executable, msda_nodes, pool_bytes,
                                      save_executable)
@@ -2088,15 +2100,6 @@ def fused_phase(tmp, images, stamp):
     return {"launches": launches[0], "err": err, "ms": t_fused, "host_ms": t_host}
 
 
-def union_us(spans) -> float:
-    total, end = 0.0, -float("inf")
-    for a, b in sorted(spans):
-        if b > end:
-            total += b - max(a, end)
-            end = b
-    return total
-
-
 def trace_pieces(events, kernels) -> dict:
     """Each annotated range of a trace (preprocess, forward, postprocess):
     its host ms, the share of it in which a kernel ran, and, by correlation
@@ -2586,6 +2589,91 @@ def rehearsal_phase(tmp, seed0, stamp):
             "controls": controls}
 
 
+ATTR_HW = (1280, 1920)  # matrix [3]'s shape (codetr_torch/bench.py), the config whose miss PERF.md §7 asks about
+ATTR_CONFIG = "swin-l"
+ATTR_ITERS, ATTR_TRIALS = 3, 3  # cut from the JAX tools' 5-20 and 5-6 to keep the phase short; never the shapes
+ATTR_SUM_TOL = 0.15  # features + detect against full (the JAX tools/attr.py's derived record)
+
+
+def attribution_phase(tmp, stamp):
+    """``codetr_torch.tools.attr``'s four suites at 1280x1920 bf16 on one
+    seed-0 Swin-L model: ``model`` and ``encoder`` with ``--verify`` (K1's
+    encoder and decoder entries against the plain version on the modules'
+    own inputs) and ``--trace``, ``swin`` over stages 0-3, ``mem``.  Fails
+    on a kernel check, on a stage with no time or floor, on ``features +
+    detect`` more than 15% off ``full``, and on a traced stage whose trace
+    lacks the kernel it runs."""
+    h, w = ATTR_HW
+    t0 = time.perf_counter()
+    model = build_codetr(CONFIG(), dtype=torch.bfloat16, device=DEVICE, seed=SEED)
+    common = ["--device", DEVICE, "--config", ATTR_CONFIG, "--dtype", "bfloat16",
+              "--iters", str(ATTR_ITERS), "--trials", str(ATTR_TRIALS)]
+    runs = {
+        "model": ["model", str(h), str(w), "--verify", "--trace", os.path.join(tmp, "model")],
+        "swin": ["swin", "--height", str(h), "--width", str(w), "--stages", "0", "1", "2", "3"],
+        "encoder": ["encoder", str(h), str(w), "--verify", "--trace", os.path.join(tmp, "encoder")],
+        "mem": ["mem", "--height", str(h), "--width", str(w)],
+    }
+    results, wall = {}, {}
+    for suite, argv in runs.items():
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # the tool's JSON lines; summarised below
+            results[suite] = r = attr.main(argv + common, model=None if suite == "mem" else model)
+        wall[suite] = time.perf_counter() - t1
+        c = r["summary"]["ceilings"]
+        print(f"attribution {suite} {h}x{w} bf16: ceilings GEMM {c['gemm']['tflops']:.1f} TFLOP/s "
+              f"({c['gemm']['source']}: {c['gemm'].get('op', '')}), copy {c['copy']['gbs']:.1f} GB/s "
+              f"({c['copy']['source']}: {c['copy'].get('op', '')}); {wall[suite]:.1f} s wall [{stamp}]")
+        for v in r["verify"]:
+            print(f"attribution {suite} verify {v['verify']} {h}x{w} bf16: {v['kernel']}, value "
+                  f"{tuple(v['value'])}, {v['launches']} launch, max abs err {v['max_abs_err']:.3e}, relative "
+                  f"{v['rel']:.3e} (tolerance {v['tolerance']}) [{stamp}]")
+            if not v["ok"] or v["launches"] != 1:
+                fail(f"attribution {suite}: the {v['verify']} kernel disagrees with the plain version "
+                     f"or did not launch once ({v['launches']})")
+        for name, rec in r["records"].items():
+            if rec.get("reason"):
+                print(f"attribution {suite} {name} {h}x{w} bf16: {rec['reason']}")
+                continue
+            if not (rec["best_sane_ms"] or 0) > 0 or not rec["floor_ms"] > 0:
+                fail(f"attribution {suite} {name}: no time or no floor ({rec['best_sane_ms']}, {rec['floor_ms']})")
+            tr = rec.get("traced")
+            top = f"; top kernel {tr['top_kernels'][0]['name'][:60]} {tr['top_kernels'][0]['ms']:.3f} ms, " \
+                  f"kernel share {tr['kernel_share']:.4f}" if tr and tr["top_kernels"] else ""
+            scaled = f" (x depth/2: {rec['scaled_ms']:.3f})" if "scaled_ms" in rec else ""
+            rate = f", {rec['eff_gb_s']:.1f} GB/s" if "eff_gb_s" in rec else ""
+            print(f"attribution {suite} {name} {h}x{w} bf16: {rec['best_sane_ms']:.3f} ms{scaled} (median "
+                  f"{rec['median_ms']:.3f}, spread {rec['spread']:.3f}), {rec['gflop']:.2f} GFLOP, "
+                  f"{rec['mb']:.1f} MB{rate}, floor {rec['floor_ms']:.3f} ms ({rec['bound_by']}), x "
+                  f"{rec['x_over_floor']:.2f}{top} [{stamp}]")
+            if tr and tr["kernels"] and suite == "model":
+                print(f"attribution model {name} {h}x{w} bf16, traced replay ({'complete' if tr['complete'] else 'incomplete'}"
+                      f" after {tr['attempts']} attempt(s)): {tr['kernels']:.0f} kernels over "
+                      f"{tr['span_ms']:.3f} ms; ms by class " + ", ".join(
+                          f"{k} {v:.3f}" for k, v in tr["by_class_ms"].items()) + "; the five longest: " + "; ".join(
+                          f"{k['name'][:70]} {k['ms']:.3f} ms in {k['calls']:.0f}" for k in tr["top_kernels"]))
+    recs = results["model"]["records"]
+    ms = {n: recs[n]["best_sane_ms"] for n in ("features", "detect", "full")}
+    ratio = (ms["features"] + ms["detect"]) / ms["full"]
+    print(f"attribution model {h}x{w} bf16: features + detect {ms['features'] + ms['detect']:.3f} ms against "
+          f"full {ms['full']:.3f} ({ratio:.4f}; head_minus_features "
+          f"{results['model']['summary']['table']['derived']['head_minus_features_ms']:.3f} ms)")
+    if abs(ratio - 1) > ATTR_SUM_TOL:
+        fail(f"attribution: features + detect is {ratio:.3f} of full (more than {ATTR_SUM_TOL:.0%} off)")
+    # each traced stage saw its kernels: K1's encoder and decoder entries
+    wanted = {("model", "full"): ("msda_tile_fwd_kernel", "msda_fwd_kernel"),
+              ("model", "detect"): ("msda_tile_fwd_kernel", "msda_fwd_kernel"),
+              ("encoder", "emsda"): ("msda_tile_fwd_kernel",), ("encoder", "dmsda"): ("msda_fwd_kernel",)}
+    for (suite, name), kernels in wanted.items():
+        seen = results[suite]["records"][name]["traced"]["port_kernels"]
+        if any(not seen.get(k) for k in kernels):
+            fail(f"attribution {suite} {name}: its traced replay lacks {kernels} (saw {seen})")
+    del model
+    wall["all"] = time.perf_counter() - t0
+    print("attribution phase, wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
@@ -2931,7 +3019,13 @@ def main() -> int:
     # 9. checkpoint day: the rehearsal
     with tempfile.TemporaryDirectory() as tmp:
         rehearsed = rehearsal_phase(tmp, enc_stage, stamp)
-    phase_s["rehearsal"] = time.perf_counter() - t_phase
+    phase_s["rehearsal"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
+    # 10. stage attribution at 1280x1920 bf16 (codetr_torch.tools.attr)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        attribution = attribution_phase(tmp, stamp)
+    phase_s["attribution"] = time.perf_counter() - t_phase
     print("phases, wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     tc = cfg.head.transformer
@@ -2971,6 +3065,9 @@ def main() -> int:
         # taps of seed 0's, the file's and the scale-2.0 model
         "launches_rehearsal": rehearsed["record"]["msda_launches"]["forward"],
         "launches_rehearsal_fp32": rehearsed["fp32_launches"],
+        # stage attribution's full Swin-L 1280x1920 bf16 forward, a replay's
+        # kernels from its trace (K1's encoder and decoder entries)
+        "launches_attribution_full_replay": attribution["model"]["records"]["full"]["traced"]["port_kernels"],
         "rehearsal_taps": rehearsed["k1"],
         "staged_share": {"microbenchmark": bench_share["fwd"], "swin_l_encoder": enc_stage["staged_share"],
                          "rehearsal_bf16_reader": rehearsed["record"]["staged_share"]["overall"],

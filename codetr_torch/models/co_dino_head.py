@@ -83,10 +83,10 @@ class CoDINOHead(nn.Module):
 
         cx, cy, w, h = bbox_pred.unbind(-1)
         boxes = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], dim=-1)
-        scale = torch.tensor(
-            [image_width, image_height, image_width, image_height],
-            dtype=torch.float32, device=boxes.device,
-        )
+        # (w, h, w, h) made on the device: a host-made tensor is a pageable
+        # copy that a CUDA-graph capture of the forward refuses
+        scale = torch.where(torch.arange(4, device=boxes.device) % 2 == 0,
+                            float(image_width), float(image_height))
         boxes = torch.minimum(torch.clamp(boxes * scale, min=0.0), scale)
         return boxes, scores, labels
 

@@ -120,7 +120,23 @@ def init_weights(model: CoDETR, seed: int = 0) -> CoDETR:
     mmdet's grid offset bias and small random offset/weight projections,
     so sampling locations vary per query."""
     g = torch.Generator().manual_seed(seed)
-    for m in model.modules():
+    init_module_weights(model, g)
+    qh = model.query_head
+    qh.transformer.level_embeds.copy_(torch.randn(qh.transformer.level_embeds.shape, generator=g))
+    for attn in (layer.attentions[0].attn for layer in qh.transformer.decoder.layers):
+        fan_in = attn.in_proj_weight.shape[1]
+        attn.in_proj_weight.copy_(torch.randn(attn.in_proj_weight.shape, generator=g) * fan_in**-0.5)
+        attn.in_proj_bias.copy_(torch.rand(attn.in_proj_bias.shape, generator=g) * 0.1 - 0.05)
+    return model
+
+
+@torch.no_grad()
+def init_module_weights(module: nn.Module, g: torch.Generator) -> None:
+    """``init_weights``' draws for the layers of ``module`` (any module,
+    the model or a standalone block), in module order from ``g``: first
+    every Linear, Conv and Embedding, then the window-attention bias
+    tables; MSDA projections set as ``init_weights`` says."""
+    for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
             fan_in = m.weight[0].numel()
             m.weight.copy_(torch.randn(m.weight.shape, generator=g) * fan_in**-0.5)
@@ -134,7 +150,7 @@ def init_weights(model: CoDETR, seed: int = 0) -> CoDETR:
                 t.fill_(v)
         elif isinstance(m, nn.Embedding):
             m.weight.copy_(torch.randn(m.weight.shape, generator=g))
-    for m in model.modules():
+    for m in module.modules():
         if isinstance(m, MultiScaleDeformableAttention):
             c = m.cfg
             m.sampling_offsets.weight.mul_(0.02)
@@ -143,13 +159,6 @@ def init_weights(model: CoDETR, seed: int = 0) -> CoDETR:
         elif isinstance(m, WindowMSA):
             t = m.relative_position_bias_table
             t.copy_(torch.randn(t.shape, generator=g) * 0.02)
-    qh = model.query_head
-    qh.transformer.level_embeds.copy_(torch.randn(qh.transformer.level_embeds.shape, generator=g))
-    for attn in (layer.attentions[0].attn for layer in qh.transformer.decoder.layers):
-        fan_in = attn.in_proj_weight.shape[1]
-        attn.in_proj_weight.copy_(torch.randn(attn.in_proj_weight.shape, generator=g) * fan_in**-0.5)
-        attn.in_proj_bias.copy_(torch.rand(attn.in_proj_bias.shape, generator=g) * 0.1 - 0.05)
-    return model
 
 
 def build_codetr(

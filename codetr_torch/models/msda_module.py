@@ -95,6 +95,31 @@ class MultiScaleDeformableAttention(nn.Module):
         self.value_proj = nn.Linear(E, int(E * cfg.value_proj_ratio))
         self.output_proj = nn.Linear(int(E * cfg.value_proj_ratio), E)
 
+    def project_value(self, value: torch.Tensor, key_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """(bs, nk, C) -> ``value_proj``, padded keys zeroed, split into
+        heads: (bs, nk, h, C/h)."""
+        v = self.value_proj(value)
+        if key_padding_mask is not None:
+            v = v.masked_fill(key_padding_mask[..., None], 0.0)
+        return v.reshape(v.shape[0], v.shape[1], self.cfg.num_heads, -1).contiguous()
+
+    def packed_coords(self, off: torch.Tensor, raw_attn: torch.Tensor, ref: torch.Tensor,
+                      spatial_shapes: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """Grid queries' packed coordinates (bs, nq, 3*HLP) fp32 [x | y | w]
+        from the offsets (bs, nq, h, L, P, 2) and attention logits (bs, nq,
+        HLP), both fp32, and the references (bs, nq, L, 2): the offsets
+        multiplied by the reciprocal level sizes, as the packed JAX path
+        does, and the logits softmaxed over each head's L*P taps."""
+        c = self.cfg
+        bs, nq = off.shape[:2]
+        attn = raw_attn.reshape(bs, nq, c.num_heads, -1).softmax(-1)
+        inv = level_table(spatial_shapes, "inv_wh", off.device)  # (L, 2) xy
+        loc = ref[:, :, None, :, None, :] + off * inv[None, None, None, :, None, :]
+        return torch.cat(
+            [loc[..., 0].reshape(bs, nq, -1), loc[..., 1].reshape(bs, nq, -1), attn.reshape(bs, nq, -1)],
+            dim=-1,
+        )
+
     def forward(
         self,
         query: torch.Tensor,  # (bs, nq, C)
@@ -110,12 +135,7 @@ class MultiScaleDeformableAttention(nn.Module):
         if query_pos is not None:
             query = query + query_pos
         bs, nq, _ = query.shape
-        nk = value.shape[1]
-
-        v = self.value_proj(value)
-        if key_padding_mask is not None:
-            v = v.masked_fill(key_padding_mask[..., None], 0.0)
-        v = v.reshape(bs, nk, h, -1).contiguous()
+        v = self.project_value(value, key_padding_mask)
 
         off = self.sampling_offsets(query).float().reshape(bs, nq, h, L, P, 2)
         raw_attn = self.attention_weights(query).float()
@@ -136,20 +156,12 @@ class MultiScaleDeformableAttention(nn.Module):
                                impl=self.impl, radius=self.grid_radius)
             return self.output_proj(out.to(query.dtype)) + identity
 
-        attn = raw_attn.reshape(bs, nq, h, L * P).softmax(-1).reshape(bs, nq, h, L, P)
         if self.grid_queries:
             if ref.shape != (bs, nq, L, 2):
                 raise ValueError(f"grid queries take (bs, K, L, 2) refs, got {tuple(ref.shape)}")
-            # multiply by the reciprocal level sizes, as the packed JAX path does
-            inv = level_table(spatial_shapes, "inv_wh", query.device)  # (L, 2) xy
-            loc = ref[:, :, None, :, None, :] + off * inv[None, None, None, :, None, :]
-            cpk = torch.cat(
-                [loc[..., 0].reshape(bs, nq, -1), loc[..., 1].reshape(bs, nq, -1),
-                 attn.reshape(bs, nq, -1)],
-                dim=-1,
-            )
-            out = msda_grid_packed(v, spatial_shapes, cpk, P)
+            out = msda_grid_packed(v, spatial_shapes, self.packed_coords(off, raw_attn, ref, spatial_shapes), P)
         else:
+            attn = raw_attn.reshape(bs, nq, h, L * P).softmax(-1).reshape(bs, nq, h, L, P)
             if ref.shape[-1] == 2:
                 normalizer = level_table(spatial_shapes, "wh", query.device)
                 loc = ref[:, :, None, :, None, :] + off / normalizer[None, None, None, :, None, :]

@@ -211,19 +211,15 @@ class CoDinoTransformer(nn.Module):
         memory = encoder(feat_flat, pos_flat, mask_flat, ref_by_level, spatial_shapes)
         return memory, mask_flat, spatial_shapes, valid_ratios, reference_points
 
-    def forward(
-        self,
-        mlvl_feats: Sequence[torch.Tensor],  # NCHW per level
-        mlvl_masks: Sequence[torch.Tensor],  # (bs, h, w) bool, True = pad
-        mlvl_pos_embeds: Sequence[torch.Tensor],  # (bs, h, w, C)
-        reg_branches: nn.ModuleList,
-        cls_branches: nn.ModuleList,
-    ):
+    def select_proposals(self, memory, mask_flat, reference_points, spatial_shapes: Shapes,
+                         reg_branches: nn.ModuleList, cls_branches: nn.ModuleList):
+        """The two-stage proposal stage: each key's proposal, masked, the
+        memory through ``enc_output`` and its norm, the encoder-stage class
+        and box branches (index ``num_decoder_layers``), and the top
+        ``two_stage_num_proposals`` keys by their best class logit ->
+        (topk_coords_unact (bs, nq, 4), topk_idx (bs, nq), enc_class
+        (bs, K, num_classes), enc_coord_unact (bs, K, 4))."""
         c = self.cfg
-        bs = mlvl_feats[0].shape[0]
-        memory, mask_flat, spatial_shapes, valid_ratios, reference_points = self.encode(
-            mlvl_feats, mlvl_masks, mlvl_pos_embeds)
-
         output_proposals = make_encoder_output_proposals(reference_points, spatial_shapes)
         output_proposals, output_memory = apply_mask_to_proposal_and_memory(
             output_proposals, memory, mask_flat
@@ -241,6 +237,21 @@ class CoDinoTransformer(nn.Module):
         topk_coords_unact = torch.gather(
             enc_coord_unact, 1, topk_idx[..., None].expand(-1, -1, 4)
         ).detach()
+        return topk_coords_unact, topk_idx, enc_class, enc_coord_unact
+
+    def forward(
+        self,
+        mlvl_feats: Sequence[torch.Tensor],  # NCHW per level
+        mlvl_masks: Sequence[torch.Tensor],  # (bs, h, w) bool, True = pad
+        mlvl_pos_embeds: Sequence[torch.Tensor],  # (bs, h, w, C)
+        reg_branches: nn.ModuleList,
+        cls_branches: nn.ModuleList,
+    ):
+        bs = mlvl_feats[0].shape[0]
+        memory, mask_flat, spatial_shapes, valid_ratios, reference_points = self.encode(
+            mlvl_feats, mlvl_masks, mlvl_pos_embeds)
+        topk_coords_unact, topk_idx, enc_class, enc_coord_unact = self.select_proposals(
+            memory, mask_flat, reference_points, spatial_shapes, reg_branches, cls_branches)
         query = self.query_embed.weight[None].expand(bs, -1, -1)
 
         inter_states, inter_refs = self.decoder(

@@ -1444,3 +1444,24 @@ def test_cuda_captured_train_step_launches_each_kernel_from_a_trace(cuda_device,
     assert counts == {"msda_tile_fwd_kernel": tc.num_encoder_layers, "msda_fwd_kernel": tc.num_decoder_layers,
                       "msda_tile_bwd_kernel": tc.num_encoder_layers, "msda_bwd_kernel": tc.num_decoder_layers,
                       "hungarian_kernel": 2, "all": counts["all"]}, counts
+
+
+@pytest.mark.gpu
+def test_cuda_attribution_encoder_kernels_verified_timed_and_traced(cuda_device, tmp_path, capsys):
+    """The attribution tool's encoder suite at 384x384 (Swin-L widths): the
+    encoder MSDA module's and the decoder's kernels (K1's two entries) held
+    against the plain version on the modules' own inputs, one launch each;
+    each stage has a time, a floor at the ceilings measured in the run, and
+    a traced replay that holds its kernel."""
+    from codetr_torch.tools import attr
+
+    result = attr.main(["encoder", "384", "384", "--only", "emsda", "dmsda", "--verify", "--trace", str(tmp_path),
+                        "--iters", "2", "--trials", "2"])
+    capsys.readouterr()
+    assert result["summary"]["verify_ok"]
+    assert [(v["verify"], v["launches"]) for v in result["verify"]] == [("emsda", 1), ("dmsda", 1)]
+    for name, kernel in (("emsda", "msda_tile_fwd_kernel"), ("dmsda", "msda_fwd_kernel")):
+        r = result["records"][name]
+        assert r["best_sane_ms"] > 0 and r["floor_ms"] > 0 and r["x_over_floor"] > 0, r
+        assert r["ceiling"]["source"] == "measured"
+        assert r["traced"]["port_kernels"].get(kernel, 0) >= 1, r["traced"]
