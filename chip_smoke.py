@@ -52,14 +52,24 @@ Phases (any failure raises, and the script exits non-zero without a result):
    and 608x608 encoder shapes (radius 5 and 4, and a window limit that
    sends every cross-level pair through the coarse-pair escape), and on its
    own tile-adversarial taps (window cells 0 and W - 1, one cell and more
-   outside, the edges of the tile's window, far; batch 2), the
-   corrected ``msda_grid_qm(impl="grid_pallas" | "grid")`` against the
-   exact function with its launch counts and its gradient, the Swin-L
-   encoder stage with ``msda_impl="grid_pallas"`` against ``"auto"`` (one
-   K4 launch per layer, one K3 correction per layer with taps outside the
-   envelope, no K1; the ``"auto"`` run counts the share of the model's own
-   corner reads that the tiled kernel serves from shared memory, at least
-   0.7), and the gather microbenchmarks (K5) against their plain versions
+   outside, the edges of the tile's window, far; batch 2), and its
+   reference-layout wrapper ``msda_grid_shift`` (``max_window=None``) on
+   them; the corrected ``msda_grid_qm(impl="grid_pallas" | "grid")``
+   against the exact function with far, sparse and no taps out of the
+   envelope (one K4 launch and one launch of K3's correction entry a call,
+   the correction decided on the card), the correction entry alone against
+   its plain version and timed beside K3 and K4, one corrected call
+   captured and replayed under ``set_sync_debug_mode("error")``, and its
+   gradient; the Swin-L encoder stage with ``msda_impl="grid_pallas"``
+   against ``"auto"`` (one K4 and one correction launch per layer, no K1;
+   then the stage captured whole in one CUDA graph and replayed with no
+   host sync, its per-layer out-of-envelope counts read after the replay,
+   its replays timed beside eager calls and the ``"auto"`` stage's; the
+   ``"auto"`` run counts the share of the model's own corner reads that
+   the tiled kernel serves from shared memory, at least 0.7); the Swin-L
+   model built with ``msda_impl="reference"`` (no MSDA launch) against
+   ``"auto"`` on the ladder, and its exported program (no ``codetr::``
+   node); and the gather microbenchmarks (K5) against their plain versions
    at the sweep's and at tail sizes, their library's ``I2F`` count (none in
    a loop), then their sweep (each call beside its launch floor and, for the
    gathers, the shared-memory wavefront figure; the launches per C entry
@@ -186,7 +196,7 @@ from codetr_torch.parallel.train import adamw, capture_train_step, make_train_st
 from codetr_torch.tools import attr, rehearsal, trainbench
 from codetr_torch.tools.attr import union_us
 from codetr_torch.ops.nms import postprocess_detections
-from codetr_torch.runtime.aot import (DTYPES, Replay, compile_forward, load_executable, msda_nodes, pool_bytes,
+from codetr_torch.runtime.aot import (DTYPES, Replay, capture, compile_forward, load_executable, msda_nodes, pool_bytes,
                                      save_executable)
 from codetr_torch.utils.preprocess import preprocess
 from codetr_torch.utils.profiling import kernel_counts, trace
@@ -1617,6 +1627,7 @@ def shift_inputs(hw, far=0.1):
 # sends every cross-level pair (W = 17) through the coarse-pair escape
 SHIFT_CASES = ((5, 31), (4, 31), (5, 13))
 GRID_RADIUS = 5  # MSDAConfig.grid_radius
+PALLAS_WINDOW = msda.GRID_MAX_WINDOW["grid_pallas"]
 
 
 def shift_checks(stamp):
@@ -1716,44 +1727,124 @@ def rel_to_scale(got, want) -> float:
     return ((got.float() - want.float()).abs().max() / max(want.abs().max().item(), 1.0)).item()
 
 
+def correction_bound_ms(value, shapes, x, y, w_out, count):
+    """Least time for the correction entry on these taps: with none to
+    correct, reading the count (8 bytes); otherwise the count, every weight
+    once (to find the live taps), the live taps' coordinates, the value rows
+    they touch, and the output rows they add to, read and written; 8 FMAs a
+    live tap and channel."""
+    if int(count) == 0:
+        return roofline(8, 0)
+    d, e = value.shape[3], value.element_size()
+    live = w_out != 0  # (bs, h, L, P, K)
+    n_live = int(live.sum())
+    out_rows = int(live.any(dim=(2, 3)).sum())  # (batch, head, query) rows a live tap adds to
+    nbytes = (8 + w_out.numel() * 4 + n_live * 8 + touched_rows(value, shapes, *from_qm(x, y, w_out)) * d * e
+              + 2 * out_rows * d * e)
+    return roofline(nbytes, n_live * 4 * d * 2)
+
+
 def dispatch_checks(stamp):
     """The corrected ``msda_grid_qm(impl="grid_pallas" | "grid")`` at
-    768x1152 (radius 5), fp32, against the exact ``msda_reference_qm``: with far taps
-    each call launches K4 once and K3 once for the out-of-envelope taps; on
-    the jitter-only taps (none out) K4 alone.  Then the gradient of the
-    ``"grid_pallas"`` call against the plain backward (the exact VJP): the
-    backward kernel on q-minor strides, once for the window part and once
-    for the correction.  Tolerance 1e-5 of each result's scale."""
-    value, shapes, x, y, w = shift_inputs((HEIGHT, WIDTH))
-    want = msda.msda_reference_qm(value, shapes, x, y, w)
-    res = {"out_of_envelope": {}}
-    for impl in ("grid_pallas", "grid"):
-        msda.launches_shift = msda.launches_qm = 0
-        got = msda.msda_grid_qm(value, shapes, x, y, w, impl=impl, radius=GRID_RADIUS)
-        torch.cuda.synchronize()
-        launched = (msda.launches_shift, msda.launches_qm)
-        count = res["out_of_envelope"][impl] = msda.last_out_of_envelope
-        err = res[impl] = rel_to_scale(got, want)
-        print(f"corrected {impl} dispatch {HEIGHT}x{WIDTH} radius {GRID_RADIUS}, far taps: {count} of "
-              f"{w.numel()} taps out of the envelope; (K4, K3) launches {launched}; error "
-              f"{err:.3e} of scale (tol 1e-5) [{stamp}]")
-        if count == 0 or launched != (1, 1) or not err < 1e-5:
-            fail(f"corrected {impl} dispatch: {count} out, launches {launched}, error {err}")
+    768x1152 (radius 5), fp32, against the exact ``msda_reference_qm``: each
+    call launches K4 once and K3's correction entry once (the correction
+    decided on the card, no host read), and no q-minor forward, with far
+    taps (10% moved out of every window), with taps as sparse out of the
+    envelope as the Swin-L encoder's own (0.05%) and on the jitter-only taps
+    (none out: the correction's blocks return at once, and the result is
+    K4's bit for bit).  The correction entry alone against its plain version
+    on the far and the sparse taps' out-of-envelope weights (fp32 and bf16,
+    ``check_kernel``), and timed at 0, sparse and far taps out beside its
+    bound, K3's full call and K4's on the same taps.  One corrected call
+    captured (``aot.Replay``) and replayed under
+    ``torch.cuda.set_sync_debug_mode("error")`` on the far and the
+    jitter-only taps, equal to the eager calls bit for bit.  Then the
+    gradient of the ``"grid_pallas"`` call against the plain backward (the
+    exact VJP): one launch of the backward kernel on q-minor strides.
+    Tolerance 1e-5 of each result's scale."""
+    res = {"out_of_envelope": {}, "correction": {}}
+    taps = {"far": shift_inputs((HEIGHT, WIDTH)), "sparse": shift_inputs((HEIGHT, WIDTH), far=5e-4),
+            "jitter": shift_inputs((HEIGHT, WIDTH), far=0.0)}
+    shapes = taps["far"][1]
+    for kind, (value, _, x, y, w) in taps.items():
+        want = msda.msda_reference_qm(value, shapes, x, y, w)
+        for impl in ("grid_pallas", "grid") if kind == "far" else ("grid_pallas",):
+            msda.launches_shift = msda.launches_correction = msda.launches_qm = 0
+            got = msda.msda_grid_qm(value, shapes, x, y, w, impl=impl, radius=GRID_RADIUS)
+            torch.cuda.synchronize()
+            launched = (msda.launches_shift, msda.launches_correction, msda.launches_qm)
+            count = res["out_of_envelope"][f"{impl} {kind}"] = msda.last_out_of_envelope.item()
+            err = res[f"{impl} {kind}"] = rel_to_scale(got, want)
+            same = kind != "jitter" or torch.equal(got, msda_grid.msda_grid_shift_qm(
+                value, shapes, x, y, w, radius=GRID_RADIUS, max_window=msda.GRID_MAX_WINDOW[impl]))
+            print(f"corrected {impl} dispatch {HEIGHT}x{WIDTH} radius {GRID_RADIUS}, {kind} taps: {count} of "
+                  f"{w.numel()} taps out of the envelope; (K4, correction, K3) launches {launched}; error "
+                  f"{err:.3e} of scale (tol 1e-5)" + ("; K4's output bit for bit" if kind == "jitter" else "")
+                  + f" [{stamp}]")
+            if (count == 0) != (kind == "jitter") or launched != (1, 1, 0) or not err < 1e-5 or not same:
+                fail(f"corrected {impl} dispatch, {kind} taps: {count} out, launches {launched}, error {err}, "
+                     f"K4's output when none is out {same}")
 
-    value0, _, x0, y0, w0 = shift_inputs((HEIGHT, WIDTH), far=0.0)
-    msda.launches_shift = msda.launches_qm = 0
-    got = msda.msda_grid_qm(value0, shapes, x0, y0, w0, impl="grid_pallas", radius=GRID_RADIUS)
+    # the correction entry alone, and its times beside K3 and K4 on the same taps
+    for kind, (value, _, x, y, w) in taps.items():
+        mask = msda_grid.envelope_mask(shapes, x, y, radius=GRID_RADIUS, max_window=PALLAS_WINDOW)
+        w_in, w_out, count = torch.where(mask, w, 0.0), torch.where(mask, 0.0, w), (~mask).sum()
+        r = res["correction"][kind] = {"out": count.item()}
+        if kind != "jitter":
+            r.update(check_kernel(
+                f"K3's correction entry (msda_qm_correction_fwd), {kind} taps' out-of-envelope weights "
+                f"({r['out']} taps)", value,
+                lambda v: msda._launch_correction(v, shapes, x, y, w_out, count, torch.zeros(
+                    v.shape[0], v.shape[1], v.shape[2] * v.shape[3], dtype=v.dtype, device=DEVICE)),
+                lambda v: msda.msda_reference_qm(v, shapes, x, y, w_out), stamp))
+        scratch = torch.zeros(value.shape[0], value.shape[1], value.shape[2] * value.shape[3], device=DEVICE)
+        call = functools.partial(msda._launch_correction, value, shapes, x, y, w_out, count, scratch)
+        # eager calls (the host's launch overhead included), then the device
+        # time alone: one launch captured in a CUDA graph and replayed
+        r["eager_ms"] = cuda_ms(call, 20)
+        graph = capture(lambda: (call(),), ())
+        r["ms"] = statistics.median(graph_ms(graph, n=20, blocks=3))
+        del graph
+        r["plain_ms"] = cuda_ms(functools.partial(msda.msda_reference_qm, value, shapes, x, y, w_out), 3)
+        r["k3_ms"] = cuda_ms(functools.partial(msda.msda_grid_qm, value, shapes, x, y, w), 20)
+        r["k4_ms"] = cuda_ms(functools.partial(msda_grid.msda_grid_shift_qm, value, shapes, x, y, w_in,
+                                               radius=GRID_RADIUS), 20)
+        r["bound_ms"], r["bound_by"], r["bytes"], r["flops"] = correction_bound_ms(value, shapes, x, y, w_out,
+                                                                                   count)
+        print(f"msda_qm_correction_fwd {kind} taps ({r['out']} out of {w.numel()}): {r['ms']:.4f} ms/call "
+              f"(a graph's replays; eager calls {r['eager_ms']:.4f}), "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes'] / 1e6:.3f} MB, "
+              f"{r['flops'] / 1e9:.4f} GFLOP), plain {r['plain_ms']:.4f} ms; on the same taps K3's full call "
+              f"{r['k3_ms']:.4f} ms, K4 {r['k4_ms']:.4f} ms [{stamp}]")
+        del scratch, mask, w_in, w_out
+
+    # one corrected call captured and replayed with no host synchronisation
+    def corrected(v, xx, yy, ww):
+        return msda.msda_grid_qm(v, shapes, xx, yy, ww, impl="grid_pallas", radius=GRID_RADIUS), \
+            msda.last_out_of_envelope
+
+    args = {kind: (t[0], *t[2:]) for kind, t in taps.items() if kind != "sparse"}
     torch.cuda.synchronize()
-    launched, count = (msda.launches_shift, msda.launches_qm), msda.last_out_of_envelope
-    err = rel_to_scale(got, msda.msda_reference_qm(value0, shapes, x0, y0, w0))
-    print(f"corrected grid_pallas dispatch, jitter-only taps: {count} out; (K4, K3) launches "
-          f"{launched}; error {err:.3e} of scale (tol 1e-5) [{stamp}]")
-    if count != 0 or launched != (1, 0) or not err < 1e-5:
-        fail(f"jitter-only dispatch: {count} out, launches {launched}, error {err}")
-    del value0, x0, y0, w0, got
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = {kind: corrected(*a) for kind, a in args.items()}
+        replay = Replay(corrected, args["far"])
+        captured = {kind: replay(*a) for kind, a in args.items()}
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    same = {kind: torch.equal(captured[kind][0], eager[kind][0]) and torch.equal(captured[kind][1], eager[kind][1])
+            for kind in args}
+    res["captured_counts"] = {kind: c[1].item() for kind, c in captured.items()}
+    print(f"corrected grid_pallas dispatch captured in one CUDA graph, replayed under "
+          f"set_sync_debug_mode('error'): equal to the eager calls bit for bit {same}, counts "
+          f"{res['captured_counts']} [{stamp}]")
+    if not all(same.values()) or res["captured_counts"]["jitter"] != 0 or not res["captured_counts"]["far"] > 0:
+        fail("the captured corrected dispatch differs from the eager one")
+    del replay, captured, eager
 
-    g = torch.randn(want.shape, generator=torch.Generator(device=DEVICE).manual_seed(SEED + 8),
-                    device=DEVICE)
+    value, _, x, y, w = taps["far"]
+    g = torch.randn(value.shape[0], value.shape[1], value.shape[2] * value.shape[3],
+                    generator=torch.Generator(device=DEVICE).manual_seed(SEED + 8), device=DEVICE)
     leaves = [t.clone().requires_grad_() for t in (value, x, y, w)]
     msda.launches_bwd = 0
     msda.msda_grid_qm(leaves[0], shapes, *leaves[1:], impl="grid_pallas", radius=GRID_RADIUS).backward(g)
@@ -1763,46 +1854,89 @@ def dispatch_checks(stamp):
     print(f"corrected grid_pallas dispatch gradient: backward launches {msda.launches_bwd}; "
           f"(value, x, y, w) errors {', '.join(f'{e:.3e}' for e in grad_errs)} of scale "
           f"(tol 1e-5) [{stamp}]")
-    if msda.launches_bwd != 2 or not max(grad_errs) < 1e-5:
+    if msda.launches_bwd != 1 or not max(grad_errs) < 1e-5:
         fail("the corrected dispatch's gradient disagrees with the plain backward")
     res["grad"] = max(grad_errs)
     return res
 
 
-def encoder_stage(cfg, image, stamp, reps=3):
+def grid_shift_checks(stamp):
+    """``msda_grid.msda_grid_shift`` (the reference layout, the JAX
+    ``msda_grid_shift``: ``max_window=None``, no coarse-pair escape) against
+    ``msda_shift_plain`` of the same function on K4's tile-adversarial taps
+    at 768x1152, radius 5, batch 2, fp32 and bf16 values (``check_kernel``'s
+    tolerances); one K4 launch a call."""
+    shapes = level_shapes(HEIGHT, WIDTH)
+    value, x, y, w = shift_adversarial_taps(shapes, GRID_RADIUS, None)
+    loc = torch.stack([x, y], -1).permute(0, 4, 1, 2, 3, 5).contiguous()  # (bs, K, h, L, P, 2)
+    wr = w.permute(0, 4, 1, 2, 3).contiguous()
+    before = msda.launches_shift
+    errs = check_kernel(
+        f"msda_grid_shift {HEIGHT}x{WIDTH} radius {GRID_RADIUS} max_window None tile-adversarial (batch 2)",
+        value, lambda v: msda_grid.msda_grid_shift(v, shapes, loc, wr, radius=GRID_RADIUS),
+        lambda v: msda_grid.msda_shift_plain(v, shapes, x, y, w, GRID_RADIUS, None), stamp)
+    if msda.launches_shift - before != 2:
+        fail(f"msda_grid_shift launched K4 {msda.launches_shift - before} times in 2 calls")
+    del value, x, y, w, loc, wr
+    return errs
+
+
+def graph_ms(graph, n=3, blocks=5):
+    """ms per replay of a captured CUDA graph: ``blocks`` readings of ``n``
+    replays each between CUDA events."""
+    times = []
+    for _ in range(blocks):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return times
+
+
+def encoder_stage(model, cfg, image, stamp, reps=3):
     """The flagship's encoder stage with the shift-window impl: the Swin-L
-    model (seed-0 weights, fp32) on one image at 768x1152, its six encoder
-    layers run by ``CoDinoTransformer.encode`` through a
+    ``model`` (seed-0 weights, fp32) on one image at 768x1152, its six
+    encoder layers run by ``CoDinoTransformer.encode`` through a
     ``DetrTransformerEncoder(msda_impl="grid_pallas")`` carrying the same
     weights, against the model's own (``"auto"``) encoder: memory within
     1e-4 of its scale.  The launch counts are set to 0 just before the
-    grid_pallas run and read just after: one K4 launch per layer, one K3
-    launch per layer with taps out of the envelope, no K1.  The ``"auto"``
+    eager grid_pallas run and read just after: one K4 launch and one launch
+    of K3's correction entry per layer, no q-minor forward, no K1.  Then the
+    grid_pallas stage captured whole in one CUDA graph (``aot.Replay``) and
+    replayed under ``torch.cuda.set_sync_debug_mode("error")``: its memory
+    against ``"auto"`` (1e-4 of scale), and each layer's out-of-envelope
+    count as the replay computed it (read after the replay from the
+    capture's own count tensors); the replay's ms (5 readings of 3) beside
+    the eager calls', and the ``"auto"`` stage's likewise.  The ``"auto"``
     run also counts, per layer, the corner reads of the model's own taps
     that the tiled encoder kernel serves from shared memory (the staged
-    share; at least 0.7 overall).  Returns the per-layer out-of-envelope
-    counts and staged shares, the launches and both impls' times."""
+    share; at least 0.7 overall).  Each graph is dropped before the next
+    phase, and no ``empty_cache()`` runs while one lives."""
     from codetr_torch.models.transformer import DetrTransformerEncoder
     from codetr_torch.utils.preprocess import preprocess
 
-    model = build_codetr(cfg, device=DEVICE, seed=SEED)
     head, tf = model.query_head, model.query_head.transformer
     grid_enc = DetrTransformerEncoder(tf.cfg, "grid_pallas").to(DEVICE)
     grid_enc.load_state_dict(tf.encoder.state_dict())
     counts = []
     for layer in grid_enc.layers:
         layer.attentions[0].register_forward_hook(lambda *_: counts.append(msda.last_out_of_envelope))
+    names = ("msda_shift_fwd", "msda_qm_correction_fwd", "msda_qm_fwd", "msda_fwd")
+    counters = ("launches_shift", "launches_correction", "launches_qm", "launches")
     with torch.no_grad():
         pre = preprocess(image, HEIGHT, WIDTH, cfg.preprocess, device=DEVICE)
         feats = model.features(pre[0][None])
         masks, pos = head.level_masks_and_pos(feats, pre[1][None])
         torch.cuda.synchronize()
-        msda.launches = msda.launches_qm = msda.launches_shift = 0
+        for c in counters:
+            setattr(msda, c, 0)
         mem_grid = tf.encode(feats, masks, pos, encoder=grid_enc)[0]
         torch.cuda.synchronize()
-        launches = {"msda_shift_fwd": msda.launches_shift, "msda_qm_fwd": msda.launches_qm,
-                    "msda_fwd": msda.launches}
-        layer_counts = list(counts)
+        launches = {n: getattr(msda, c) for n, c in zip(names, counters)}
+        layer_counts = [int(c) for c in counts]
         with rehearsal.capture_encoder_taps() as calls:  # each layer's taps under its tile plan
             mem_auto = tf.encode(feats, masks, pos)[0]
         shares = [c["share"] for c in calls]
@@ -1813,9 +1947,34 @@ def encoder_stage(cfg, image, stamp, reps=3):
             for _ in range(reps):
                 _, t = timed(lambda: tf.encode(feats, masks, pos, encoder=enc))
                 times[impl].append(t)
-    n_layers, attn = len(grid_enc.layers), tf.cfg.encoder_layer.attn
+
+        # the whole stage captured: one graph a stage, replayed
+        n_lv = len(feats)
+        args = (*feats, *masks, *pos)
+
+        def stage(enc):
+            return lambda *a: (tf.encode(list(a[:n_lv]), list(a[n_lv:2 * n_lv]), list(a[2 * n_lv:]),
+                                         encoder=enc)[0],)
+
+        n_layers = len(grid_enc.layers)
+        replay = Replay(stage(grid_enc), args)
+        captured_counts = counts[-n_layers:]  # the capture's count tensors, which each replay rewrites
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            mem_captured = replay(*args)[0]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        replay_counts = [int(c) for c in captured_counts]
+        err_captured = rel_to_scale(mem_captured, mem_auto)
+        times["grid_pallas_replay"] = graph_ms(replay.graph)
+        del replay, captured_counts
+        replay_auto = Replay(stage(None), args)
+        times["auto_replay"] = graph_ms(replay_auto.graph)
+        del replay_auto
+    gc.collect()
+    attn = tf.cfg.encoder_layer.attn
     n_taps = mem_grid.shape[1] * attn.num_heads * attn.num_levels * attn.num_points
-    corrected = sum(c > 0 for c in layer_counts)
     share = sum(a for a, _ in shares) / sum(b for _, b in shares)
     print(f"Swin-L encoder's own taps {HEIGHT}x{WIDTH} (seed-0 weights, one 900x1600 image): "
           f"staged share per layer {[round(a / b, 6) for a, b in shares]}, overall {share:.6f} "
@@ -1824,15 +1983,75 @@ def encoder_stage(cfg, image, stamp, reps=3):
         fail(f"staged share {share} over {len(shares)} layers")
     print(f"Swin-L encoder stage {HEIGHT}x{WIDTH} fp32, grid_pallas vs auto: memory error "
           f"{err:.3e} of scale (tol 1e-4); launches {launches}; out-of-envelope taps per layer "
-          f"{layer_counts} of {n_taps}; encoder stage ms grid_pallas "
+          f"{layer_counts} of {n_taps}; encoder stage ms eager grid_pallas "
           f"{fmt_ms(times['grid_pallas'])}, auto {fmt_ms(times['auto'])} [{stamp}]")
-    want = {"msda_shift_fwd": n_layers, "msda_qm_fwd": corrected, "msda_fwd": 0}
+    print(f"Swin-L encoder stage {HEIGHT}x{WIDTH} fp32 captured whole (one CUDA graph, replayed under "
+          f"set_sync_debug_mode('error')): grid_pallas vs auto memory error {err_captured:.3e} of scale (tol "
+          f"1e-4); out-of-envelope taps per layer as the replay counted them {replay_counts}; ms per replay "
+          f"grid_pallas p50 {statistics.median(times['grid_pallas_replay']):.3f}, min "
+          f"{min(times['grid_pallas_replay']):.3f} ({fmt_ms(times['grid_pallas_replay'])}); auto p50 "
+          f"{statistics.median(times['auto_replay']):.3f}, min {min(times['auto_replay']):.3f} "
+          f"({fmt_ms(times['auto_replay'])}) [{stamp}]")
+    want = {"msda_shift_fwd": n_layers, "msda_qm_correction_fwd": n_layers, "msda_qm_fwd": 0, "msda_fwd": 0}
     if launches != want or not err < 1e-4 or not torch.isfinite(mem_grid).all():
         fail(f"encoder stage: launches {launches} (want {want}), memory error {err}")
-    del model, grid_enc, feats, mem_grid, mem_auto
-    torch.cuda.empty_cache()
-    return {"launches": launches, "out_of_envelope": layer_counts, "err": err, "ms": times,
+    if not err_captured < 1e-4 or replay_counts != layer_counts:
+        fail(f"captured encoder stage: memory error {err_captured}, counts {replay_counts} (eager {layer_counts})")
+    del grid_enc, feats, mem_grid, mem_auto, mem_captured
+    return {"launches": launches, "out_of_envelope": layer_counts, "out_of_envelope_replay": replay_counts,
+            "err": err, "err_captured": err_captured, "ms": times,
             "staged_share": share, "staged_share_per_layer": [a / b for a, b in shares]}
+
+
+def reference_phase(model, cfg, image, stamp):
+    """``msda_impl="reference"`` at full width and depth: the Swin-L model
+    built with it (seed 0, the same weights as ``model``, checked) on one
+    image at 768x1152, fp32, with every MSDA launch count set to 0 just
+    before and read just after (all must stay 0: the plain versions run),
+    against ``model`` (``"auto"``) on the ladder, set-wise: scores 2e-4,
+    boxes 0.1 px.  Then the reference model exported (``compile_forward``):
+    its program holds no ``codetr::`` node, and its detections on the image
+    are the eager reference model's on the ladder.  Each forward's ms."""
+    from codetr_torch.utils.preprocess import preprocess
+
+    ref = build_codetr(cfg, device=DEVICE, seed=SEED, msda_impl="reference")
+    same_weights = all(torch.equal(a, b) for a, b in zip(ref.state_dict().values(), model.state_dict().values()))
+    x, mk, _, _ = preprocess(image, HEIGHT, WIDTH, cfg.preprocess, device=DEVICE)
+    x, mk = x[None], mk[None]
+    counters = ("launches", "launches_qm", "launches_shift", "launches_correction", "launches_bwd")
+    with torch.no_grad():
+        for c in counters:
+            setattr(msda, c, 0)
+        got, ref_ms = timed(lambda: ref(x, mk))
+        launched = {c: getattr(msda, c) for c in counters}
+        want, auto_ms = timed(lambda: model(x, mk))
+
+    def dets(out):
+        return {k: t[0].float().cpu().numpy() for k, t in zip(("boxes", "scores", "labels"), out)}
+
+    unmatched, worst = unmatched_detections(dets(got), dets(want))
+    score_err = (got[1] - want[1]).abs().max().item()
+    t0 = time.perf_counter()
+    program, _ = compile_forward(ref, height=HEIGHT, width=WIDTH)
+    export_s = time.perf_counter() - t0
+    nodes = msda_nodes(program.exported)
+    with torch.no_grad():
+        exported = program(x, mk)
+    unmatched_exp, worst_exp = unmatched_detections(dets(exported), dets(got))
+    print(f"Swin-L {HEIGHT}x{WIDTH} fp32 msda_impl='reference' (seed 0, the auto model's weights: {same_weights}): "
+          f"MSDA launches {launched}; vs 'auto': scores max diff {score_err:.3e}, unmatched detections "
+          f"{unmatched} of {len(want[1][0])} set-wise (scores {SCORE_TOL}, boxes {BOX_TOL} px; matched boxes within "
+          f"{worst:.3e} px); forward {ref_ms:.1f} ms (auto {auto_ms:.1f} ms, host clock); exported in "
+          f"{export_s:.1f} s with codetr:: nodes {nodes}, its detections vs the eager reference model: "
+          f"unmatched {unmatched_exp}, boxes within {worst_exp:.3e} px [{stamp}]")
+    if (not same_weights or any(launched.values()) or unmatched or unmatched_exp or nodes
+            or not all(torch.isfinite(t).all() for t in got[:2])):
+        fail(f"msda_impl='reference': weights equal {same_weights}, launches {launched}, unmatched {unmatched} "
+             f"(exported {unmatched_exp}), codetr:: nodes {nodes}")
+    del ref, program, exported
+    gc.collect()
+    return {"launches": launched, "score_err": score_err, "unmatched": unmatched, "worst_px": worst,
+            "codetr_nodes": nodes, "export_s": export_s, "ms": ref_ms, "auto_ms": auto_ms}
 
 
 def unstaged(plan):
@@ -2808,8 +3027,15 @@ def main() -> int:
     # the gather microbenchmarks (K5)
     shift_errs = shift_checks(stamp)
     shift_adversarial = shift_adversarial_checks(stamp)
+    grid_shift = grid_shift_checks(stamp)
     dispatch = dispatch_checks(stamp)
-    enc_stage = encoder_stage(cfg, images[-1], stamp)
+    torch.cuda.empty_cache()
+    seed0 = build_codetr(cfg, device=DEVICE, seed=SEED)
+    enc_stage = encoder_stage(seed0, cfg, images[-1], stamp)
+    reference = reference_phase(seed0, cfg, images[-1], stamp)
+    del seed0
+    gc.collect()
+    torch.cuda.empty_cache()
     gbench = gatherbench_phase(stamp, builds[KERNELS.index("gatherbench")])
     held["after the shift-window and gatherbench phases"] = torch.cuda.memory_allocated()
     print("memory allocated, GiB: " + ", ".join(f"{k} {v / 2**30:.4f}" for k, v in held.items())
@@ -3069,6 +3295,8 @@ def main() -> int:
         # kernels from its trace (K1's encoder and decoder entries)
         "launches_attribution_full_replay": attribution["model"]["records"]["full"]["traced"]["port_kernels"],
         "rehearsal_taps": rehearsed["k1"],
+        # the msda_impl="reference" Swin-L model (plain versions, no kernel) against this one
+        "msda_impl_reference": reference,
         "staged_share": {"microbenchmark": bench_share["fwd"], "swin_l_encoder": enc_stage["staged_share"],
                          "rehearsal_bf16_reader": rehearsed["record"]["staged_share"]["overall"],
                          "tile_adversarial": {k: r["staged_share"] for k, r in adversarial.items()}},
@@ -3103,6 +3331,27 @@ def main() -> int:
         "max_abs_err_tile_adversarial": {k: r["fwd_qm"] for k, r in adversarial.items()},
         "card": stamp,
     }, {
+        "name": "msda_qm_correction",
+        "route": "cuda",
+        "source": "codetr_torch/csrc/msda_fwd.cu",
+        "replaces": "codetr_tpu/ops/msda_win.py:605",
+        "entry": "msda_qm_correction_fwd",
+        "launches": enc_stage["launches"]["msda_qm_correction_fwd"],  # the grid_pallas encoder stage's
+        "max_abs_err": max(dispatch["correction"][k]["max_abs_err_fp32"] for k in ("far", "sparse")),
+        "max_abs_err_bf16": max(dispatch["correction"][k]["max_abs_err_bf16"] for k in ("far", "sparse")),
+        # one fp32 encoder stage's work: one call per layer, on taps as sparse
+        # out of the envelope as the Swin-L encoder's own
+        "ms": n_enc * dispatch["correction"]["sparse"]["ms"],
+        "plain_ms": n_enc * dispatch["correction"]["sparse"]["plain_ms"],
+        "bound_ms": n_enc * dispatch["correction"]["sparse"]["bound_ms"],
+        "bound_by": dispatch["correction"]["sparse"]["bound_by"],
+        "library_ms": None,
+        "per_call": dispatch["correction"],
+        "design": "K3's tiled loop (msda_tiles.cuh) with CorrectionCoords: no window staged; a block returns at "
+                  "once when the device count is 0, a warp skips each round with no live tap, x and y read only "
+                  "under a nonzero weight; adds into K4's output in place",
+        "card": stamp,
+    }, {
         "name": "msda_bwd",
         "route": "cuda",
         "source": "codetr_torch/csrc/msda_bwd.cu",
@@ -3135,8 +3384,9 @@ def main() -> int:
         "source": "codetr_torch/csrc/msda_shift_fwd.cu",
         "replaces": "codetr_tpu/ops/msda_pallas.py:466",
         "launches": enc_stage["launches"]["msda_shift_fwd"],  # the encoder stage's
-        "max_abs_err": max(e["max_abs_err_fp32"] for e in shift_errs.values()),
-        "checked_at": [f"{h}x{w} radius {r} max_window {m}" for (h, w), r, m in shift_errs],
+        "max_abs_err": max([e["max_abs_err_fp32"] for e in shift_errs.values()] + [grid_shift["max_abs_err_fp32"]]),
+        "checked_at": [f"{h}x{w} radius {r} max_window {m}" for (h, w), r, m in shift_errs]
+        + [f"msda_grid_shift {HEIGHT}x{WIDTH} radius {GRID_RADIUS} max_window None, tile-adversarial"],
         # one fp32 encoder stage's work: one call per encoder layer
         "ms": n_enc * per_call_shift["encoder"]["ms"],
         "plain_ms": n_enc * per_call_shift["encoder"]["plain_ms"],
@@ -3144,11 +3394,16 @@ def main() -> int:
         "bound_by": per_call_shift["encoder"]["bound_by"],
         "library_ms": None,
         "per_call": per_call_shift,
-        "max_abs_err_bf16": max(e["max_abs_err_bf16"] for e in shift_errs.values()),
-        "dispatch_rel_err": {k: v for k, v in dispatch.items() if k != "out_of_envelope"},
+        "max_abs_err_bf16": max([e["max_abs_err_bf16"] for e in shift_errs.values()]
+                                + [grid_shift["max_abs_err_bf16"]]),
+        "dispatch_rel_err": {k: v for k, v in dispatch.items()
+                             if k not in ("out_of_envelope", "correction", "captured_counts")},
         "out_of_envelope_count": {"dispatch": dispatch["out_of_envelope"],
-                                  "encoder_layers": enc_stage["out_of_envelope"]},
+                                  "encoder_layers": enc_stage["out_of_envelope"],
+                                  "encoder_layers_replay": enc_stage["out_of_envelope_replay"]},
+        # eager calls (host clock) and replays of the stage captured whole (CUDA events)
         "encoder_stage_ms": enc_stage["ms"],
+        "encoder_stage_rel_err": {"eager": enc_stage["err"], "captured": enc_stage["err_captured"]},
         "design": "shared-memory query tiles (msda_tiles.cuh's loop) with windows around the anchors "
                   "(shift_tile_plan)",
         "staged_share": {"timing_taps": per_call_shift["staged_share"],

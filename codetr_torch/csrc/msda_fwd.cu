@@ -58,12 +58,29 @@
 // memory; the shuffles, loads and instructions per tap, and enough warps
 // in flight to hide their latency, set its pace (PERF.md).
 //
-// Three C entry points:
+// The correction entry (msda_qm_correction_fwd) is K3's loop once more,
+// for the grid impls' corrected dispatch (ops/msda.py:msda_grid_qm): the
+// shift-window function (K4) is exact only inside its window envelope, so
+// the dispatcher masks the taps outside it out of K4's call and this entry
+// adds their exact sum into K4's output in place.  It takes the q-minor
+// coordinates with those taps' weights (every other weight 0) and the
+// device count of the taps outside the envelope, so nothing is decided on
+// the host and the call can be captured in a CUDA graph (the JAX package
+// decides it under lax.cond).  Its plan stages no window (a few taps in
+// ten thousand are out, scattered) and its blocks are of 8 warps, not 32; a
+// block returns at once when the count is 0, a warp skips each round in
+// which no tap has a weight, a lane reads x and y only under a nonzero
+// weight, and only the output elements a corrected tap added to are read
+// and written.
+//
+// Four C entry points:
 //   msda_packed_fwd: the encoder's packed (bs, K, C) [x(HLP) | y(HLP) |
 //                    w(HLP) | pad] tensor, HLP = heads*levels*points in
 //                    (h, L, P) order (K1's contract), plus the tile plan.
 //   msda_qm_fwd:     q-minor x, y and w, each (bs, h, L, P, K) (K3's
 //                    contract), plus the same tile plan.
+//   msda_qm_correction_fwd: msda_qm_fwd's arguments plus the count (one
+//                    int64 on the device); adds into out in place.
 //   msda_fwd:        the reference layout, sampling_locations
 //                    (bs, Q, h, L, P, 2) and attention_weights
 //                    (bs, Q, h, L, P).
@@ -270,6 +287,28 @@ extern "C" int msda_qm_fwd(const void* value, const void* x, const void* y,
                            const int* off_b, const int* off_acc, int halo,
                            int smem_bytes, void* stream) {
   const QminorCoords co{(const float*)x, (const float*)y, (const float*)w};
+  return tile_fwd_entry(value, co, HaloGeo{}, out, dtype, bs, K, H, D, L, P, level_h, level_w,
+                        tile_h, tile_w, win_h, win_w, staged, off_b, off_acc, halo, smem_bytes,
+                        stream);
+}
+
+// The correction: msda_qm_fwd's contract with w the weights of the taps to
+// correct (0 elsewhere) and count (int64, on the device) their number; adds
+// their exact MSDA into out, which holds the window call's result, in place.
+// The plan stages no window (ops/msda_tiles.py:correction_plan).
+extern "C" int msda_qm_correction_fwd(const void* value, const void* x, const void* y,
+                                      const void* w, const void* count, void* out, int dtype,
+                                      int bs, int K, int H, int D, int L, int P,
+                                      const int* level_h, const int* level_w,
+                                      const int* tile_h, const int* tile_w, const int* win_h,
+                                      const int* win_w, const int* staged, const int* off_b,
+                                      const int* off_acc, int halo, int smem_bytes,
+                                      void* stream) {
+  CorrectionCoords co;
+  co.x = (const float*)x;
+  co.y = (const float*)y;
+  co.w = (const float*)w;
+  co.count = (const long long*)count;
   return tile_fwd_entry(value, co, HaloGeo{}, out, dtype, bs, K, H, D, L, P, level_h, level_w,
                         tile_h, tile_w, win_h, win_w, staged, off_b, off_acc, halo, smem_bytes,
                         stream);

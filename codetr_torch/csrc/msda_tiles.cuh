@@ -2,7 +2,8 @@
 // kernels read it, the window copy into shared memory, one tap's geometry,
 // and the tiled forward kernel itself (msda_tile_fwd_kernel), which
 // msda_fwd.cu instantiates for the packed (K1) and q-minor (K3) entries and
-// msda_shift_fwd.cu for the shift-window function (K4); msda_bwd.cu's
+// K3's correction entry (CorrectionCoords), and msda_shift_fwd.cu for the
+// shift-window function (K4); msda_bwd.cu's
 // packed entry (K2) shares the rest.
 //
 // The plan comes from codetr_torch/ops/msda_tiles.py:encoder_tile_plan (K4:
@@ -30,6 +31,11 @@
 // lane takes 1/S of them, so that its registers still fit the SM
 #define TILE_FWD_WARPS 32
 #define TILE_BWD_WARPS 32
+// the correction entry's blocks (CorrectionCoords): it reads a few corners
+// and stages nothing, so smaller blocks, four of them resident on an SM
+// instead of one, hide its weight loads better (2.1x at 8 warps against 32
+// on the card, chip_smoke.py; PERF.md)
+#define TILE_CORRECTION_WARPS 8
 
 struct TilePlan {
   int n;  // levels
@@ -280,6 +286,7 @@ __device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) { *p =
 // keeps a pointer, as K1's own loop did: a 64-bit offset from cpk instead
 // measured ~6% slower in fp32 on the card (PERF.md).
 struct PackedCoords {
+  static constexpr bool kCorrection = false;
   const float* cpk;
   int C, HLP;
   struct Lane {
@@ -303,6 +310,7 @@ struct PackedCoords {
 // round hold consecutive queries of a tile row, so each load touches a few
 // consecutive 32-byte sectors per point.  Scalar loads: no row alignment.
 struct QminorCoords {
+  static constexpr bool kCorrection = false;
   const float *x, *y, *w;
   struct Lane {
     long long off;
@@ -317,6 +325,30 @@ struct QminorCoords {
     xv = __ldg(x + o);
     yv = __ldg(y + o);
     a = __ldg(w + o);
+  }
+};
+
+// Coordinates, policy 3: the correction entry of K3 (msda_fwd.cu,
+// msda_qm_correction_fwd), q-minor as policy 2, its weights zero on every tap
+// the window call already summed.  The kernel instantiated with it
+// (kCorrection) returns at once when the device count of the taps to
+// correct is 0, masks out every tap whose weight is 0 before any corner is
+// read (a round with no live tap is skipped whole), and adds its sums into
+// the window call's output in place.  A lane reads a tap's x and y only
+// when its weight is not 0.
+struct CorrectionCoords : QminorCoords {
+  static constexpr bool kCorrection = true;
+  const long long* count;  // taps outside the window envelope, on the device
+  __device__ __forceinline__ bool idle() const { return __ldg(count) == 0; }
+  __device__ __forceinline__ void load(const Lane& ln, int key, int lt, int P, int K, float& xv,
+                                       float& yv, float& a) const {
+    const long long o = ln.off + (long long)lt * P * K + key;
+    a = __ldg(w + o);
+    xv = yv = 0.f;
+    if (a != 0.f) {
+      xv = __ldg(x + o);
+      yv = __ldg(y + o);
+    }
   }
 };
 
@@ -359,6 +391,9 @@ msda_tile_fwd_kernel(const T* __restrict__ value,  // (bs, K, H, D)
                      const TilePlan tp, int K, int H, int D, int P, int vec16) {
   extern __shared__ __align__(16) unsigned char smem[];
   const unsigned full = 0xffffffffu;
+  if constexpr (Coords::kCorrection) {
+    if (co.idle()) return;  // the whole block: no tap to correct
+  }
   const TileCoord tc = tile_coord(tp, blockIdx.x);
   const long long b = blockIdx.z;
   const int head = blockIdx.y;
@@ -412,7 +447,19 @@ msda_tile_fwd_kernel(const T* __restrict__ value,  // (bs, K, H, D)
       else load_tap(lt + 1 < L ? lt + 1 : lt, lt + 1 < L ? 0 : wq.rounds, jn, xn, yn, an);
       // this lane's tap: corner weights (0 for a corner that does not
       // contribute), first corner's key and window pixel, corner mask
-      const Tap g = geo.tap(tp, tc, jr, lt, xr, yr, win);
+      if constexpr (Coords::kCorrection) {
+        if (__ballot_sync(full, ar != 0.f) == 0u) {  // no tap to correct this round
+          jr = jn;
+          xr = xn;
+          yr = yn;
+          ar = an;
+          continue;
+        }
+      }
+      Tap g = geo.tap(tp, tc, jr, lt, xr, yr, win);
+      if constexpr (Coords::kCorrection) {
+        if (ar == 0.f) g.mask = 0u;  // summed by the window call, or no query
+      }
       const float w00 = g.mask & 1u ? (1.f - g.tx) * (1.f - g.ty) * ar : 0.f;
       const float w10 = g.mask & 2u ? g.tx * (1.f - g.ty) * ar : 0.f;
       const float w01 = g.mask & 4u ? (1.f - g.tx) * g.ty * ar : 0.f;
@@ -476,7 +523,15 @@ msda_tile_fwd_kernel(const T* __restrict__ value,  // (bs, K, H, D)
 
   for (int j = wq.lo; j < wq.hi; ++j) {
     T* orow = out + ((b * K + tile_query(tp, tc, j)) * H + head) * (long long)D;
-    for (int ch = lane; ch < D; ch += 32) store_from_f32(orow + ch, acc[j * D + ch]);
+    for (int ch = lane; ch < D; ch += 32) {
+      if constexpr (Coords::kCorrection) {
+        // in place, only where a corrected tap added something
+        const float a = acc[j * D + ch];
+        if (a != 0.f) store_from_f32(orow + ch, to_f32(orow[ch]) + a);
+      } else {
+        store_from_f32(orow + ch, acc[j * D + ch]);
+      }
+    }
   }
 }
 
@@ -518,22 +573,23 @@ static int tile_fwd_entry(const void* value, const Coords& co, const Geo& geo, v
   const int vec16 = (uintptr_t)value % 16 == 0 && (D * elem) % 16 == 0;
   const dim3 grid((unsigned)tp.tile_start[L], (unsigned)H, (unsigned)bs);
   cudaStream_t s = (cudaStream_t)stream;
+  constexpr int W = Coords::kCorrection ? TILE_CORRECTION_WARPS : TILE_FWD_WARPS;
   if (dtype == 0) {
     if (D <= 32)
-      return launch_tile_fwd<float, 1, TILE_FWD_WARPS>(grid, smem_bytes, s, value, co, geo, out,
-                                                       tp, K, H, D, P, vec16);
+      return launch_tile_fwd<float, 1, W>(grid, smem_bytes, s, value, co, geo, out, tp, K, H, D, P,
+                                          vec16);
     if (D <= 64)
-      return launch_tile_fwd<float, 2, TILE_FWD_WARPS / 2>(grid, smem_bytes, s, value, co, geo,
-                                                           out, tp, K, H, D, P, vec16);
-    return launch_tile_fwd<float, 4, TILE_FWD_WARPS / 4>(grid, smem_bytes, s, value, co, geo, out,
-                                                         tp, K, H, D, P, vec16);
+      return launch_tile_fwd<float, 2, W / 2>(grid, smem_bytes, s, value, co, geo, out, tp, K, H, D,
+                                              P, vec16);
+    return launch_tile_fwd<float, 4, W / 4>(grid, smem_bytes, s, value, co, geo, out, tp, K, H, D,
+                                            P, vec16);
   }
   if (D <= 32)
-    return launch_tile_fwd<__nv_bfloat16, 1, TILE_FWD_WARPS>(grid, smem_bytes, s, value, co, geo,
-                                                             out, tp, K, H, D, P, vec16);
+    return launch_tile_fwd<__nv_bfloat16, 1, W>(grid, smem_bytes, s, value, co, geo, out, tp, K, H,
+                                                D, P, vec16);
   if (D <= 64)
-    return launch_tile_fwd<__nv_bfloat16, 2, TILE_FWD_WARPS / 2>(grid, smem_bytes, s, value, co,
-                                                                 geo, out, tp, K, H, D, P, vec16);
-  return launch_tile_fwd<__nv_bfloat16, 4, TILE_FWD_WARPS / 4>(grid, smem_bytes, s, value, co, geo,
-                                                               out, tp, K, H, D, P, vec16);
+    return launch_tile_fwd<__nv_bfloat16, 2, W / 2>(grid, smem_bytes, s, value, co, geo, out, tp,
+                                                    K, H, D, P, vec16);
+  return launch_tile_fwd<__nv_bfloat16, 4, W / 4>(grid, smem_bytes, s, value, co, geo, out, tp, K,
+                                                  H, D, P, vec16);
 }

@@ -6,9 +6,9 @@ checkpoints.  Coordinates, offsets and attention weights are float32 in every
 compute dtype (bf16 locations would quantise to ~0.6 px at stride 4).
 
 With ``grid_queries=True`` (encoder self-attention, queries = the
-level-concatenated pixel grid) and ``impl="auto"`` the coordinates are
-packed into one (bs, K, 3*HLP) tensor [x(HLP) | y(HLP) | w(HLP)] for
-``msda_grid_packed``; otherwise (decoder cross-attention, 4-coordinate
+level-concatenated pixel grid) and ``impl="auto"`` or ``"reference"`` the
+coordinates are packed into one (bs, K, 3*HLP) tensor [x(HLP) | y(HLP) |
+w(HLP)] for ``msda_grid_packed``; otherwise (decoder cross-attention, 4-coordinate
 reference boxes) they go through the reference-layout
 ``multi_scale_deformable_attention``.  Both reach the same CUDA kernel on
 the card.  With grid queries and ``impl="grid"`` or ``"grid_pallas"`` (the
@@ -17,6 +17,10 @@ q-minor pipeline into ``msda_grid_qm(impl=...)``: offsets divided by the
 level sizes, the softmax over each head's taps on the q-minor layout, the
 window radius ``grid_radius`` (None: ``cfg.grid_radius``).  Those impls
 need grid queries: a module built with one and without them raises.
+``impl="reference"`` (the JAX package's exact-oracle option, chosen by name,
+never reached from ``"auto"``) keeps both pipelines and runs the plain
+versions (``msda_grid_packed_plain``, ``multi_scale_deformable_attention_plain``)
+on any device: no kernel is launched.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from torch import nn
 from codetr_torch.config import MSDAConfig
 from codetr_torch.ops.msda import (
     GRID_MAX_WINDOW,
+    MSDA_IMPLS,
     msda_grid_packed,
     msda_grid_qm,
     multi_scale_deformable_attention,
@@ -80,9 +85,9 @@ class MultiScaleDeformableAttention(nn.Module):
     def __init__(self, cfg: MSDAConfig, grid_queries: bool = False, impl: str = "auto",
                  grid_radius: Optional[int] = None):
         super().__init__()
-        if impl != "auto" and impl not in GRID_MAX_WINDOW:
+        if impl not in MSDA_IMPLS:
             raise ValueError(f"unknown MSDA impl {impl!r}")
-        if impl != "auto" and not grid_queries:
+        if impl in GRID_MAX_WINDOW and not grid_queries:
             raise ValueError(f"impl={impl!r} requires grid queries")
         self.cfg = cfg
         self.grid_queries = grid_queries
@@ -141,7 +146,7 @@ class MultiScaleDeformableAttention(nn.Module):
         raw_attn = self.attention_weights(query).float()
         ref = reference_points.float()
 
-        if self.grid_queries and self.impl != "auto":
+        if self.grid_queries and self.impl in GRID_MAX_WINDOW:
             if ref.shape != (bs, nq, L, 2):
                 raise ValueError(f"grid queries take (bs, K, L, 2) refs, got {tuple(ref.shape)}")
             # q-minor: the query axis last in every coordinate tensor
@@ -159,7 +164,8 @@ class MultiScaleDeformableAttention(nn.Module):
         if self.grid_queries:
             if ref.shape != (bs, nq, L, 2):
                 raise ValueError(f"grid queries take (bs, K, L, 2) refs, got {tuple(ref.shape)}")
-            out = msda_grid_packed(v, spatial_shapes, self.packed_coords(off, raw_attn, ref, spatial_shapes), P)
+            out = msda_grid_packed(v, spatial_shapes, self.packed_coords(off, raw_attn, ref, spatial_shapes), P,
+                                   impl=self.impl)
         else:
             attn = raw_attn.reshape(bs, nq, h, L * P).softmax(-1).reshape(bs, nq, h, L, P)
             if ref.shape[-1] == 2:
@@ -169,5 +175,5 @@ class MultiScaleDeformableAttention(nn.Module):
                 loc = ref[:, :, None, :, None, :2] + off / P * ref[:, :, None, :, None, 2:] * 0.5
             else:
                 raise ValueError(f"reference_points last dim must be 2 or 4, got {ref.shape[-1]}")
-            out = multi_scale_deformable_attention(v, spatial_shapes, loc.contiguous(), attn)
+            out = multi_scale_deformable_attention(v, spatial_shapes, loc.contiguous(), attn, impl=self.impl)
         return self.output_proj(out.to(query.dtype)) + identity

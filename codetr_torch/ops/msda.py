@@ -8,19 +8,24 @@ outside the level contribute zero.  Results are exact for any offset.
 
 Three public entry points keep the JAX package's signatures and layouts:
 
-- ``msda_grid_packed(value, spatial_shapes, cpk, num_points)``: the
-  encoder's packed coordinates ``cpk`` (bs, K, C) = [x(HLP) | y(HLP) |
+- ``msda_grid_packed(value, spatial_shapes, cpk, num_points, impl="auto")``:
+  the encoder's packed coordinates ``cpk`` (bs, K, C) = [x(HLP) | y(HLP) |
   w(HLP) | pad], HLP = heads*levels*points in (h, L, P) order.
 - ``msda_grid_qm(value, spatial_shapes, x, y, w, impl="auto")``: grid
   queries on q-minor coordinates, x, y and w each (bs, h, L, P, K);
   ``impl="grid"`` / ``"grid_pallas"`` take the shift-window function of
   ``ops/msda_grid.py`` (kernel ``csrc/msda_shift_fwd.cu``) plus an exact
-  correction of the taps outside its window.
+  correction of the taps outside its window, decided on the device (K3's
+  correction entry, ``msda_qm_correction_fwd``).
 - ``multi_scale_deformable_attention(value, spatial_shapes,
   sampling_locations, attention_weights, grid_queries=False)``: the
   reference layout, locations (bs, Q, h, L, P, 2) and weights
   (bs, Q, h, L, P) (the decoder); with ``grid_queries=True`` they are moved
   to q-minor for ``msda_grid_qm``.
+
+``impl="reference"`` (the packed and reference-layout entries, and every
+layer of a model built with ``msda_impl="reference"``) is the JAX package's
+exact-oracle option: the plain version on any device, no kernel.
 
 ``value`` is (bs, K, h, d) in float32 or bfloat16, coordinates and weights
 are float32, and the result is (bs, Q, h*d) in the value's dtype, with fp32
@@ -34,9 +39,9 @@ two that ``CoDETR.forward`` reaches, are ``torch.library`` custom ops
 (``codetr::msda_packed``, ``codetr::msda_reference``), so that an exported
 program keeps them; the q-minor entry keeps a ``torch.autograd.Function``.
 ``launches`` counts the packed and reference-layout forward launches,
-``launches_qm`` the q-minor ones, ``launches_shift`` the shift-window ones
-and ``launches_bwd`` every backward launch (callers reset them to 0 and
-read them).
+``launches_qm`` the q-minor ones, ``launches_shift`` the shift-window ones,
+``launches_correction`` the correction entry's and ``launches_bwd`` every
+backward launch (callers reset them to 0 and read them).
 """
 
 from __future__ import annotations
@@ -55,8 +60,10 @@ launches = 0
 launches_qm = 0
 launches_bwd = 0
 launches_shift = 0
-# out-of-envelope taps of the last corrected grid-impl msda_grid_qm call
-last_out_of_envelope = 0
+launches_correction = 0
+# out-of-envelope taps of the last corrected grid-impl msda_grid_qm call: a
+# 0-dim int64 tensor on the call's device (reading it on the host syncs)
+last_out_of_envelope = None
 
 _MAX_LEVELS = 8
 _MAX_HEAD_DIM = 128
@@ -216,6 +223,9 @@ def _fwd_lib() -> ctypes.CDLL:
     lib.msda_fwd.restype = i
     lib.msda_qm_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ip, ip, *_PLAN_ARGTYPES, p]
     lib.msda_qm_fwd.restype = i
+    lib.msda_qm_correction_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, ip, ip,
+                                           *_PLAN_ARGTYPES, p]
+    lib.msda_qm_correction_fwd.restype = i
     return lib
 
 
@@ -377,6 +387,35 @@ def _launch_qm(value, spatial_shapes, x, y, w):
     return out
 
 
+def _launch_correction(value, spatial_shapes, x, y, w, count, out):
+    """K3's correction entry: adds the exact MSDA of the taps whose weight
+    in ``w`` is not 0 into ``out`` (bs, K, h*d), the window call's result,
+    in place, and returns it.  ``count`` is the number of those taps, a
+    0-dim int64 tensor on the card; the kernel's blocks return at once when
+    it is 0.  Reads nothing on the host."""
+    global launches_correction
+    _kernel_checks(value, spatial_shapes, x, y, w, out)
+    bs, K, h, d = value.shape
+    L, P = x.shape[2], x.shape[3]
+    if out.shape != (bs, K, h * d) or out.dtype != value.dtype:
+        raise ValueError(f"out must be ({bs}, {K}, {h * d}) {value.dtype}, got {tuple(out.shape)} {out.dtype}")
+    if count.dtype != torch.int64 or count.numel() != 1 or count.device != value.device:
+        raise ValueError(f"count must be one int64 on {value.device}, got {count.dtype} {tuple(count.shape)} "
+                         f"on {count.device}")
+    lib = _fwd_lib()
+    plan = msda_tiles.correction_plan(spatial_shapes, value.dtype, head_dim=d, points=P)
+    hs, ws = _level_arrays(spatial_shapes)
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.msda_qm_correction_fwd(
+            value.data_ptr(), x.data_ptr(), y.data_ptr(), w.data_ptr(), count.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[value.dtype], bs, K, h, d, L, P, hs, ws, *_plan_args(plan), stream,
+        )
+    _raise_on(err, "msda_qm_correction_fwd")
+    launches_correction += 1
+    return out
+
+
 def _launch_qm_bwd(value, spatial_shapes, x, y, w, grad_out):
     """-> (grad_value in the value's dtype, grad_x, grad_y, grad_w), fp32
     coordinate gradients in the q-minor layout."""
@@ -525,14 +564,23 @@ def msda_grid_packed(
     spatial_shapes: Shapes,
     cpk: torch.Tensor,  # (bs, K, C) fp32 [x(HLP) | y(HLP) | w(HLP) | pad]
     num_points: int,
+    *,
+    impl: str = "auto",
 ) -> torch.Tensor:
-    """Grid-query (encoder) MSDA on packed coordinates -> (bs, K, h*d)."""
+    """Grid-query (encoder) MSDA on packed coordinates -> (bs, K, h*d).
+    ``impl="auto"``: the packed kernel (K1's counterpart) on the card, the
+    plain version on the CPU; ``"reference"`` runs the plain version
+    ``msda_grid_packed_plain`` on any device."""
     _check(value, spatial_shapes, cpk)
     bs, K, h, _ = value.shape
     HLP = h * len(spatial_shapes) * num_points
     if cpk.dim() != 3 or cpk.shape[:2] != (bs, K) or cpk.shape[2] < 3 * HLP:
         raise ValueError(f"cpk must be ({bs}, {K}, >={3 * HLP}), got {tuple(cpk.shape)}")
     _route(value)
+    if impl == "reference":
+        return msda_grid_packed_plain(value, spatial_shapes, cpk, num_points)
+    if impl != "auto":
+        raise ValueError(f"unknown packed MSDA impl {impl!r}")
     return _packed_op(value, cpk, _flat_shapes(spatial_shapes), num_points)
 
 
@@ -549,6 +597,8 @@ def _check_qm(value, spatial_shapes, x, y, w) -> None:
 
 # the shift-window impls and their coarse-pair escape (ops/msda_grid.py)
 GRID_MAX_WINDOW = {"grid": None, "grid_pallas": 31}
+# every MSDA layer's impl (the JAX package's msda_impl)
+MSDA_IMPLS = ("auto", "reference", *GRID_MAX_WINDOW)
 
 
 def msda_grid_qm(
@@ -572,10 +622,15 @@ def msda_grid_qm(
     coarse-pair escape, ``"grid_pallas"`` with it at ``max_window=31``),
     exact for taps inside its window envelope of ``radius`` px.  With
     ``envelope="correct"`` the taps outside it are masked out of the window
-    call and their exact contribution is added back by the ``"auto"`` path
-    (K3 on the card), so the result is exact for any offset; the correction
-    runs only when one on-device count of those taps, read once on the
-    host, is above 0 (the count is kept in ``last_out_of_envelope``).
+    call and their exact contribution is added back, so the result is exact
+    for any offset.  Nothing is read on the host, so the call can be
+    captured: the count of those taps stays on the device
+    (``last_out_of_envelope``), and on the card the correction entry of K3
+    (``_launch_correction``) is launched every time, adds into the window
+    call's output in place, and returns at once when the count is 0 (the
+    JAX package's ``lax.cond``); on the CPU the plain correction is added
+    unconditionally (in-envelope weights are 0 in it).  The gradient is the
+    exact MSDA's, one launch of the backward kernel on q-minor strides.
     ``envelope="unchecked"`` returns the truncated window function.
 
     ``impl="win"`` is the JAX package's windowed TPU kernel, whose envelope
@@ -605,12 +660,13 @@ def msda_grid_qm(
         return msda_grid.msda_grid_shift_qm(value, spatial_shapes, x, y, w,
                                             radius=radius, max_window=max_window)
     mask = msda_grid.envelope_mask(spatial_shapes, x, y, radius=radius, max_window=max_window)
-    out = msda_grid.msda_grid_shift_qm(value, spatial_shapes, x, y, torch.where(mask, w, 0.0),
-                                       radius=radius, max_window=max_window)
-    last_out_of_envelope = int((~mask).sum().item())
-    if last_out_of_envelope:
-        out = out + msda_grid_qm(value, spatial_shapes, x, y, torch.where(mask, 0.0, w))
-    return out
+    last_out_of_envelope = (~mask).sum()
+    if _route(value) == "cpu":
+        out = msda_grid.msda_grid_shift_qm(value, spatial_shapes, x, y, torch.where(mask, w, 0.0),
+                                           radius=radius, max_window=max_window)
+        return out + msda_reference_qm(value, spatial_shapes, x, y, torch.where(mask, 0.0, w))
+    return msda_grid.CorrectedShiftMSDA.apply(value, x, y, w, mask, last_out_of_envelope,
+                                              msda_grid._key(spatial_shapes), int(radius), max_window)
 
 
 def multi_scale_deformable_attention(
@@ -627,8 +683,11 @@ def multi_scale_deformable_attention(
     """Reference-layout MSDA -> (bs, Q, h*d).  With ``grid_queries`` (Q = K,
     the level-concatenated pixel grid) the coordinates move to q-minor for
     ``msda_grid_qm(impl=impl, radius=grid_radius, envelope=envelope)``; the
-    grid impls need grid queries and raise without them."""
-    if impl != "auto" and not grid_queries:
+    grid impls need grid queries and raise without them.
+    ``impl="reference"`` runs the plain version
+    ``multi_scale_deformable_attention_plain`` on any device, with or
+    without grid queries (the JAX package's exact flat gather)."""
+    if impl not in ("auto", "reference") and not grid_queries:
         raise ValueError(f"impl={impl!r} requires grid queries")
     _check(value, spatial_shapes, sampling_locations, attention_weights)
     bs, _, h, _ = value.shape
@@ -642,6 +701,9 @@ def multi_scale_deformable_attention(
             f"sampling_locations {tuple(loc.shape)} / attention_weights "
             f"{tuple(attn.shape)} do not match value {tuple(value.shape)} and {L} levels"
         )
+    if impl == "reference":
+        _route(value)
+        return multi_scale_deformable_attention_plain(value, spatial_shapes, loc, attn)
     if grid_queries:
         qm = loc.permute(0, 2, 3, 4, 5, 1)  # (bs, h, L, P, 2, Q)
         return msda_grid_qm(value, spatial_shapes, qm[..., 0, :].contiguous(),

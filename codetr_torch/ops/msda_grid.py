@@ -36,7 +36,11 @@ staged in shared memory and serves every corner the truncated function
 reads, any other pair reads global memory under the same truncation.
 
 ``msda_grid_shift_qm`` takes q-minor (bs, h, L, P, K) fp32 coordinates and
-returns (bs, K, h*d) in the value's dtype.  For CPU tensors it runs the
+returns (bs, K, h*d) in the value's dtype; ``msda_grid_shift`` is its
+reference-layout wrapper (the JAX one, ``max_window=None``), and
+``CorrectedShiftMSDA`` the exact function as the corrected dispatch
+computes it on the card (K4, then K3's correction entry into K4's output).
+For CPU tensors ``msda_grid_shift_qm`` runs the
 plain version ``msda_shift_plain`` (its gradient is autograd's, the
 truncated function's, as the JAX ``impl="grid"``'s); for CUDA tensors it
 launches ``csrc/msda_shift_fwd.cu`` inside a ``torch.autograd.Function``
@@ -383,6 +387,30 @@ class _ShiftMSDA(torch.autograd.Function):
         return (*_msda._launch_qm_bwd(value, ctx.spatial_shapes, x, y, w, grad_out), None, None, None)
 
 
+class CorrectedShiftMSDA(torch.autograd.Function):
+    """The exact MSDA as the corrected dispatch (``ops/msda.py:msda_grid_qm``)
+    computes it on the card: K4 on the in-envelope taps' weights
+    (``mask``), then K3's correction entry on the others' into K4's output
+    in place, launched every time (its blocks return at once when the
+    device ``count`` is 0), no host read.  The function is the exact MSDA,
+    so its gradient is the exact backward kernel on q-minor strides with
+    the full weights, one launch."""
+
+    @staticmethod
+    def forward(ctx, value, x, y, w, mask, count, spatial_shapes, radius, max_window):
+        ctx.save_for_backward(value, x, y, w)
+        ctx.spatial_shapes = spatial_shapes
+        out = _launch_shift(value, spatial_shapes, x, y, torch.where(mask, w, 0.0), radius, max_window)
+        return _msda._launch_correction(value, spatial_shapes, x, y, torch.where(mask, 0.0, w), count, out)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        value, x, y, w = ctx.saved_tensors
+        grads = _msda._launch_qm_bwd(value, ctx.spatial_shapes, x, y, w, grad_out)
+        return (*grads, None, None, None, None, None)
+
+
 def msda_grid_shift_qm(
     value: torch.Tensor,  # (bs, K, h, d)
     spatial_shapes: Shapes,
@@ -400,3 +428,27 @@ def msda_grid_shift_qm(
     if _msda._route(value) == "cpu":
         return msda_shift_plain(value, spatial_shapes, x, y, w, radius, max_window)
     return _ShiftMSDA.apply(value, x, y, w, _key(spatial_shapes), int(radius), max_window)
+
+
+def msda_grid_shift(
+    value: torch.Tensor,  # (bs, K, h, d)
+    spatial_shapes: Shapes,
+    sampling_locations: torch.Tensor,  # (bs, Q=K, h, L, P, 2) fp32 normalised
+    attention_weights: torch.Tensor,  # (bs, Q=K, h, L, P) fp32
+    *,
+    radius: int = 4,
+) -> torch.Tensor:
+    """The reference-layout wrapper over ``msda_grid_shift_qm`` -> (bs, K,
+    h*d): the JAX ``msda_grid_shift``, the truncated shift-window function
+    without the coarse-pair escape (``max_window=None``, the JAX
+    ``impl="grid"``).  The queries must be the key grid (Q = K); raises
+    ``ValueError`` otherwise.  On the card it launches K4; on the CPU it
+    runs ``msda_shift_plain``."""
+    loc = sampling_locations
+    if loc.dim() != 6 or loc.shape[1] != value.shape[1]:
+        raise ValueError(f"msda_grid_shift takes grid queries, sampling_locations (bs, K={value.shape[1]}, h, L, "
+                         f"P, 2); got {tuple(loc.shape)}")
+    qm = loc.permute(0, 2, 3, 4, 5, 1)  # (bs, h, L, P, 2, K)
+    return msda_grid_shift_qm(value, spatial_shapes, qm[..., 0, :].contiguous(), qm[..., 1, :].contiguous(),
+                              attention_weights.permute(0, 2, 3, 4, 1).contiguous(), radius=radius,
+                              max_window=None)

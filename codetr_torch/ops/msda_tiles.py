@@ -39,15 +39,17 @@ K1's: no shared-memory region for coordinates.  K4 keeps the tiles and the
 layout, and places its windows around its anchors (``plan_for_windows``
 with per-tile ``origins``).
 
-``encoder_tile_plan`` builds the plan (cached); ``staged_share`` counts,
-for a set of taps, the share of nonzero-weight corner reads that the plan
-serves from shared memory.  Nothing here needs a card.
+``encoder_tile_plan`` builds the plan (cached), ``correction_plan`` the
+same tiles with no window staged for K3's correction entry;
+``staged_share`` counts, for a set of taps, the share of nonzero-weight
+corner reads that the plan serves from shared memory.  Nothing here needs a
+card.
 """
 
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -248,6 +250,22 @@ def encoder_tile_plan(
     budget = SMEM_BUDGET if smem_budget is None else int(smem_budget)
     return _plan(shapes, _ELEMENT_SIZE[value_dtype], int(halo), budget, int(head_dim), int(points),
                  bool(backward))
+
+
+@functools.lru_cache(maxsize=16)
+def _unstaged(plan: TilePlan) -> TilePlan:
+    L = len(plan.shapes)
+    return replace(plan, staged=tuple((False,) * L for _ in range(L)), off_b=(0,) * L, off_acc=(0,) * L,
+                   smem_bytes=max(th * tw * plan.head_dim * 4 for th, tw in plan.tiles))
+
+
+def correction_plan(spatial_shapes: Shapes, value_dtype: torch.dtype, *, head_dim: int = 32,
+                    points: int = 4) -> TilePlan:
+    """The plan of K3's correction entry (``msda_qm_correction_fwd``):
+    ``encoder_tile_plan``'s tiles and windows with no pair staged, so that
+    a block's shared memory is its accumulator alone and its few corner
+    reads go to global memory (cached)."""
+    return _unstaged(encoder_tile_plan(spatial_shapes, value_dtype, head_dim=head_dim, points=points))
 
 
 @functools.lru_cache(maxsize=16)

@@ -547,8 +547,8 @@ def recording(name: str):
     real = getattr(msda_module, name)
     calls = []
 
-    def record(*args):
-        out = real(*args)
+    def record(*args, **kwargs):
+        out = real(*args, **kwargs)
         calls.append((args, out))
         return out
 

@@ -126,7 +126,7 @@ def capture_encoder_taps(keep: int = 0):
     calls: List[dict] = []
     packed = msda_module.msda_grid_packed
 
-    def capture(value, spatial_shapes, cpk, num_points):
+    def capture(value, spatial_shapes, cpk, num_points, **kwargs):
         plan = msda_tiles.encoder_tile_plan(spatial_shapes, value.dtype, head_dim=value.shape[3],
                                             points=num_points)
         call = {"share": msda_tiles.staged_share(
@@ -134,7 +134,7 @@ def capture_encoder_taps(keep: int = 0):
         if len(calls) < keep:
             call["taps"] = (value.clone(), tuple(spatial_shapes), cpk.clone(), num_points)
         calls.append(call)
-        return packed(value, spatial_shapes, cpk, num_points)
+        return packed(value, spatial_shapes, cpk, num_points, **kwargs)
 
     msda_module.msda_grid_packed = capture
     try:

@@ -220,10 +220,13 @@ def test_grid_gradients_match_jax_grid_vjp(impl):
 
 def test_cuda_routes_launch_the_shift_kernel_and_its_correction(monkeypatch):
     """The CUDA route with plain launchers in place of the kernels: the
-    corrected dispatch launches the shift kernel once and the q-minor
-    kernel once for its correction when taps lie outside the envelope, and
-    the shift kernel alone when none does; the shift kernel's gradient is
-    the backward kernel's (the untruncated function's VJP), one launch."""
+    corrected dispatch launches the shift kernel once and K3's correction
+    entry once, whether or not taps lie outside the envelope (with none
+    out, the correction's blocks return at once on the device count; the
+    stand-in adds nothing then), and no q-minor forward; the count stays a
+    tensor.  The shift kernel's gradient is the backward kernel's (the
+    untruncated function's VJP), one launch, and so is the corrected
+    call's."""
     def fake_shift(v, sh, xx, yy, ww, radius, max_window):
         port_msda.launches_shift += 1
         return msda_grid.msda_shift_plain(v, sh, xx, yy, ww, radius, max_window)
@@ -231,6 +234,10 @@ def test_cuda_routes_launch_the_shift_kernel_and_its_correction(monkeypatch):
     def fake_qm(v, sh, xx, yy, ww):
         port_msda.launches_qm += 1
         return port_msda.msda_reference_qm(v, sh, xx, yy, ww)
+
+    def fake_correction(v, sh, xx, yy, ww, count, out):
+        port_msda.launches_correction += 1
+        return out.add_(torch.where(count > 0, port_msda.msda_reference_qm(v, sh, xx, yy, ww), 0.0))
 
     def fake_qm_bwd(v, sh, xx, yy, ww, g):
         port_msda.launches_bwd += 1
@@ -240,25 +247,32 @@ def test_cuda_routes_launch_the_shift_kernel_and_its_correction(monkeypatch):
     monkeypatch.setattr(port_msda, "_route", lambda t: "cuda")
     monkeypatch.setattr(msda_grid, "_launch_shift", fake_shift)
     monkeypatch.setattr(port_msda, "_launch_qm", fake_qm)
+    monkeypatch.setattr(port_msda, "_launch_correction", fake_correction)
     monkeypatch.setattr(port_msda, "_launch_qm_bwd", fake_qm_bwd)
     shapes = ((8, 8), (4, 4))
-    for wild, want_launches in ((0.1, (1, 1)), (0.0, (1, 0))):
+    names = ("launches_shift", "launches_correction", "launches_qm", "launches_bwd")
+    for wild in (0.1, 0.0):
         value, x, y, w = as_torch(*wild_inputs(7, shapes, radius=2, jitter=1.5, wild=wild))
-        for name in ("launches_shift", "launches_qm", "launches_bwd"):
+        for name in names:
             monkeypatch.setattr(port_msda, name, 0)
         got = port_msda.msda_grid_qm(value, shapes, x, y, w, impl="grid_pallas", radius=2)
-        assert (port_msda.launches_shift, port_msda.launches_qm) == want_launches
+        assert (port_msda.launches_shift, port_msda.launches_correction, port_msda.launches_qm) == (1, 1, 0)
+        assert isinstance(port_msda.last_out_of_envelope, torch.Tensor)
         assert (port_msda.last_out_of_envelope > 0) == (wild > 0)
         assert_close_to_scale(got.numpy(), port_msda.msda_reference_qm(value, shapes, x, y, w).numpy())
 
-    leaves = [t.clone().requires_grad_() for t in (value, x, y, w)]
-    out = msda_grid._ShiftMSDA.apply(*leaves, shapes, 2, 31)
-    g = torch.from_numpy(np.random.default_rng(8).standard_normal(out.shape).astype(np.float32))
-    out.backward(g)
-    assert port_msda.launches_bwd == 1
+    value, x, y, w = as_torch(*wild_inputs(7, shapes, radius=2, jitter=1.5, wild=0.1))
+    g = np.random.default_rng(8).standard_normal((1, value.shape[1], value.shape[2] * value.shape[3]))
+    g = torch.from_numpy(g.astype(np.float32))
     want = fake_qm_bwd(value, shapes, x, y, w, g)
-    for leaf, wt in zip(leaves, want):
-        assert_close_to_scale(leaf.grad.numpy(), wt.numpy(), rtol=1e-6)
+    for call in (lambda *a: msda_grid._ShiftMSDA.apply(*a, shapes, 2, 31),
+                 lambda *a: port_msda.msda_grid_qm(a[0], shapes, *a[1:], impl="grid_pallas", radius=2)):
+        port_msda.launches_bwd = 0
+        leaves = [t.clone().requires_grad_() for t in (value, x, y, w)]
+        call(*leaves).backward(g)
+        assert port_msda.launches_bwd == 1
+        for leaf, wt in zip(leaves, want):
+            assert_close_to_scale(leaf.grad.numpy(), wt.numpy(), rtol=1e-6)
 
 
 def test_grid_impl_options_and_checks():

@@ -46,10 +46,10 @@ def perturbed_jax_params(seed: int = 0, cfg=None, input_shape=(64, 64)):
     )
 
 
-def port_from_jax(params, cfg=None) -> CoDETR:
+def port_from_jax(params, cfg=None, msda_impl="auto") -> CoDETR:
     cfg = cfg or tiny_test_config()
     sd = state_dict_from_jax(params, cfg)
-    model = CoDETR(cfg)
+    model = CoDETR(cfg, msda_impl)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
     return model.eval()
 
@@ -80,18 +80,19 @@ def jax_params():
     return perturbed_jax_params()
 
 
-def assert_model_matches_jax(jax_cfg, port_cfg, params, h, w, seed=1):
+def assert_model_matches_jax(jax_cfg, port_cfg, params, h, w, seed=1, msda_impl="auto"):
     """The JAX ``CoDETR`` (``msda_impl="auto"``: K1 in interpret mode) and
-    the port carrying the same params, on one seeded image with a padded
-    mask: neck features, encoder memory, class logits and decoder states
-    1e-4 relative, scores 2e-4, boxes 0.1 px set-wise."""
+    the port carrying the same params, both built with ``msda_impl``, on
+    one seeded image with a padded mask: neck features, encoder memory,
+    class logits and decoder states 1e-4 relative, scores 2e-4, boxes 0.1
+    px set-wise."""
     rng = np.random.default_rng(seed)
     img = rng.standard_normal((1, h, w, 3)).astype(np.float32)
     masks = np.zeros((1, h, w), np.float32)
     masks[:, int(h * 0.75):, :] = 1.0
     masks[:, :, int(w * 0.875):] = 1.0
 
-    model = JaxCoDETR(cfg=jax_cfg, msda_impl="auto")
+    model = JaxCoDETR(cfg=jax_cfg, msda_impl=msda_impl)
 
     def run(m, x, mk):
         feats = m.features(x)
@@ -107,7 +108,7 @@ def assert_model_matches_jax(jax_cfg, port_cfg, params, h, w, seed=1):
     # per-layer encoder outputs (n_layers, bs, K, C); the last one is the memory
     j_memory = state["intermediates"]["query_head"]["transformer"]["encoder_layers"]["__call__"][0][0][-1]
 
-    port = port_from_jax(params, port_cfg)
+    port = port_from_jax(params, port_cfg, msda_impl)
     with torch.no_grad():
         x, mk = torch.from_numpy(img), torch.from_numpy(masks)
         t_feats = port.features(x)
