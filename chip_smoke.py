@@ -6,7 +6,9 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
 Phases (any failure raises, and the script exits non-zero without a result):
 1. identify the card (nvidia-smi name and power limit, torch/CUDA versions);
 2. build the CUDA kernels from ``codetr_torch/csrc``, one nvcc each, all at
-   once (build seconds and ``-Xptxas -v`` printed), and print the encoder
+   once, with the C++ op library of phase 8b (``csrc/msda_ops.cpp`` linked
+   with ``csrc/msda_fwd.cu`` against libtorch; built here, loaded only by
+   8b's subprocess) (build seconds and ``-Xptxas -v`` printed), and print the encoder
    kernels' tile plans (``ops/msda_tiles.py``: tiles, windows, staged
    pairs, shared memory per block) with the tiled kernels' registers;
 3. hold the MSDA forward and backward kernels against their plain PyTorch
@@ -132,6 +134,19 @@ Phases (any failure raises, and the script exits non-zero without a result):
    soft-NMS, batch 4; 12 forward-kernel launches a batch) twice over 100
    images (25 full batches) against ground truth at COCO val2017's density,
    with images per second, seconds per part and peak memory;
+8b. the exported forward as an AOTInductor package (``runtime/aot.py:
+   save_package``): the seed-0 Swin-L at 608x608 fp32, full width, compiled
+   (seconds, MB), loaded here (the Python ops: 12 forward-kernel launches a
+   forward) and held set-wise against the reloaded ``.codetr.pt2``
+   program of the same model on one seeded image (the detections off the
+   ladder, scores 2e-4, boxes 0.1 px, counted beside the program's own
+   under 1e-7 and 1e-6 moves of the image; at most 10% off
+   ``compare_models``' 1e-3 and 0.5 px, a gate the program under TF32
+   must fail), both timed as graph replays and eager calls (p50 / p95 /
+   min); then ``codetr_torch/tools/aoti_run.py`` in a subprocess that
+   imports nothing of ``codetr_torch`` (the ops registered from C++ by the
+   op library) on the same inputs, whose outputs must equal the in-process
+   package's bit for bit;
 9. checkpoint day (``codetr_torch.tools.rehearsal`` at the JAX
    ``tools/rehearsal.py``'s defaults, Swin-L 608x608, 2 images): a seed-0
    fp32 writer on the host with trained-like sampling offsets written as a
@@ -196,8 +211,8 @@ from codetr_torch.parallel.train import adamw, capture_train_step, make_train_st
 from codetr_torch.tools import attr, rehearsal, trainbench
 from codetr_torch.tools.attr import union_us
 from codetr_torch.ops.nms import postprocess_detections
-from codetr_torch.runtime.aot import (DTYPES, Replay, capture, compile_forward, load_executable, msda_nodes, pool_bytes,
-                                     save_executable)
+from codetr_torch.runtime.aot import (DTYPES, Replay, benchmark, capture, compile_forward, load_executable,
+                                     load_package, msda_nodes, pool_bytes, save_executable, save_package)
 from codetr_torch.utils.preprocess import preprocess
 from codetr_torch.utils.profiling import kernel_counts, trace
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -2319,6 +2334,167 @@ def fused_phase(tmp, images, stamp):
     return {"launches": launches[0], "err": err, "ms": t_fused, "host_ms": t_host}
 
 
+AOTI_HW = (608, 608)  # __graft_entry__.entry()'s Swin-L shape and matrix [2]'s, here in fp32
+AOTI_ITERATIONS = 20  # per callable and mode: 5 blocks of 4
+AOTI_CONTROL_EPS = (1e-7, 1e-6)  # the rounding controls' relative moves of the image
+# the share of the package's detections that may be off compare_models'
+# ladder against the program: rounding-level moves of the image put 0-14 of
+# 300 off it, the program under TF32 282-296 (three seeded images; PERF.md)
+AOTI_OFF_SHARE = 0.1
+AOTI_RUN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "codetr_torch", "tools", "aoti_run.py")
+
+
+def image_detections(out) -> dict:
+    """The first image's raw (boxes, scores, labels) as numpy, for
+    ``unmatched_detections``."""
+    return {k: np.asarray(t[0].float().cpu() if torch.is_tensor(t) else t[0])
+            for k, t in zip(("boxes", "scores", "labels"), out)}
+
+
+def aoti_run(tmp, package_path, ops, x, m):
+    """``codetr_torch/tools/aoti_run.py`` in a subprocess (``python -P``: its
+    directory stays off the path; it imports nothing of codetr_torch) on
+    (x, m) -> (its outputs, its record).  A failed run fails the script."""
+    inputs, outputs = os.path.join(tmp, "aoti_in.npz"), os.path.join(tmp, "aoti_out.npz")
+    np.savez(inputs, arg0=x.cpu().numpy(), arg1=m.cpu().numpy())
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-P", AOTI_RUN, "--package", package_path, "--ops-lib", str(ops.path),
+                           "--inputs", inputs, "--outputs", outputs], capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"tools/aoti_run.py exited {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    record = json.loads(proc.stdout.strip().splitlines()[-1])
+    record["wall_s"] = wall
+    with np.load(outputs) as npz:
+        return [npz[f"out{i}"] for i in range(record["outputs"])], record
+
+
+def aoti_phase(tmp, image, ops, stamp):
+    """The exported forward as an AOTInductor package (``runtime/aot.py:
+    save_package``): the seed-0 Swin-L at 608x608 fp32, full width (2/2/18/2
+    blocks, 6 + 6 layers, 900 queries, 80 classes), exported and compiled
+    (seconds, MB); loaded in this process, where the package's two MSDA ops
+    are the Python registrations (12 K1 launches a forward), and held
+    set-wise against the reloaded ``.codetr.pt2`` program of the same model
+    on one seeded image: its detections off the ladder (scores 2e-4, boxes
+    0.1 px) are counted beside those of the program's own rounding controls
+    (the image moved by 1e-7 and 1e-6 of itself: the seed-0 model's
+    near-tied top-900 proposals turn fp32 rounding differences into other
+    detections), and more than AOTI_OFF_SHARE of them off
+    ``compare_models``' ladder (1e-3, 0.5 px) fails, a gate that the
+    program run under TF32 must fail; both timed as CUDA-graph replays and
+    eager calls (p50 / p95 / min); then
+    ``tools/aoti_run.py`` in a subprocess with the ops from ``ops``
+    (``csrc/msda_ops.cpp``'s library): its outputs must equal the in-process
+    package's bit for bit (the same kernels, plan and generated code); if
+    they do not, the script prints why and holds them on the ladder."""
+    h, w = AOTI_HW
+    cfg = CONFIG()
+    meta = {"config": "swin-l", "dtype": "float32", "height": h, "width": w, "batch_size": 1,
+            "fused_preprocess": False}
+    model = build_codetr(cfg, device=DEVICE, seed=SEED)
+    t0 = time.perf_counter()
+    fn, example = compile_forward(model, height=h, width=w, dtype=torch.float32)
+    t_export = time.perf_counter() - t0
+    exe = save_executable(os.path.join(tmp, "aoti.codetr.pt2"), fn, example, meta=meta)
+    t0 = time.perf_counter()
+    pkg = save_package(os.path.join(tmp, "swin_l_608"), fn, example, meta=meta)
+    t_compile = time.perf_counter() - t0
+    del fn, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    program = load_executable(exe, device=DEVICE)
+    t0 = time.perf_counter()
+    package = load_package(pkg, device=DEVICE)
+    t_load = time.perf_counter() - t0
+    x, m = (t[None] for t in preprocess(image, h, w, cfg.preprocess, device=DEVICE)[:2])
+    msda.launches = msda.launches_qm = msda.launches_bwd = 0
+    got = package(x, m)
+    torch.cuda.synchronize()
+    launches = (msda.launches, msda.launches_qm, msda.launches_bwd)
+    want = program(x, m)
+    # the rounding controls: the program itself on the image moved by 1e-7
+    # and 1e-6 of its values (seeded noise), the size of fp32 roundings.
+    # Inductor's generated code rounds otherwise than the eager kernels, and
+    # the seed-0 model's near-tied top-900 proposals turn such differences
+    # into other detections: the ladder cannot hold here, for the package or
+    # for the controls.  The gate is compare_models' ladder for at least
+    # 1 - AOTI_OFF_SHARE of the detections, and it must reject the program
+    # run with TF32 on (the negative control: the precision fault the fp32
+    # scope exists to prevent)
+    noise = torch.from_numpy(np.random.default_rng(SEED).standard_normal(tuple(x.shape)).astype(np.float32))
+    runs = {"package": got}
+    for eps in AOTI_CONTROL_EPS:
+        runs[f"control {eps}"] = program(x * (1 + eps * noise.to(DEVICE)), m)
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    kept = (cudnn.allow_tf32, matmul.allow_tf32)
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            runs["TF32 (negative control)"] = program.exported.module()(x, m)
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = kept
+    n = len(want[1][0])
+    ladder = {}
+    for name, out in runs.items():
+        strict, worst = unmatched_detections(image_detections(out), image_detections(want))
+        model_tol = unmatched_detections(image_detections(out), image_detections(want), MODEL_SCORE_TOL,
+                                         MODEL_BOX_TOL)[0]
+        ladder[name] = {"unmatched_on_the_ladder": strict, "worst_px": worst, "unmatched_model_tol": model_tol,
+                        "scores": (out[1] - want[1]).abs().max().item(),
+                        "scores_median": (out[1] - want[1]).abs().median().item()}
+    print(f"aoti swin-l {h}x{w} fp32: export {t_export:.1f} s, AOTInductor compile {t_compile:.1f} s "
+          f"({os.path.getsize(pkg) / 1e6:.1f} MB), load {t_load:.1f} s; in-process forward: kernel launches "
+          f"(forward, q-minor, backward) {launches} [{stamp}]")
+    for name, r in ladder.items():
+        print(f"aoti {name} against the reloaded .codetr.pt2 program: {r['unmatched_on_the_ladder']} of {n} "
+              f"detections off the ladder (scores {SCORE_TOL}, boxes {BOX_TOL} px), {r['unmatched_model_tol']} "
+              f"off compare_models' {MODEL_SCORE_TOL} and {MODEL_BOX_TOL} px (gate {int(AOTI_OFF_SHARE * n)}); "
+              f"scores max {r['scores']:.3e}, median {r['scores_median']:.3e} [{stamp}]")
+    if launches != (launches_per_forward(cfg), 0, 0):
+        fail(f"the package's forward launched {launches}, not ({launches_per_forward(cfg)}, 0, 0)")
+    if ladder["package"]["unmatched_model_tol"] > AOTI_OFF_SHARE * n:
+        fail(f"{ladder['package']['unmatched_model_tol']} of the package's detections are off compare_models' "
+             "ladder against the .codetr.pt2 program")
+    if ladder["TF32 (negative control)"]["unmatched_model_tol"] <= AOTI_OFF_SHARE * n:
+        fail("the package's gate does not reject the program run under TF32")
+
+    times = {}
+    for name, f in (("package", package), ("program", program)):
+        for mode, graph in (("replay", True), ("eager", False)):
+            r = times[f"{name} {mode}"] = benchmark(f, (x, m), iterations=AOTI_ITERATIONS, graph=graph)
+            print(f"aoti {name} {mode}: p50 {r['p50_ms']:.3f} ms (p95 {r['p95_ms']:.3f}, min {r['min_ms']:.3f}) "
+                  f"over {r['iterations']} iterations in 5 blocks, host end to end {r['host_e2e_ms']:.3f} ms "
+                  f"({r['mode']}) [{stamp}]")
+
+    sub, record = aoti_run(tmp, pkg, ops, x, m)
+    cuda_kernels = {op: [line for line in text.splitlines() if line.startswith("CUDA:")]
+                    for op, text in record["registrations"].items()}
+    from_cpp = all(len(v) == 1 and "msda_ops.cpp" in v[0] for v in cuda_kernels.values())
+    diffs = [float(np.abs(a.astype(np.float64) - g.cpu().double().numpy()).max()) for a, g in zip(sub, got)]
+    equal = all(np.array_equal(a, g.cpu().numpy()) for a, g in zip(sub, got))
+    print(f"aoti subprocess (tools/aoti_run.py, codetr_torch modules imported {record['codetr_torch_modules']}): "
+          f"the ops' CUDA kernels {cuda_kernels}; load {record['load_s']:.1f} s, one forward "
+          f"{record['run_s'] * 1e3:.1f} ms, {record['wall_s']:.1f} s wall; outputs equal to the in-process "
+          f"package's bit for bit: {equal} (max |difference| boxes, scores, labels {diffs}) [{stamp}]")
+    if record["codetr_torch_modules"] or not from_cpp:
+        fail("the subprocess imported codetr_torch or ran ops not registered by csrc/msda_ops.cpp")
+    sub_unmatched = 0
+    if not equal:
+        sub_unmatched, worst_sub = unmatched_detections(image_detections(sub), image_detections(got))
+        print(f"aoti subprocess outputs differ from the in-process package's (the same package, kernels and plan; "
+              f"the difference is the process: the ops' registrations and the TF32 flags set directly): "
+              f"{sub_unmatched} detections off the ladder, largest matched box difference {worst_sub:.3e} px "
+              f"[{stamp}]")
+        if sub_unmatched:
+            fail(f"{sub_unmatched} of the subprocess's detections are off the ladder against the in-process package")
+    del program, package, got, want, runs
+    torch.cuda.empty_cache()
+    return {"export_s": t_export, "compile_s": t_compile, "mb": os.path.getsize(pkg) / 1e6, "load_s": t_load,
+            "launches": launches[0], "ladder": ladder, "times": times,
+            "subprocess": {"equal": equal, "diffs": diffs, "unmatched": sub_unmatched, "record": record}}
+
+
 def trace_pieces(events, kernels) -> dict:
     """Each annotated range of a trace (preprocess, forward, postprocess):
     its host ms, the share of it in which a kernel ran, and, by correlation
@@ -2909,11 +3085,15 @@ def main() -> int:
 
     phase_s, t_phase = {}, time.perf_counter()  # wall seconds per phase
     # 2. build, one nvcc per kernel, all started together
+    # and the C++ op library of the AOTInductor phase (msda_ops.cpp with
+    # msda_fwd.cu), built here, loaded only by that phase's subprocess
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        ops_build = pool.submit(_build.build_ops)
         builds = list(pool.map(_build.load, KERNELS))
-    print(f"built {len(builds)} kernels in {time.perf_counter() - t0:.1f} s wall")
-    for built in builds:
+        ops = ops_build.result()
+    print(f"built {len(builds)} kernels and the op library in {time.perf_counter() - t0:.1f} s wall")
+    for built in (*builds, ops):
         print(f"built {built.path.name} in {built.build_seconds:.1f} s; nvcc -Xptxas -v:")
         print(built.log.strip())
     print_plans(builds, stamp)
@@ -3242,6 +3422,13 @@ def main() -> int:
         wall["eval_coco"] = time.perf_counter() - t0
     print("deployment phases, wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
     phase_s["deployment"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
+    # 8b. the exported forward as an AOTInductor package, its MSDA ops run
+    # from C++ in a subprocess with no Python kernel code
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        aoti_phase(tmp, images[-1], ops, stamp)
+    phase_s["aoti"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
     # 9. checkpoint day: the rehearsal
     with tempfile.TemporaryDirectory() as tmp:
         rehearsed = rehearsal_phase(tmp, enc_stage, stamp)

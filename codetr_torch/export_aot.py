@@ -9,9 +9,13 @@ drift against the in-process model, serve an image through it and time it.
 Writes into ``--output``: ``codetr.codetr.pt2`` (``torch.export.save``, the
 weights inside) and ``codetr.codetr.pt2.meta.json``; with ``--image``,
 ``predictions.json`` and ``vis.jpg``; unless ``--skip-benchmark``,
-``benchmark.json``.  ``--image`` takes an ``.npy`` (H, W, 3) uint8 RGB
-array, or any file OpenCV reads.  Runs on the card unless ``--device
-cpu``.
+``benchmark.json``.  With ``--package`` (opt-in: an AOTInductor compile
+takes minutes) also ``codetr.aoti.pt2`` and its meta
+(``runtime/aot.py:save_package``), reloaded, its drift printed against the
+in-process model on the same seeded input, its compile seconds and MB, and,
+unless ``--skip-benchmark``, its times (``package_benchmark.json``).
+``--image`` takes an ``.npy`` (H, W, 3) uint8 RGB array, or any file
+OpenCV reads.  Runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import time
 
 import numpy as np
 import torch
@@ -26,8 +31,8 @@ import torch
 from codetr_torch.config import CONFIGS
 from codetr_torch.inferencer import Inferencer
 from codetr_torch.models.codetr import build_codetr, check_device
-from codetr_torch.runtime.aot import (DTYPES, benchmark, compile_forward, load_executable,
-                                      save_executable)
+from codetr_torch.runtime.aot import (DTYPES, benchmark, compile_forward, load_executable, load_package,
+                                      save_executable, save_package)
 from codetr_torch.utils.image_io import read_image
 from codetr_torch.utils.preprocess import preprocess_in_graph
 
@@ -52,6 +57,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--fuse-preprocess", action="store_true",
                     help="export the fused-serving form: the program takes (uint8 canvas, "
                     "(th, tw) int32) and normalises, pads and masks inside")
+    ap.add_argument("--package", action="store_true",
+                    help="also compile an AOTInductor package, codetr.aoti.pt2 (takes minutes)")
     ap.add_argument("--skip-benchmark", action="store_true")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap.parse_args(argv)
@@ -92,11 +99,9 @@ def main(argv=None) -> None:
                                   batch_size=args.batch_size, dtype=dtype,
                                   fuse_preprocess=args.fuse_preprocess, preprocess_cfg=cfg.preprocess)
     exe_path = os.path.join(args.output, "codetr.codetr.pt2")
-    save_executable(exe_path, fn, example, meta={
-        "config": args.config_file or args.config, "dtype": args.dtype,
-        "height": args.height, "width": args.width, "batch_size": args.batch_size,
-        "fused_preprocess": args.fuse_preprocess,
-    })
+    meta = {"config": args.config_file or args.config, "dtype": args.dtype, "height": args.height,
+            "width": args.width, "batch_size": args.batch_size, "fused_preprocess": args.fuse_preprocess}
+    save_executable(exe_path, fn, example, meta=meta)
     print(f"saved program: {exe_path} ({os.path.getsize(exe_path) / 1e6:.1f} MB)")
 
     loaded = load_executable(exe_path, device=device)
@@ -110,6 +115,16 @@ def main(argv=None) -> None:
     reloaded = loaded(*inputs)
     print(f"reload drift vs the in-process program: {max_drift(reloaded, fn(*inputs)):.2e}, "
           f"vs the in-process model: {max_drift(reloaded, eager):.2e}")
+    package = None
+    if args.package:
+        t0 = time.perf_counter()
+        pkg_path = save_package(os.path.join(args.output, "codetr"), fn, example, meta=meta, device=device)
+        compile_s = time.perf_counter() - t0
+        package = load_package(pkg_path, device=device)
+        packaged = package(*inputs)
+        print(f"saved package: {pkg_path} ({os.path.getsize(pkg_path) / 1e6:.1f} MB, compiled in "
+              f"{compile_s:.1f} s); drift vs the in-process model: {max_drift(packaged, eager):.2e}, "
+              f"vs the reloaded program: {max_drift(packaged, reloaded):.2e}")
 
     if args.image:
         img = read_image(args.image)
@@ -127,6 +142,11 @@ def main(argv=None) -> None:
         print(json.dumps(stats))
         with open(os.path.join(args.output, "benchmark.json"), "w") as f:
             json.dump(stats, f, indent=2)
+        if package is not None:
+            stats = benchmark(package, example, iterations=args.iterations, graph=device.type == "cuda")
+            print(json.dumps({"package": stats}))
+            with open(os.path.join(args.output, "package_benchmark.json"), "w") as f:
+                json.dump(stats, f, indent=2)
 
 
 if __name__ == "__main__":

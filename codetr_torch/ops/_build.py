@@ -6,6 +6,13 @@ by ``nvcc`` for Hopper (``sm_90a``) into a shared library that is loaded with
 (listed in ``.gitignore``) under a name keyed by the hash of the source, the
 shared ``csrc/*.cuh`` headers and the flags, so an edited source is rebuilt
 and an unchanged one is reused.
+
+``build_ops()`` builds the one library that includes PyTorch's headers:
+``csrc/msda_ops.cpp`` (the ``codetr::`` MSDA forward ops registered from
+C++) linked with ``csrc/msda_fwd.cu`` against libtorch.  It is built, never
+loaded, here: a process loads it with ``torch.ops.load_library`` only if it
+has not imported ``codetr_torch.ops.msda``, whose Python registrations of
+the same schemas it would collide with (``tools/aoti_run.py``).
 Nothing here runs at import time.
 """
 
@@ -17,8 +24,10 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Optional
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
@@ -35,9 +44,10 @@ NVCC_FLAGS = (
 
 @dataclass
 class Built:
-    """A loaded kernel library and how it was built."""
+    """A kernel library, loaded with ctypes (``build_ops``': not loaded),
+    and how it was built."""
 
-    lib: ctypes.CDLL
+    lib: Optional[ctypes.CDLL]
     path: Path
     build_seconds: float  # 0.0 when an existing build was reused
     log: str  # nvcc's output, including ``-Xptxas -v``'s register report
@@ -61,35 +71,101 @@ def nvcc() -> str:
     return found
 
 
-def load(name: str) -> Built:
-    """Build (if needed) and load ``csrc/<name>.cu``."""
-    if name in _loaded:
-        return _loaded[name]
-    src = SRC_DIR / f"{name}.cu"
-    # the shared headers too: a source that includes an edited one is rebuilt
+def _library_path(name: str, sources, flags) -> Path:
+    """``_build/<name>-<hash>.so``, keyed by the sources, the shared headers
+    (a source that includes an edited one is rebuilt) and the flags."""
     headers = b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
-    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"{name}-{digest}.so"
+    blob = b"".join(Path(s).read_bytes() for s in sources) + headers + " ".join(flags).encode()
+    return BUILD_DIR / f"{name}-{hashlib.sha256(blob).hexdigest()[:16]}.so"
+
+
+def _run(cmd, what: str) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {what}:\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def _build(so: Path, make) -> tuple:
+    """Run ``make(tmp)`` (-> its log) unless ``so`` exists; -> (seconds,
+    log).  The library appears atomically: a concurrent loader sees all or
+    nothing."""
     log_path = so.with_suffix(".log")
     seconds = 0.0
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True,
-        )
+        log = make(tmp)
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {src}:\n{proc.stdout}{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
-    built = Built(
-        lib=ctypes.CDLL(str(so)),
-        path=so,
-        build_seconds=seconds,
-        log=log_path.read_text() if log_path.exists() else "",
-    )
+        log_path.write_text(log)
+        os.replace(tmp, so)
+    return seconds, log_path.read_text() if log_path.exists() else ""
+
+
+def load(name: str) -> Built:
+    """Build (if needed) and load ``csrc/<name>.cu``."""
+    if name in _loaded:
+        return _loaded[name]
+    src = SRC_DIR / f"{name}.cu"
+    so = _library_path(name, [src], NVCC_FLAGS)
+    seconds, log = _build(so, lambda tmp: _run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)], str(src)))
+    built = Built(lib=ctypes.CDLL(str(so)), path=so, build_seconds=seconds, log=log)
     _loaded[name] = built
+    return built
+
+
+OPS_NAME = "msda_ops"
+OPS_SOURCES = ("msda_ops.cpp", "msda_fwd.cu")
+# PyTorch's headers want C++20 from 2.10 on; the kernels keep NVCC_FLAGS
+OPS_CXX_FLAGS = ("-std=c++20", "-O3", "-Xcompiler", "-fPIC")
+OPS_LIBS = ("c10", "c10_cuda", "torch", "torch_cpu", "torch_cuda")
+
+
+def _ops_flags():
+    """(compile flags of msda_ops.cpp, link flags) against the running
+    PyTorch's headers and libraries."""
+    import torch
+    from torch.utils import cpp_extension
+
+    includes = [f"-I{p}" for p in cpp_extension.include_paths(device_type="cuda")]
+    abi = f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}"
+    # no rpath: the process that loads the library has imported torch, whose
+    # libraries are then found by name
+    link = [*(f"-L{d}" for d in cpp_extension.library_paths(device_type="cuda")),
+            *(f"-l{lib}" for lib in OPS_LIBS)]
+    return [*OPS_CXX_FLAGS, abi, *includes], link
+
+
+def build_ops() -> Built:
+    """Build (if needed) ``csrc/msda_ops.cpp`` with ``csrc/msda_fwd.cu`` into
+    one library (``Built.lib`` is None: not loaded).  The two objects
+    compile at once (the C++ one includes PyTorch's headers, the slow
+    part), then nvcc links them against libtorch.  Keyed by the sources,
+    the headers, the flags and PyTorch's version.  Raises if nvcc fails."""
+    import torch
+
+    if OPS_NAME in _loaded:
+        return _loaded[OPS_NAME]
+    cxx, link = _ops_flags()
+    srcs = [SRC_DIR / s for s in OPS_SOURCES]
+    so = _library_path(OPS_NAME, srcs, [*NVCC_FLAGS, *cxx, *link, torch.__version__])
+
+    def make(tmp: Path) -> str:
+        cpp, cu = srcs
+        objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in srcs]
+        kernel_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        with ThreadPoolExecutor(2) as pool:
+            logs = list(pool.map(lambda job: _run(*job), [
+                ([nvcc(), *cxx, "-c", "-o", str(objs[0]), str(cpp)], str(cpp)),
+                ([nvcc(), *kernel_flags, "-c", "-o", str(objs[1]), str(cu)], str(cu)),
+            ]))
+        logs.append(_run([nvcc(), "-shared", "-o", str(tmp), *map(str, objs), *link], f"{so.name} (link)"))
+        for o in objs:
+            o.unlink()
+        return "".join(logs)
+
+    seconds, log = _build(so, make)
+    built = Built(lib=None, path=so, build_seconds=seconds, log=log)
+    _loaded[OPS_NAME] = built
     return built

@@ -201,14 +201,39 @@ _PLAN_ARGTYPES = (*[ctypes.POINTER(ctypes.c_int)] * len(_PLAN_ARRAYS), ctypes.c_
 
 
 @functools.lru_cache(maxsize=64)
-def _plan_arrays(plan: msda_tiles.TilePlan):
+def plan_ints(plan: msda_tiles.TilePlan) -> Tuple[int, ...]:
+    """``plan`` as one flat int sequence: ``_PLAN_ARRAYS`` concatenated, then
+    halo and smem_bytes (``codetr::msda_packed``'s ``plan`` argument, which
+    ``csrc/msda_ops.cpp`` splits the same way)."""
     arrays = plan.c_arrays()
-    return tuple((ctypes.c_int * len(arrays[k]))(*arrays[k]) for k in _PLAN_ARRAYS)
+    return (*[int(v) for k in _PLAN_ARRAYS for v in arrays[k]], int(plan.halo), int(plan.smem_bytes))
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_args_of(flat: Tuple[int, ...], num_levels: int):
+    """The C entries' plan arguments from ``plan_ints``' sequence: one
+    entry per query level, or per (lq, lt) pair, of each array."""
+    L = num_levels
+    lengths = (L, L, L * L, L * L, L * L, L, L)
+    if len(flat) != sum(lengths) + 2:
+        raise ValueError(f"a plan for {num_levels} levels has {sum(lengths) + 2} ints, got {len(flat)}")
+    arrays, at = [], 0
+    for n in lengths:
+        arrays.append((ctypes.c_int * n)(*flat[at:at + n]))
+        at += n
+    return (*arrays, flat[-2], flat[-1])
 
 
 def _plan_args(plan: msda_tiles.TilePlan):
     """The C entries' plan arguments for ``plan``."""
-    return (*_plan_arrays(plan), plan.halo, plan.smem_bytes)
+    return _plan_args_of(plan_ints(plan), len(plan.shapes))
+
+
+def packed_plan(spatial_shapes: Shapes, value_dtype: torch.dtype, head_dim: int, num_points: int) -> List[int]:
+    """K1's forward tile plan (``msda_tiles.encoder_tile_plan``) for static
+    shapes, as ``codetr::msda_packed`` takes it."""
+    plan = msda_tiles.encoder_tile_plan(spatial_shapes, value_dtype, head_dim=head_dim, points=num_points)
+    return list(plan_ints(plan))
 
 
 @functools.cache
@@ -266,12 +291,13 @@ def _raise_on(err: int, fn: str) -> None:
         raise RuntimeError(f"{fn} failed: code {err} (negative: bad argument; positive: cudaError_t)")
 
 
-def _launch_packed(value, spatial_shapes, cpk, num_points):
+def _launch_packed(value, spatial_shapes, cpk, num_points, plan: Sequence[int]):
+    """K1 on the packed coordinates with ``plan``, ``packed_plan``'s ints."""
     global launches
     _kernel_checks(value, spatial_shapes, cpk)
     bs, K, h, d = value.shape
     lib = _fwd_lib()
-    plan = msda_tiles.encoder_tile_plan(spatial_shapes, value.dtype, head_dim=d, points=num_points)
+    plan_args = _plan_args_of(tuple(int(v) for v in plan), len(spatial_shapes))
     out = torch.empty(bs, K, h * d, dtype=value.dtype, device=value.device)
     hs, ws = _level_arrays(spatial_shapes)
     with torch.cuda.device(value.device):
@@ -279,7 +305,7 @@ def _launch_packed(value, spatial_shapes, cpk, num_points):
         err = lib.msda_packed_fwd(
             value.data_ptr(), cpk.data_ptr(), out.data_ptr(), _DTYPE_CODE[value.dtype],
             bs, K, h, d, len(spatial_shapes), num_points, cpk.shape[2], hs, ws,
-            *_plan_args(plan), stream,
+            *plan_args, stream,
         )
     _raise_on(err, "msda_packed_fwd")
     launches += 1
@@ -453,31 +479,38 @@ def _pairs(flat: Sequence[int]) -> tuple:
 # custom ops, so that ``torch.export`` records them as ``codetr::`` nodes
 # (an exported program then runs the kernel wherever it is loaded, never a
 # traced copy of the plain version).  Each has a fake implementation (the
-# output's shape and dtype; it builds no plan and touches no ctypes), a CPU
-# one (the plain version) and a CUDA one (the kernel), and its gradient is
-# registered with ``register_autograd``: the backward kernel on the card,
-# the plain backward on the CPU.
+# output's shape and dtype; it touches no ctypes), a CPU one (the plain
+# version) and a CUDA one (the kernel), and its gradient is registered with
+# ``register_autograd``: the backward kernel on the card, the plain backward
+# on the CPU.  ``codetr::msda_packed`` carries K1's tile plan as an argument
+# (``msda_grid_packed`` builds it from the static shapes), so an exported
+# graph holds it as a constant and a process with no Python can launch the
+# kernel: ``csrc/msda_ops.cpp`` registers the same two schemas from C++ for
+# such a process (an AOTInductor package's, ``tools/aoti_run.py``).  The
+# two registrations never meet in one process: a second definition of a
+# schema raises.
+PACKED_SCHEMA = "(Tensor value, Tensor cpk, int[] spatial_shapes, int num_points, int[] plan) -> Tensor"
+REFERENCE_SCHEMA = "(Tensor value, Tensor loc, Tensor attn, int[] spatial_shapes) -> Tensor"
 
 
-@torch.library.custom_op("codetr::msda_packed", mutates_args=(), device_types="cpu")
-def _packed_op(value: torch.Tensor, cpk: torch.Tensor, spatial_shapes: List[int],
-               num_points: int) -> torch.Tensor:
+@torch.library.custom_op("codetr::msda_packed", mutates_args=(), device_types="cpu", schema=PACKED_SCHEMA)
+def _packed_op(value, cpk, spatial_shapes, num_points, plan):
     return msda_grid_packed_plain(value, _pairs(spatial_shapes), cpk, num_points)
 
 
 @_packed_op.register_kernel("cuda")
-def _(value, cpk, spatial_shapes, num_points):
-    return _launch_packed(value, _pairs(spatial_shapes), cpk, num_points)
+def _(value, cpk, spatial_shapes, num_points, plan):
+    return _launch_packed(value, _pairs(spatial_shapes), cpk, num_points, plan)
 
 
 @_packed_op.register_fake
-def _(value, cpk, spatial_shapes, num_points):
+def _(value, cpk, spatial_shapes, num_points, plan):
     bs, K, h, d = value.shape
     return value.new_empty(bs, K, h * d)
 
 
 def _packed_setup(ctx, inputs, output):
-    value, cpk, spatial_shapes, num_points = inputs
+    value, cpk, spatial_shapes, num_points, _ = inputs
     ctx.save_for_backward(value, cpk)
     ctx.spatial_shapes, ctx.num_points = _pairs(spatial_shapes), num_points
 
@@ -495,15 +528,15 @@ def _packed_backward(ctx, grad_out):
         HLP = grads[1][0, 0].numel()
         for i, g in enumerate(grads[1:]):
             grad_cpk[..., i * HLP:(i + 1) * HLP] = g.reshape(*cpk.shape[:2], HLP)
-    return grad_value, grad_cpk, None, None
+    return grad_value, grad_cpk, None, None, None
 
 
 _packed_op.register_autograd(_packed_backward, setup_context=_packed_setup)
 
 
-@torch.library.custom_op("codetr::msda_reference", mutates_args=(), device_types="cpu")
-def _reference_op(value: torch.Tensor, loc: torch.Tensor, attn: torch.Tensor,
-                  spatial_shapes: List[int]) -> torch.Tensor:
+@torch.library.custom_op("codetr::msda_reference", mutates_args=(), device_types="cpu",
+                         schema=REFERENCE_SCHEMA)
+def _reference_op(value, loc, attn, spatial_shapes):
     return multi_scale_deformable_attention_plain(value, _pairs(spatial_shapes), loc, attn)
 
 
@@ -581,7 +614,8 @@ def msda_grid_packed(
         return msda_grid_packed_plain(value, spatial_shapes, cpk, num_points)
     if impl != "auto":
         raise ValueError(f"unknown packed MSDA impl {impl!r}")
-    return _packed_op(value, cpk, _flat_shapes(spatial_shapes), num_points)
+    plan = packed_plan(spatial_shapes, value.dtype, value.shape[3], num_points)
+    return _packed_op(value, cpk, _flat_shapes(spatial_shapes), num_points, plan)
 
 
 def _check_qm(value, spatial_shapes, x, y, w) -> None:

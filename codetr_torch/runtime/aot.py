@@ -16,6 +16,17 @@ counterpart of the JAX package's ``runtime/aot.py`` (there ``jax.jit`` +
   callable on ``device``.  An fp32 program runs under ``full_fp32()`` (no
   TF32), read from the meta's ``dtype``: the scope that an in-process fp32
   model sets around its forward leaves nothing in an exported graph.
+- ``save_package(path, program, example_args, meta, device="cuda")``
+  compiles an exported forward ahead of time with AOTInductor
+  (``torch._inductor.aoti_compile_and_package``) for ``device`` and writes
+  ``<path>.aoti.pt2`` (generated code, kernels and weights) and
+  ``<path>.aoti.pt2.meta.json`` (magic ``codetr-torch-aoti-v1``);
+  ``load_package(path, device="cuda")`` returns it as a callable like
+  ``Program``'s.  The package calls the two MSDA ops by name through the
+  dispatcher: in a process that imported ``ops/msda.py``, its Python
+  registrations (counters and all); in one that loaded
+  ``csrc/msda_ops.cpp``'s library instead, the C++ ones
+  (``tools/aoti_run.py``), with no Python kernel code.
 - ``make_loop_timer(fn, args, graph=True)`` and ``benchmark(...)``: time a
   forward on the device.  On the card, ``graph=True`` captures ``fn(*args)``
   once in a ``torch.cuda.CUDAGraph`` and replays it between two CUDA events
@@ -37,8 +48,9 @@ counterpart of the JAX package's ``runtime/aot.py`` (there ``jax.jit`` +
 Not carried over: the JAX ``split=True`` form (backbone and head as two
 executables) and the weights-as-arguments ``.params.npz`` companion worked
 around the TPU's remote compile transport, which a local ``torch.export``
-does not have; the ``.stablehlo`` companion feeds the JAX package's C++
-runner, whose port (libtorch / AOTInductor) is later work.
+does not have.  The ``.stablehlo`` companion that feeds the JAX package's
+C++ runner has the AOTInductor package as its counterpart; the native
+runner binary itself is later work.
 """
 
 from __future__ import annotations
@@ -57,6 +69,7 @@ from codetr_torch.ops import msda  # registers the codetr:: ops a program calls
 from codetr_torch.utils.preprocess import preprocess_in_graph
 
 MAGIC = "codetr-torch-pt2-v1"
+PACKAGE_MAGIC = "codetr-torch-aoti-v1"
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -185,21 +198,103 @@ def save_executable(path: str, exported, example_args: Sequence[torch.Tensor],
     return path
 
 
+def _read_meta(path: str, magic: str) -> dict:
+    with open(path + ".meta.json") as f:
+        meta = json.load(f)
+    if meta.get("magic") != magic:
+        raise ValueError(f"{path}: not a codetr-torch program (magic {meta.get('magic')!r}, "
+                         f"expected {magic!r})")
+    return meta
+
+
 def load_executable(path: str, device="cuda") -> Program:
     """Read a saved program and its meta; return it as a callable on
     ``device`` (the card by default; raises without one).  A bad or missing
     magic raises, and so does, on the card, a kernel library that cannot be
     built or loaded: the program never runs the plain MSDA there."""
-    with open(path + ".meta.json") as f:
-        meta = json.load(f)
-    if meta.get("magic") != MAGIC:
-        raise ValueError(f"{path}: not a codetr-torch program (magic {meta.get('magic')!r}, "
-                         f"expected {MAGIC!r})")
+    meta = _read_meta(path, MAGIC)
     device = check_device(device)
     exported = on_device(torch.export.load(path), device)
     if device.type == "cuda":
         msda._fwd_lib()  # build and load the forward kernels now, or raise
     return Program(exported, DTYPES[meta["dtype"]])
+
+
+def _indexed(device: torch.device) -> torch.device:
+    """``cuda`` as ``cuda:<current>``: a traced program's device checks
+    compare devices with their index."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def save_package(path: str, program, example_args: Sequence[torch.Tensor], meta: Optional[dict] = None,
+                 device="cuda") -> str:
+    """Compile ``program`` (what ``compile_forward`` returned, or an
+    ``ExportedProgram``) with AOTInductor for ``device`` (the card by
+    default) and write the package, ``<path>.aoti.pt2``, and its meta;
+    -> the package's path.  The compile runs under the program's precision
+    scope (``fp32_scope``), and the meta's ``dtype`` (from ``program`` when
+    ``meta`` has none) makes ``load_package`` run it there too: Inductor's
+    extern GEMMs and convolutions read the TF32 flags when they run.
+    The wrapper is built by the ``g++`` on the path, the host compiler that
+    nvcc builds the port's libraries with, not by ``$CXX`` (Inductor's
+    default), which may name a compiler without OpenMP's runtime, and the
+    wrapper links with ``-fopenmp``."""
+    device = _indexed(check_device(device))
+    exported = on_device(getattr(program, "exported", program), device)
+    meta = dict(meta or {})
+    if "dtype" not in meta and hasattr(program, "dtype"):
+        meta["dtype"] = dtype_name(program.dtype)
+    path += ".aoti.pt2"
+    from torch._inductor import aoti_compile_and_package
+
+    with torch.no_grad(), fp32_scope(DTYPES[meta["dtype"]]):
+        aoti_compile_and_package(exported, package_path=path, inductor_configs={"cpp.cxx": "g++"})
+    meta.update(
+        magic=PACKAGE_MAGIC,
+        device=device.type,
+        in_avals=[[list(a.shape), str(a.dtype).replace("torch.", "")] for a in example_args],
+        msda_ops=msda_nodes(exported),
+    )
+    with open(path + ".meta.json", "w") as f:
+        json.dump(meta, f, indent=2)
+    return path
+
+
+class Package:
+    """An AOTInductor package as a callable: ``fn(*args)`` -> the forward's
+    outputs as a tuple, without autograd, an fp32 package under
+    ``full_fp32()`` (as ``Program``)."""
+
+    def __init__(self, compiled, dtype: torch.dtype):
+        self.compiled = compiled
+        self.dtype = dtype
+
+    def __call__(self, *args):
+        with torch.no_grad(), fp32_scope(self.dtype):
+            return tuple(self.compiled(*args))
+
+
+def load_package(path: str, device="cuda") -> Package:
+    """Read a package written by ``save_package`` (``<name>.aoti.pt2``) and
+    its meta; return it as a callable on ``device`` (the card by default;
+    raises without one).  A bad or missing magic raises, and so does a
+    package compiled for another device type, or, on the card, a kernel
+    library that cannot be built or loaded."""
+    meta = _read_meta(path, PACKAGE_MAGIC)
+    device = _indexed(check_device(device))
+    if meta.get("device") != device.type:
+        raise ValueError(f"{path} was compiled for {meta.get('device')!r}, not {device.type!r}")
+    if device.type == "cuda":
+        msda._fwd_lib()  # build and load the forward kernels now, or raise
+    index = -1 if device.index is None else device.index
+    from torch._inductor import aoti_load_package
+
+    # run_single_threaded: no per-run CUDA event and no query of the last
+    # run's, which a CUDA-graph capture of a call would refuse
+    compiled = aoti_load_package(path, run_single_threaded=True, device_index=index)
+    return Package(compiled, DTYPES[meta["dtype"]])
 
 
 def device_of(args: Sequence[torch.Tensor]) -> torch.device:

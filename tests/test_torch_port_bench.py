@@ -132,10 +132,12 @@ def test_trace_and_annotate_write_a_chrome_trace(tiny, tmp_path):
 
 def test_export_aot_cli_writes_its_outputs(tmp_path):
     out = tmp_path / "export"
+    # two threads: beside the suite's workers, a subprocess with one thread
+    # per core took 13x its time alone (24 s)
     proc = subprocess.run(
         [sys.executable, "-m", "codetr_torch.export_aot", "--config", "tiny", "--device", "cpu",
          "--image", "assets/demo_synthetic.jpg", "--skip-benchmark", "--output", str(out)],
-        cwd=REPO, capture_output=True, text=True, timeout=600,
+        cwd=REPO, capture_output=True, text=True, timeout=600, env={**os.environ, "OMP_NUM_THREADS": "2"},
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "reload drift vs the in-process program: 0.00e+00" in proc.stdout, proc.stdout

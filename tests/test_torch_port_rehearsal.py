@@ -104,8 +104,11 @@ def test_perturb_offsets_refuses_a_dict_without_offsets(monkeypatch):
 def rehearsed(tmp_path_factory):
     """The tiny CPU command run as a user runs it -> (record, its .pth)."""
     pth = tmp_path_factory.mktemp("rehearsal") / "ckpt.pth"
+    # two threads, as the export CLI's test: beside the suite's workers a
+    # subprocess with one thread per core runs many times slower
     out = subprocess.run([sys.executable, "-m", "codetr_torch.tools.rehearsal", *TINY, "--out", str(pth)],
-                         cwd=REPO, capture_output=True, text=True, timeout=300, check=True)
+                         cwd=REPO, capture_output=True, text=True, timeout=300, check=True,
+                         env={**os.environ, "OMP_NUM_THREADS": "2"})
     lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
     assert len(lines) == 1, out.stdout
     return json.loads(lines[0]), str(pth)
