@@ -135,7 +135,13 @@ Phases (any failure raises, and the script exits non-zero without a result):
    images (25 full batches) against ground truth at COCO val2017's density,
    with images per second, seconds per part and peak memory;
 8b. the exported forward as an AOTInductor package (``runtime/aot.py:
-   save_package``): the seed-0 Swin-L at 608x608 fp32, full width, compiled
+   save_package``): the seed-0 Swin-L at 608x608 fp32, full width, exported
+   and compiled by ``python -m codetr_torch.export_aot --package`` in a
+   background subprocess started after phase 2 (at a lower priority; it
+   is minutes of host work, and beside phases 3-8 the script's wall drops
+   by most of it; its autotuning's kernels share the card with those
+   phases' timings, except phase 7's and the matrix's, and the step of
+   phase 6 that fills the card, during which it is stopped)
    (seconds, MB), loaded here (the Python ops: 12 forward-kernel launches a
    forward) and held set-wise against the reloaded ``.codetr.pt2``
    program of the same model on one seeded image (the detections off the
@@ -143,10 +149,20 @@ Phases (any failure raises, and the script exits non-zero without a result):
    under 1e-7 and 1e-6 moves of the image; at most 10% off
    ``compare_models``' 1e-3 and 0.5 px, a gate the program under TF32
    must fail), both timed as graph replays and eager calls (p50 / p95 /
-   min); then ``codetr_torch/tools/aoti_run.py`` in a subprocess that
-   imports nothing of ``codetr_torch`` (the ops registered from C++ by the
+   min); then ``codetr_torch/tools/aoti_run.py``, run after the compile in
+   the same background, in a subprocess that imports nothing of ``codetr_torch`` (the ops registered from C++ by the
    op library) on the same inputs, whose outputs must equal the in-process
    package's bit for bit;
+8c. the native runner (``codetr_torch/csrc/codetr_aoti_runner.cpp``, a C++
+   program on libtorch and the port's host library, no Python in its
+   process; built with the kernels) on 8b's package and op library:
+   ``--smoke`` finds both ``codetr::`` ops' CUDA kernels in
+   ``msda_ops.cpp``; the image as a raw RGB dump, preprocessed and NMS'd by
+   the host library, one warm-up run dumped, 20 timed runs each
+   synchronised (ms/iter beside 8b's eager p50); its dump must equal the
+   in-process package's outputs on the host library's preprocess of the
+   image bit for bit, its K1 launches 6 + 6 a forward, its NMS count
+   ``batched_nms_native``'s;
 9. checkpoint day (``codetr_torch.tools.rehearsal`` at the JAX
    ``tools/rehearsal.py``'s defaults, Swin-L 608x608, 2 images): a seed-0
    fp32 writer on the host with trained-like sampling offsets written as a
@@ -181,6 +197,7 @@ times are full-fp32 figures.
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import copy
@@ -189,10 +206,13 @@ import gc
 import io
 import json
 import os
+import re
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
@@ -202,6 +222,7 @@ import torch
 
 from codetr_torch import Inferencer, build_codetr, co_dino_r50, co_dino_swin_l
 from codetr_torch.bench import FAMILIES, MATRIX, measure_config, verify_inputs, verify_msda_on_card
+from codetr_torch.config import PreprocessConfig
 from codetr_torch.models.codetr import full_fp32
 from codetr_torch.ops import _build
 from codetr_torch.ops import hungarian, msda, msda_grid, msda_tiles
@@ -212,7 +233,8 @@ from codetr_torch.tools import attr, rehearsal, trainbench
 from codetr_torch.tools.attr import union_us
 from codetr_torch.ops.nms import postprocess_detections
 from codetr_torch.runtime.aot import (DTYPES, Replay, benchmark, capture, compile_forward, load_executable,
-                                     load_package, msda_nodes, pool_bytes, save_executable, save_package)
+                                     load_package, msda_nodes, pool_bytes, save_executable)
+from codetr_torch.utils.native import batched_nms_native, preprocess_native
 from codetr_torch.utils.preprocess import preprocess
 from codetr_torch.utils.profiling import kernel_counts, trace
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -2341,7 +2363,10 @@ AOTI_CONTROL_EPS = (1e-7, 1e-6)  # the rounding controls' relative moves of the 
 # ladder against the program: rounding-level moves of the image put 0-14 of
 # 300 off it, the program under TF32 282-296 (three seeded images; PERF.md)
 AOTI_OFF_SHARE = 0.1
-AOTI_RUN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "codetr_torch", "tools", "aoti_run.py")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+AOTI_RUN = os.path.join(ROOT, "codetr_torch", "tools", "aoti_run.py")
+AOTI_NICE = 10  # the background package job's niceness: the phases beside it keep most of the host's cores
+AOTI_JOB_TIMEOUT = 1000  # seconds: a step of the background package job, and the wait for it
 
 
 def image_detections(out) -> dict:
@@ -2351,63 +2376,150 @@ def image_detections(out) -> dict:
             for k, t in zip(("boxes", "scores", "labels"), out)}
 
 
-def aoti_run(tmp, package_path, ops, x, m):
-    """``codetr_torch/tools/aoti_run.py`` in a subprocess (``python -P``: its
-    directory stays off the path; it imports nothing of codetr_torch) on
-    (x, m) -> (its outputs, its record).  A failed run fails the script."""
-    inputs, outputs = os.path.join(tmp, "aoti_in.npz"), os.path.join(tmp, "aoti_out.npz")
-    np.savez(inputs, arg0=x.cpu().numpy(), arg1=m.cpu().numpy())
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-P", AOTI_RUN, "--package", package_path, "--ops-lib", str(ops.path),
-                           "--inputs", inputs, "--outputs", outputs], capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        fail(f"tools/aoti_run.py exited {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
-    record = json.loads(proc.stdout.strip().splitlines()[-1])
-    record["wall_s"] = wall
-    with np.load(outputs) as npz:
-        return [npz[f"out{i}"] for i in range(record["outputs"])], record
+class AotiJob:
+    """8b's package made beside phases 3-8, in the background: ``python -m
+    codetr_torch.export_aot --package`` (the seed-0 Swin-L at AOTI_HW fp32,
+    full width: the ``.codetr.pt2`` program, the AOTInductor package, their
+    drift against the in-process model), then ``tools/aoti_run.py`` on that
+    package (``python -P``: its directory stays off the path; it imports
+    nothing of codetr_torch) with the op library ``ops``, on the image
+    preprocessed here; one after the other in a daemon thread, each a
+    subprocess in its own session at niceness AOTI_NICE.  The compile is
+    minutes of host work (Inductor's lowering, Triton's compile workers, g++
+    of the wrapper), so beside the other phases the script's wall drops by
+    most of it.  Its autotuning runs kernels on the card, whose time slices
+    stretch the other phases' device times, so ``pause()`` stops the
+    running subprocess's process group (SIGSTOP), and ``resume()`` lets it
+    go on, around the kernels' timings, the matrix and the step that fills
+    the card on purpose; at exit a subprocess still running is killed."""
+
+    def __init__(self, tmp, image, ops):
+        h, w = AOTI_HW
+        self.dir = os.path.join(tmp, "aoti")
+        self.exe = os.path.join(self.dir, "codetr.codetr.pt2")
+        self.pkg = os.path.join(self.dir, "codetr.aoti.pt2")
+        self.x, self.m = (t[None] for t in preprocess(image, h, w, CONFIG().preprocess, device=DEVICE)[:2])
+        self.inputs, self.outputs = os.path.join(tmp, "aoti_in.npz"), os.path.join(tmp, "aoti_out.npz")
+        np.savez(self.inputs, arg0=self.x.cpu().numpy(), arg1=self.m.cpu().numpy())
+        self.steps = (
+            ("export_aot", [sys.executable, "-m", "codetr_torch.export_aot", "--config", "swin-l", "--dtype",
+                            "float32", "--height", str(h), "--width", str(w), "--package", "--skip-benchmark",
+                            "--output", self.dir]),
+            ("aoti_run", [sys.executable, "-P", AOTI_RUN, "--package", self.pkg, "--ops-lib", str(ops.path),
+                          "--inputs", self.inputs, "--outputs", self.outputs]),
+        )
+        self.done, self.error, self.proc = {}, None, None
+        self.paused_s, self.paused_at = 0.0, None
+        self.lock, self.go = threading.Lock(), threading.Event()
+        self.go.set()
+        atexit.register(self.kill)
+        self.t0 = time.perf_counter()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        try:
+            for name, cmd in self.steps:
+                while True:
+                    self.go.wait()
+                    with self.lock:
+                        if self.go.is_set():
+                            t0 = time.perf_counter()
+                            self.proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                                         stderr=subprocess.PIPE, text=True, start_new_session=True)
+                            os.setpriority(os.PRIO_PROCESS, self.proc.pid, AOTI_NICE)
+                            break
+                out, err = self.proc.communicate(timeout=AOTI_JOB_TIMEOUT)
+                self.done[name] = {"rc": self.proc.returncode, "stdout": out, "stderr": err,
+                                   "wall_s": time.perf_counter() - t0}
+                if self.proc.returncode != 0:
+                    return
+        except BaseException as e:  # re-raised by wait()
+            self.error = e
+
+    def _signal(self, sig):
+        if self.proc is not None and self.proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(self.proc.pid, sig)
+
+    def pause(self):
+        with self.lock:
+            self.go.clear()
+            self._signal(signal.SIGSTOP)
+            self.paused_at = time.perf_counter()
+
+    def resume(self):
+        with self.lock:
+            self.go.set()
+            self._signal(signal.SIGCONT)
+            self.paused_s += time.perf_counter() - self.paused_at
+
+    def kill(self):
+        with self.lock:
+            self.go.clear()
+            self._signal(signal.SIGKILL)
+
+    def wait(self):
+        """-> (export_aot's record, aoti_run's outputs, aoti_run's record,
+        the seconds this process waited); a failed step fails the script."""
+        t0 = time.perf_counter()
+        self.thread.join(AOTI_JOB_TIMEOUT)
+        waited = time.perf_counter() - t0
+        if self.thread.is_alive():
+            self.kill()
+            fail(f"the background package job did not end within {AOTI_JOB_TIMEOUT} s of the wait")
+        if self.error is not None:
+            raise self.error
+        for name, _ in self.steps:
+            r = self.done.get(name)
+            if r is None or r["rc"] != 0:
+                r = r or {"rc": None, "stdout": "", "stderr": ""}
+                fail(f"{name} (background) exited {r['rc']}:\n{r['stdout'][-3000:]}\n{r['stderr'][-6000:]}")
+        record = json.loads(self.done["aoti_run"]["stdout"].strip().splitlines()[-1])
+        record["wall_s"] = self.done["aoti_run"]["wall_s"]
+        with np.load(self.outputs) as npz:
+            outputs = [npz[f"out{i}"] for i in range(record["outputs"])]
+        return self.done["export_aot"], outputs, record, waited
 
 
-def aoti_phase(tmp, image, ops, stamp):
+def aoti_phase(job, stamp):
     """The exported forward as an AOTInductor package (``runtime/aot.py:
     save_package``): the seed-0 Swin-L at 608x608 fp32, full width (2/2/18/2
-    blocks, 6 + 6 layers, 900 queries, 80 classes), exported and compiled
-    (seconds, MB); loaded in this process, where the package's two MSDA ops
-    are the Python registrations (12 K1 launches a forward), and held
-    set-wise against the reloaded ``.codetr.pt2`` program of the same model
-    on one seeded image: its detections off the ladder (scores 2e-4, boxes
-    0.1 px) are counted beside those of the program's own rounding controls
-    (the image moved by 1e-7 and 1e-6 of itself: the seed-0 model's
-    near-tied top-900 proposals turn fp32 rounding differences into other
-    detections), and more than AOTI_OFF_SHARE of them off
-    ``compare_models``' ladder (1e-3, 0.5 px) fails, a gate that the
-    program run under TF32 must fail; both timed as CUDA-graph replays and
-    eager calls (p50 / p95 / min); then
-    ``tools/aoti_run.py`` in a subprocess with the ops from ``ops``
-    (``csrc/msda_ops.cpp``'s library): its outputs must equal the in-process
+    blocks, 6 + 6 layers, 900 queries, 80 classes), exported and compiled by
+    ``export_aot --package`` in ``job`` (``AotiJob``, beside the earlier
+    phases; compile seconds, MB); loaded in this process, where the
+    package's two MSDA ops are the Python registrations (12 K1 launches a
+    forward), and held set-wise against the reloaded ``.codetr.pt2``
+    program it was compiled from on one seeded image: its detections off
+    the ladder (scores 2e-4, boxes 0.1 px) are counted beside those of the
+    program's own rounding controls (the image moved by 1e-7 and 1e-6 of
+    itself: the seed-0 model's near-tied top-900 proposals turn fp32
+    rounding differences into other detections), and more than
+    AOTI_OFF_SHARE of them off ``compare_models``' ladder (1e-3, 0.5 px)
+    fails, a gate that the program run under TF32 must fail; both timed as
+    CUDA-graph replays and eager calls (p50 / p95 / min); then
+    ``tools/aoti_run.py``'s run in ``job`` with the op library
+    (``csrc/msda_ops.cpp``'s): its outputs must equal the in-process
     package's bit for bit (the same kernels, plan and generated code); if
     they do not, the script prints why and holds them on the ladder."""
     h, w = AOTI_HW
     cfg = CONFIG()
-    meta = {"config": "swin-l", "dtype": "float32", "height": h, "width": w, "batch_size": 1,
-            "fused_preprocess": False}
-    model = build_codetr(cfg, device=DEVICE, seed=SEED)
-    t0 = time.perf_counter()
-    fn, example = compile_forward(model, height=h, width=w, dtype=torch.float32)
-    t_export = time.perf_counter() - t0
-    exe = save_executable(os.path.join(tmp, "aoti.codetr.pt2"), fn, example, meta=meta)
-    t0 = time.perf_counter()
-    pkg = save_package(os.path.join(tmp, "swin_l_608"), fn, example, meta=meta)
-    t_compile = time.perf_counter() - t0
-    del fn, model
-    gc.collect()
-    torch.cuda.empty_cache()
+    made, sub, record, waited = job.wait()
+    for line in made["stdout"].strip().splitlines():
+        print(f"aoti export_aot: {line}")
+    for line in made["stderr"].splitlines():
+        if "arn" in line:  # Warning, warn, warnings.warn
+            print(f"aoti export_aot, stderr: {line.strip()}")
+    found = re.search(r"compiled in ([0-9.]+) s", made["stdout"])
+    if found is None:
+        fail(f"export_aot --package printed no compile time:\n{made['stdout'][-3000:]}")
+    t_compile = float(found.group(1))
+    exe, pkg = job.exe, job.pkg
     program = load_executable(exe, device=DEVICE)
     t0 = time.perf_counter()
     package = load_package(pkg, device=DEVICE)
     t_load = time.perf_counter() - t0
-    x, m = (t[None] for t in preprocess(image, h, w, cfg.preprocess, device=DEVICE)[:2])
+    x, m = job.x, job.m
     msda.launches = msda.launches_qm = msda.launches_bwd = 0
     got = package(x, m)
     torch.cuda.synchronize()
@@ -2443,8 +2555,9 @@ def aoti_phase(tmp, image, ops, stamp):
         ladder[name] = {"unmatched_on_the_ladder": strict, "worst_px": worst, "unmatched_model_tol": model_tol,
                         "scores": (out[1] - want[1]).abs().max().item(),
                         "scores_median": (out[1] - want[1]).abs().median().item()}
-    print(f"aoti swin-l {h}x{w} fp32: export {t_export:.1f} s, AOTInductor compile {t_compile:.1f} s "
-          f"({os.path.getsize(pkg) / 1e6:.1f} MB), load {t_load:.1f} s; in-process forward: kernel launches "
+    print(f"aoti swin-l {h}x{w} fp32: export_aot in the background {made['wall_s']:.1f} s wall (its "
+          f"AOTInductor compile {t_compile:.1f} s, {os.path.getsize(pkg) / 1e6:.1f} MB; stopped {job.paused_s:.1f} s "
+          f"of it; this process waited {waited:.1f} s for it and aoti_run), load {t_load:.1f} s; in-process forward: kernel launches "
           f"(forward, q-minor, backward) {launches} [{stamp}]")
     for name, r in ladder.items():
         print(f"aoti {name} against the reloaded .codetr.pt2 program: {r['unmatched_on_the_ladder']} of {n} "
@@ -2467,7 +2580,6 @@ def aoti_phase(tmp, image, ops, stamp):
                   f"over {r['iterations']} iterations in 5 blocks, host end to end {r['host_e2e_ms']:.3f} ms "
                   f"({r['mode']}) [{stamp}]")
 
-    sub, record = aoti_run(tmp, pkg, ops, x, m)
     cuda_kernels = {op: [line for line in text.splitlines() if line.startswith("CUDA:")]
                     for op, text in record["registrations"].items()}
     from_cpp = all(len(v) == 1 and "msda_ops.cpp" in v[0] for v in cuda_kernels.values())
@@ -2488,11 +2600,97 @@ def aoti_phase(tmp, image, ops, stamp):
               f"[{stamp}]")
         if sub_unmatched:
             fail(f"{sub_unmatched} of the subprocess's detections are off the ladder against the in-process package")
-    del program, package, got, want, runs
+    del program, got, want, runs
     torch.cuda.empty_cache()
-    return {"export_s": t_export, "compile_s": t_compile, "mb": os.path.getsize(pkg) / 1e6, "load_s": t_load,
+    # the package, loaded, and its file outlive the phase: runner_phase runs them
+    return {"export_aot_s": made["wall_s"], "waited_s": waited, "compile_s": t_compile, "mb": os.path.getsize(pkg) / 1e6, "load_s": t_load,
             "launches": launches[0], "ladder": ladder, "times": times,
-            "subprocess": {"equal": equal, "diffs": diffs, "unmatched": sub_unmatched, "record": record}}
+            "subprocess": {"equal": equal, "diffs": diffs, "unmatched": sub_unmatched, "record": record},
+            "path": pkg, "package": package}
+
+
+RUNNER_ITERATIONS = 20  # the runner's timed runs, each synchronised
+RUNNER_IOU, RUNNER_SCORE = 0.8, 0.0  # the runner's default NMS thresholds
+
+
+def runner_out(cmd, what):
+    """Run the native runner -> (its stdout, wall seconds); a non-zero exit
+    fails the script."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([str(c) for c in cmd], capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"the runner ({what}) exited {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    return proc.stdout, wall
+
+
+def runner_phase(tmp, image, aoti, ops, runner, stamp):
+    """The native runner (``codetr_torch/csrc/codetr_aoti_runner.cpp``, a C++
+    program on libtorch, built by ``_build.build_runner("cuda")``) on
+    ``aoti_phase``'s Swin-L 608x608 fp32 package and op library: ``--smoke``
+    must find both ``codetr::`` ops served by ``msda_ops.cpp``'s CUDA
+    kernels; then the image as a raw RGB dump, preprocessed by the host
+    library, one warm-up run dumped and RUNNER_ITERATIONS timed runs, each
+    synchronised (ms/iter beside the package's eager p50 in this process),
+    and NMS on the host.  Its dump must equal the in-process package's
+    outputs on ``preprocess_native`` of the same image bit for bit, its K1
+    launches (counted by the op library) 6 + 6 a forward, and its NMS count
+    ``batched_nms_native``'s on the in-process outputs."""
+    h, w = AOTI_HW
+    smoke, smoke_s = runner_out([runner.path, "--smoke", "--device", "cuda", "--ops-lib", ops.path], "--smoke")
+    served = {op: next((line for line in smoke.splitlines() if line.startswith(op + ":")), "")
+              for op in ("codetr::msda_packed", "codetr::msda_reference")}
+    print(f"runner --smoke --device cuda ({smoke_s:.1f} s): {served} [{stamp}]")
+    if not all("CUDA kernel yes" in line and "msda_ops.cpp" in line for line in served.values()):
+        fail(f"the runner's --smoke does not find both ops' CUDA kernels in msda_ops.cpp: {served}")
+
+    raw, prefix = os.path.join(tmp, "runner_image.rgb"), os.path.join(tmp, "runner_out")
+    np.ascontiguousarray(image).tofile(raw)
+    out, wall = runner_out([runner.path, "--model", aoti["path"], "--ops-lib", ops.path, "--device", "cuda",
+                            "--image", raw, "--image-height", image.shape[0], "--image-width", image.shape[1],
+                            "--iterations", RUNNER_ITERATIONS, "--dump-raw", prefix], "the package")
+
+    def field(pattern):
+        found = re.search(pattern, out)
+        if found is None:
+            fail(f"the runner printed no line matching {pattern!r}:\n{out[-3000:]}")
+        return found
+
+    load_s = float(field(r"load: ([0-9.]+) s").group(1))
+    mean_ms, p50_ms, min_ms, max_ms = map(float, field(
+        r"latency: ([0-9.]+) ms/iter over \d+ iters \(p50 ([0-9.]+), min ([0-9.]+), max ([0-9.]+)\)").groups())
+    counted = field(r"codetr::msda_packed (\d+), codetr::msda_reference (\d+) over (\d+) forwards")
+    launches = {"codetr::msda_packed": int(counted.group(1)), "codetr::msda_reference": int(counted.group(2))}
+    forwards = int(counted.group(3))
+    printed_nms = int(field(r"detections after NMS: (\d+)").group(1))
+
+    pre = PreprocessConfig()
+    x, m, _, _ = preprocess_native(image, h, w, pre.mean, pre.std)
+    got = aoti["package"](torch.from_numpy(x[None]).to(DEVICE), torch.from_numpy(m[None]).to(DEVICE))
+    want = [t.float().cpu().numpy() for t in got]
+    dumped = [np.fromfile(f"{prefix}.{k}.bin", np.float32) for k in ("boxes", "scores", "labels")]
+    equal = all(np.array_equal(d, t.ravel()) for d, t in zip(dumped, want))
+    diffs = [float(np.abs(d.astype(np.float64) - t.ravel()).max()) for d, t in zip(dumped, want)]
+    nms = int(batched_nms_native(want[0][0], want[1][0], want[2][0].astype(np.int32), RUNNER_IOU,
+                                 RUNNER_SCORE).sum())
+    eager = aoti["times"]["package eager"]["p50_ms"]
+    print(f"runner swin-l {h}x{w} fp32 (build {runner.build_seconds:.1f} s): load {load_s:.1f} s, "
+          f"{wall:.1f} s wall; latency {mean_ms:.3f} ms/iter over {RUNNER_ITERATIONS} (p50 {p50_ms:.3f}, min "
+          f"{min_ms:.3f}, max {max_ms:.3f}) against the in-process package's eager p50 {eager:.3f} ms "
+          f"({p50_ms / eager:.3f}x); K1 launches {launches} over {forwards} forwards; outputs equal to the "
+          f"in-process package's bit for bit: {equal} (max |difference| boxes, scores, labels {diffs}); "
+          f"detections after NMS {printed_nms}, batched_nms_native on the in-process outputs {nms} [{stamp}]")
+    per_forward = {op: n / forwards for op, n in launches.items()}
+    if per_forward != {"codetr::msda_packed": 6, "codetr::msda_reference": 6}:
+        fail(f"the runner's forwards launched {launches} over {forwards}, not 6 + 6 a forward")
+    if not equal:
+        fail("the runner's outputs differ from the in-process package's (the same package, kernels and inputs)")
+    if printed_nms != nms:
+        fail(f"the runner kept {printed_nms} detections after NMS, batched_nms_native {nms}")
+    return {"build_s": runner.build_seconds, "load_s": load_s, "wall_s": wall, "smoke_s": smoke_s,
+            "ms_per_iter": mean_ms, "p50_ms": p50_ms, "min_ms": min_ms, "max_ms": max_ms,
+            "eager_p50_ms": eager, "launches": launches, "forwards": forwards, "equal": equal,
+            "nms": printed_nms}
 
 
 def trace_pieces(events, kernels) -> dict:
@@ -3087,16 +3285,28 @@ def main() -> int:
     # 2. build, one nvcc per kernel, all started together
     # and the C++ op library of the AOTInductor phase (msda_ops.cpp with
     # msda_fwd.cu), built here, loaded only by that phase's subprocess
+    # and the native runner (g++ on libtorch and the host library)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+    with ThreadPoolExecutor(len(KERNELS) + 2) as pool:
         ops_build = pool.submit(_build.build_ops)
+        runner_build = pool.submit(_build.build_runner, "cuda")
         builds = list(pool.map(_build.load, KERNELS))
-        ops = ops_build.result()
-    print(f"built {len(builds)} kernels and the op library in {time.perf_counter() - t0:.1f} s wall")
+        ops, runner = ops_build.result(), runner_build.result()
+    print(f"built {len(builds)} kernels, the op library and the runner in {time.perf_counter() - t0:.1f} s wall")
     for built in (*builds, ops):
         print(f"built {built.path.name} in {built.build_seconds:.1f} s; nvcc -Xptxas -v:")
         print(built.log.strip())
+    print(f"built {runner.path.name} in {runner.build_seconds:.1f} s with g++")
+    if runner.log.strip():
+        print(runner.log.strip())
     print_plans(builds, stamp)
+
+    # 8b's package is exported and compiled in the background from here on
+    # (AotiJob), beside phases 3-8, and aoti_run.py runs on it after
+    rng = np.random.default_rng(SEED)
+    images = [rng.integers(0, 256, s, np.uint8) for s in ((480, 640, 3), (1280, 720, 3), (900, 1600, 3))]
+    aoti_tmp = tempfile.TemporaryDirectory()
+    job = AotiJob(aoti_tmp.name, images[-1], ops)
 
     phase_s["build"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
     # 3. kernel vs plain at the main paths' shapes: the forward at every
@@ -3166,8 +3376,6 @@ def main() -> int:
 
     phase_s["model vs CPU"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
     # 5. the main path: Swin-L Inferencer at 768x1152, fp32 then bf16
-    rng = np.random.default_rng(SEED)
-    images = [rng.integers(0, 256, s, np.uint8) for s in ((480, 640, 3), (1280, 720, 3), (900, 1600, 3))]
     swin = serve(cfg, HEIGHT, WIDTH, torch.float32, images, images[0], stamp, post_checks=True)
     main_launches = swin["launches"]
     print(f"main path fp32: {len(images)} images, kernel launches {main_launches} "
@@ -3230,7 +3438,9 @@ def main() -> int:
     train_cp = run_training(cfg_cp, 1)
     # the same steps captured in one CUDA graph, beside eager twins
     captured = {"fp32": captured_training(cfg, 1, stamp), "fp32 with_cp": captured_training(cfg_cp, 1, stamp)}
+    job.pause()  # this step fills the card until it runs out
     no_cp_peak = fwd_bwd_peak(cfg, CP_BATCH)
+    job.resume()
     train_cp_big = run_training(cfg_cp, CP_BATCH, timed=2)
 
     phase_s["training"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
@@ -3256,7 +3466,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_s["sync-free loss, bf16 step, trainbench"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
-    # 7. timings
+    # 7. timings, with the background job stopped
+    job.pause()
     per_call, per_call_bwd = {}, {}
     for name, v_dtype in (("encoder", torch.float32), ("encoder_bf16", torch.bfloat16),
                           ("decoder", torch.float32), ("decoder_bf16", torch.bfloat16)):
@@ -3397,6 +3608,7 @@ def main() -> int:
               f"GiB allocated over the warm-up and capture (the eager steps' peak "
               f"{eager['peak_bytes'] / 2**30:.3f}) [{stamp}]")
 
+    job.resume()
     phase_s["timings"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
     # 8. the deployment path: BASELINE configs[0] and [3] exported, saved and
     # reloaded; the five-configuration matrix timed as CUDA-graph replays
@@ -3408,7 +3620,9 @@ def main() -> int:
         t0 = time.perf_counter()
         exported = export_phase(tmp, images[-1], stamp)
         wall["export"], t0 = time.perf_counter() - t0, time.perf_counter()
+        job.pause()
         matrix = matrix_phase(exported, MATRIX_ITERATIONS, stamp)
+        job.resume()
         wall["matrix"], t0 = time.perf_counter() - t0, time.perf_counter()
         reloaded = {f"configs{i}": {k: v for k, v in r.items() if k != "program"} for i, r in exported.items()}
         del exported
@@ -3422,13 +3636,20 @@ def main() -> int:
         wall["eval_coco"] = time.perf_counter() - t0
     print("deployment phases, wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
     phase_s["deployment"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
-    # 8b. the exported forward as an AOTInductor package, its MSDA ops run
-    # from C++ in a subprocess with no Python kernel code
+    # 8b. the exported forward as an AOTInductor package (made by the
+    # background job), its MSDA ops run from C++ in a subprocess with no
+    # Python kernel code
     gc.collect()
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        aoti_phase(tmp, images[-1], ops, stamp)
-    phase_s["aoti"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
+    with aoti_tmp as tmp:
+        aoti = aoti_phase(job, stamp)
+        phase_s["aoti"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
+        # 8c. the native runner on that package, with no Python in its process
+        native_run = runner_phase(tmp, images[-1], aoti, ops, runner, stamp)
+        del aoti
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s["runner"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
     # 9. checkpoint day: the rehearsal
     with tempfile.TemporaryDirectory() as tmp:
         rehearsed = rehearsal_phase(tmp, enc_stage, stamp)
@@ -3473,6 +3694,10 @@ def main() -> int:
         "launches_fused_inferencer": fused["launches"],
         # eval_coco's pass 3 (the JAX script's defaults), over its served batches
         "launches_eval_coco": evaluation["pass 3 (1)"]["launches"][0],
+        # the native runner's forwards (warm-up + timed) of the Swin-L 608x608
+        # fp32 package, counted by csrc/msda_ops.cpp's registrations
+        "launches_native_runner": native_run["launches"],
+        "native_runner_forwards": native_run["forwards"],
         # the checkpoint rehearsal's bf16 reader (the counts set to 0 before
         # its forwards), its fp32 reader, and K1 on the first encoder layer's
         # taps of seed 0's, the file's and the scale-2.0 model

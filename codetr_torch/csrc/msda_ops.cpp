@@ -21,7 +21,10 @@
 // output with at::empty and synchronise nothing, so a CUDA graph can
 // capture them.  They check what ops/msda.py's _check and _kernel_checks
 // check and raise (TORCH_CHECK) on an argument the kernel does not take or
-// on a launch the runtime refused.
+// on a launch the runtime refused.  Each counts its launches (as
+// ops/msda.py's launches counter does), read through
+// codetr_msda_ops_launches by a process with no Python counters: the
+// native runner (csrc/codetr_aoti_runner.cpp).
 
 #include <ATen/core/Tensor.h>
 #include <ATen/ops/empty.h>
@@ -29,6 +32,7 @@
 #include <c10/cuda/CUDAStream.h>
 #include <torch/library.h>
 
+#include <atomic>
 #include <cstdint>
 #include <vector>
 
@@ -46,6 +50,9 @@ namespace {
 
 constexpr int64_t kMaxLevels = 8;    // ops/msda.py:_MAX_LEVELS
 constexpr int64_t kMaxHeadDim = 128;  // ops/msda.py:_MAX_HEAD_DIM
+
+// launches since the library was loaded: [0] msda_packed, [1] msda_reference
+std::atomic<int64_t> g_launches[2];
 
 int dtype_code(const at::Tensor& value) {
   if (value.scalar_type() == at::kFloat) return 0;
@@ -126,6 +133,7 @@ at::Tensor msda_packed_cuda(const at::Tensor& value, const at::Tensor& cpk,
       arrays[0], arrays[1], arrays[2], arrays[3], arrays[4], arrays[5], arrays[6], flat[want - 2],
       flat[want - 1], c10::cuda::getCurrentCUDAStream(value.device().index()).stream());
   check_launch(err, "msda_packed_fwd");
+  ++g_launches[0];
   return out;
 }
 
@@ -150,10 +158,17 @@ at::Tensor msda_reference_cuda(const at::Tensor& value, const at::Tensor& loc,
       static_cast<int>(D), static_cast<int>(L), static_cast<int>(P), lv.h.data(), lv.w.data(),
       c10::cuda::getCurrentCUDAStream(value.device().index()).stream());
   check_launch(err, "msda_fwd");
+  ++g_launches[1];
   return out;
 }
 
 }  // namespace
+
+// Launches of entry 0 (codetr::msda_packed) or 1 (codetr::msda_reference)
+// since the library was loaded; -1 for another entry.
+extern "C" int64_t codetr_msda_ops_launches(int entry) {
+  return entry == 0 || entry == 1 ? g_launches[entry].load() : -1;
+}
 
 TORCH_LIBRARY(codetr, m) {
   m.def("msda_packed(Tensor value, Tensor cpk, int[] spatial_shapes, int num_points, int[] plan) -> Tensor");

@@ -12,7 +12,13 @@ and an unchanged one is reused.
 C++) linked with ``csrc/msda_fwd.cu`` against libtorch.  It is built, never
 loaded, here: a process loads it with ``torch.ops.load_library`` only if it
 has not imported ``codetr_torch.ops.msda``, whose Python registrations of
-the same schemas it would collide with (``tools/aoti_run.py``).
+the same schemas it would collide with (``tools/aoti_run.py``, the
+runner).
+
+``build_host()`` builds ``csrc/codetr_host.cpp`` (preprocess and NMS, a
+plain C interface, ``utils/native.py``) with ``g++``, and
+``build_runner(device)`` the native runner ``csrc/codetr_aoti_runner.cpp``,
+a program linked against that library and libtorch; neither needs nvcc.
 Nothing here runs at import time.
 """
 
@@ -44,13 +50,13 @@ NVCC_FLAGS = (
 
 @dataclass
 class Built:
-    """A kernel library, loaded with ctypes (``build_ops``': not loaded),
-    and how it was built."""
+    """A kernel library, loaded with ctypes (``build_ops``', ``build_host``'s
+    and ``build_runner``'s: not loaded), and how it was built."""
 
     lib: Optional[ctypes.CDLL]
     path: Path
     build_seconds: float  # 0.0 when an existing build was reused
-    log: str  # nvcc's output, including ``-Xptxas -v``'s register report
+    log: str  # the compiler's output (nvcc's with ``-Xptxas -v``'s register report)
 
 
 _loaded: dict[str, Built] = {}
@@ -71,18 +77,19 @@ def nvcc() -> str:
     return found
 
 
-def _library_path(name: str, sources, flags) -> Path:
-    """``_build/<name>-<hash>.so``, keyed by the sources, the shared headers
-    (a source that includes an edited one is rebuilt) and the flags."""
+def _library_path(name: str, sources, flags, suffix: str = ".so") -> Path:
+    """``_build/<name>-<hash><suffix>``, keyed by the sources, the shared
+    headers (a source that includes an edited one is rebuilt) and the
+    flags."""
     headers = b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
     blob = b"".join(Path(s).read_bytes() for s in sources) + headers + " ".join(flags).encode()
-    return BUILD_DIR / f"{name}-{hashlib.sha256(blob).hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{name}-{hashlib.sha256(blob).hexdigest()[:16]}{suffix}"
 
 
 def _run(cmd, what: str) -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {what}:\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"{Path(cmd[0]).name} failed to build {what}:\n{proc.stdout}{proc.stderr}")
     return proc.stdout + proc.stderr
 
 
@@ -90,7 +97,7 @@ def _build(so: Path, make) -> tuple:
     """Run ``make(tmp)`` (-> its log) unless ``so`` exists; -> (seconds,
     log).  The library appears atomically: a concurrent loader sees all or
     nothing."""
-    log_path = so.with_suffix(".log")
+    log_path = so.with_name(so.stem + ".log")
     seconds = 0.0
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -168,4 +175,87 @@ def build_ops() -> Built:
     seconds, log = _build(so, make)
     built = Built(lib=None, path=so, build_seconds=seconds, log=log)
     _loaded[OPS_NAME] = built
+    return built
+
+
+def gxx() -> str:
+    """Path of the host C++ compiler; raises if there is none."""
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the host library and the runner are built from source at first use")
+    return found
+
+
+HOST_NAME = "codetr_host"
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+
+
+def build_host() -> Built:
+    """Build (if needed) ``csrc/codetr_host.cpp`` (``Built.lib`` is None:
+    ``utils/native.py`` loads it).  Its soname is its file name, so the
+    runner, linked against it, finds it beside itself.  Raises if g++
+    fails."""
+    if HOST_NAME in _loaded:
+        return _loaded[HOST_NAME]
+    src = SRC_DIR / f"{HOST_NAME}.cpp"
+    so = _library_path(HOST_NAME, [src], HOST_FLAGS)
+    seconds, log = _build(so, lambda tmp: _run(
+        [gxx(), *HOST_FLAGS, f"-Wl,-soname,{so.name}", "-o", str(tmp), str(src)], str(src)))
+    built = Built(lib=None, path=so, build_seconds=seconds, log=log)
+    _loaded[HOST_NAME] = built
+    return built
+
+
+def _opencv_flags():
+    """(compile flags, link flags) of OpenCV's image reading where
+    ``pkg-config`` knows ``opencv4``; else none, and the runner takes raw
+    RGB dumps only (``--image-height`` / ``--image-width``)."""
+    pc = shutil.which("pkg-config")
+    if pc is None:
+        return [], []
+    cflags = subprocess.run([pc, "--cflags", "opencv4"], capture_output=True, text=True)
+    libdirs = subprocess.run([pc, "--libs-only-L", "opencv4"], capture_output=True, text=True)
+    if cflags.returncode != 0 or libdirs.returncode != 0:
+        return [], []
+    return (["-DHAVE_OPENCV", *cflags.stdout.split()],
+            [*libdirs.stdout.split(), "-lopencv_imgcodecs", "-lopencv_imgproc", "-lopencv_core"])
+
+
+RUNNER_NAME = "codetr_aoti_runner"
+RUNNER_LIBS = {"cpu": ("c10", "torch", "torch_cpu"),
+               "cuda": ("c10", "torch", "torch_cpu", "c10_cuda", "torch_cuda")}
+
+
+def build_runner(device: str = "cuda", opt: str = "-O2") -> Built:
+    """Build (if needed) the native runner ``csrc/codetr_aoti_runner.cpp``
+    for ``device`` ("cuda" or "cpu"): ``g++ -std=c++20`` with torch's headers
+    and ABI flag, linked against ``build_host()``'s library and libtorch,
+    with an rpath to both, so it runs with no ``LD_LIBRARY_PATH``; with
+    OpenCV's image reading where ``pkg-config`` finds it.  The
+    libraries are linked ``--no-as-needed``: the runner names no symbol of
+    ``libtorch_cuda.so``, whose static initialisers register the CUDA
+    backend and the CUDA AOTInductor model runner.  Nothing of Python is
+    linked.  Keyed by the source, the flags, the host library and PyTorch's
+    version.  Raises if g++ fails."""
+    import torch
+    from torch.utils import cpp_extension
+
+    if device not in RUNNER_LIBS:
+        raise ValueError(f"device must be one of {sorted(RUNNER_LIBS)}, got {device!r}")
+    key = f"{RUNNER_NAME}-{device}{opt}"
+    if key in _loaded:
+        return _loaded[key]
+    host = build_host()
+    src = SRC_DIR / f"{RUNNER_NAME}.cpp"
+    torch_lib = cpp_extension.library_paths()[0]
+    cv_flags, cv_link = _opencv_flags()
+    flags = ["-std=c++20", opt, f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}",
+             *(f"-I{p}" for p in cpp_extension.include_paths()), *cv_flags]
+    link = [str(host.path), *cv_link, f"-L{torch_lib}",
+            "-Wl,--no-as-needed", *(f"-l{lib}" for lib in RUNNER_LIBS[device]), "-Wl,--as-needed",
+            "-ldl", f"-Wl,-rpath,{torch_lib}", "-Wl,-rpath,$ORIGIN"]
+    exe = _library_path(f"{RUNNER_NAME}-{device}", [src], [*flags, *link, torch.__version__], suffix="")
+    seconds, log = _build(exe, lambda tmp: _run([gxx(), *flags, "-o", str(tmp), str(src), *link], str(src)))
+    built = Built(lib=None, path=exe, build_seconds=seconds, log=log)
+    _loaded[key] = built
     return built

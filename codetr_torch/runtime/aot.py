@@ -49,8 +49,9 @@ Not carried over: the JAX ``split=True`` form (backbone and head as two
 executables) and the weights-as-arguments ``.params.npz`` companion worked
 around the TPU's remote compile transport, which a local ``torch.export``
 does not have.  The ``.stablehlo`` companion that feeds the JAX package's
-C++ runner has the AOTInductor package as its counterpart; the native
-runner binary itself is later work.
+C++ runner has the AOTInductor package as its counterpart, and that runner
+``csrc/codetr_aoti_runner.cpp`` (``ops/_build.py:build_runner``), which
+loads a package and the op library with no Python in its process.
 """
 
 from __future__ import annotations

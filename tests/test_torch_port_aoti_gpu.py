@@ -5,15 +5,20 @@ AOTInductor package run with it, on the card.
 nothing of ``codetr_torch`` loads it and calls ``torch.ops.codetr.
 msda_packed`` / ``msda_reference``, whose results must equal the Python
 ops' CUDA launches in this process bit for bit (the same kernels, the same
-plan).  A tiny package run through ``tools/aoti_run.py`` in a subprocess
-must equal the same package run in this process.  Marked ``gpu``; this file
-imports no JAX, so run it on the card without the suite's conftest:
+plan).  A tiny package (compiled once for the file) run through
+``tools/aoti_run.py`` in a subprocess, and by the native runner
+(``csrc/codetr_aoti_runner.cpp``, ``_build.build_runner("cuda")``) on the
+host library's preprocess of a raw image, must equal the same package run
+in this process; the runner's ``--smoke`` finds both ops' CUDA kernels.
+Marked ``gpu``; this file imports no JAX, so run it on the card without the
+suite's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_port_aoti_gpu.py
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -22,8 +27,10 @@ import numpy as np
 import pytest
 import torch
 
+from codetr_torch.config import PreprocessConfig
 from codetr_torch.ops import _build
 from codetr_torch.ops import msda as port_msda
+from codetr_torch.utils import native
 
 from test_torch_port_cuda import SHAPES, kept_tf32_flags, make_inputs, pack
 
@@ -65,9 +72,41 @@ def cuda_device():
 
 
 def run(cmd, timeout=900):
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    proc = subprocess.run([str(c) for c in cmd], cwd=REPO, capture_output=True, text=True, timeout=timeout)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-6000:]
     return proc.stdout
+
+
+TINY_HW = 96
+
+
+@pytest.fixture(scope="module")
+def tiny_package(tmp_path_factory):
+    """The tiny seed-4 model as an fp32 CUDA package at 96x96 (the file's
+    one package compile) -> its path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the op library and the package's kernels have no CPU mode")
+    from codetr_torch import build_codetr, tiny_test_config
+    from codetr_torch.runtime import aot
+
+    with kept_tf32_flags():
+        model = build_codetr(tiny_test_config(), device="cuda", seed=4)
+        fn, example = aot.compile_forward(model, height=TINY_HW, width=TINY_HW)
+        return aot.save_package(str(tmp_path_factory.mktemp("aoti") / "tiny"), fn, example,
+                                meta={"config": "tiny"})
+
+
+@pytest.mark.gpu
+def test_runner_smoke_finds_the_cpp_kernels(cuda_device):
+    """``--smoke --device cuda`` with the op library: both ``codetr::`` ops
+    have a CUDA kernel, registered by ``msda_ops.cpp``."""
+    out = run([_build.build_runner("cuda").path, "--smoke", "--device", "cuda", "--ops-lib",
+               _build.build_ops().path])
+    lines = out.strip().splitlines()
+    assert lines[-1] == "ok"
+    for op in ("codetr::msda_packed", "codetr::msda_reference"):
+        line = next(line for line in lines if line.startswith(op + ":"))
+        assert "CUDA kernel yes" in line and "msda_ops.cpp" in line, out
 
 
 @pytest.mark.gpu
@@ -107,18 +146,14 @@ def test_cpp_ops_equal_the_python_launches(cuda_device, tmp_path):
 
 
 @pytest.mark.gpu
-def test_tiny_package_runs_from_cpp(cuda_device, tmp_path):
+def test_tiny_package_runs_from_cpp(cuda_device, tiny_package, tmp_path):
     """A tiny fp32 package run by ``tools/aoti_run.py`` in a subprocess (the
     ops from C++, no codetr_torch module imported) equals the same package
     run in this process (the Python ops: 2 + 2 launches) bit for bit."""
-    from codetr_torch import build_codetr, tiny_test_config
     from codetr_torch.runtime import aot
 
     built = _build.build_ops()
-    model = build_codetr(tiny_test_config(), device=cuda_device, seed=4)
-    fn, example = aot.compile_forward(model, height=96, width=96)
-    path = aot.save_package(str(tmp_path / "tiny"), fn, example, meta={"config": "tiny"})
-    package = aot.load_package(path)
+    package = aot.load_package(tiny_package)
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.standard_normal((1, 96, 96, 3)).astype(np.float32))
     m = torch.zeros(1, 96, 96)
@@ -127,7 +162,7 @@ def test_tiny_package_runs_from_cpp(cuda_device, tmp_path):
     want = package(x.to(cuda_device), m.to(cuda_device))
     assert port_msda.launches == 4
     np.savez(tmp_path / "in.npz", arg0=x.numpy(), arg1=m.numpy())
-    out = run([sys.executable, "-P", AOTI_RUN, "--package", path, "--ops-lib", str(built.path),
+    out = run([sys.executable, "-P", AOTI_RUN, "--package", tiny_package, "--ops-lib", str(built.path),
                "--inputs", str(tmp_path / "in.npz"), "--outputs", str(tmp_path / "out.npz")])
     record = json.loads(out.strip().splitlines()[-1])
     assert record["codetr_torch_modules"] == []
@@ -136,3 +171,31 @@ def test_tiny_package_runs_from_cpp(cuda_device, tmp_path):
     got = np.load(tmp_path / "out.npz")
     for i, t in enumerate(want):
         np.testing.assert_array_equal(got[f"out{i}"], t.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_runner_runs_the_tiny_package(cuda_device, tiny_package, tmp_path):
+    """The native runner on a seeded 70x90 raw image: its dump equals the
+    in-process package's outputs on ``preprocess_native`` of the image bit
+    for bit, the op library counts 2 + 2 K1 launches a forward, and its NMS
+    count is ``batched_nms_native``'s on the in-process outputs.  Without
+    ``--ops-lib`` the package, which calls ``codetr::`` ops, is refused."""
+    from codetr_torch.runtime import aot
+
+    runner, ops = _build.build_runner("cuda"), _build.build_ops()
+    image = np.random.default_rng(6).integers(0, 256, (70, 90, 3), np.uint8)
+    image.tofile(tmp_path / "image.rgb")
+    args = ["--model", tiny_package, "--device", "cuda", "--image", tmp_path / "image.rgb", "--image-height", 70,
+            "--image-width", 90, "--iterations", 2, "--dump-raw", tmp_path / "raw"]
+    out = run([runner.path, *args, "--ops-lib", ops.path])
+    assert re.search(r"codetr::msda_packed 6, codetr::msda_reference 6 over 3 forwards", out), out
+    cfg = PreprocessConfig()
+    x, m, _, _ = native.preprocess_native(image, TINY_HW, TINY_HW, cfg.mean, cfg.std)
+    want = [t.float().cpu().numpy() for t in aot.load_package(tiny_package)(
+        torch.from_numpy(x[None]).to(cuda_device), torch.from_numpy(m[None]).to(cuda_device))]
+    for key, t in zip(("boxes", "scores", "labels"), want):
+        np.testing.assert_array_equal(np.fromfile(tmp_path / f"raw.{key}.bin", np.float32), t.ravel(), err_msg=key)
+    keep = native.batched_nms_native(want[0][0], want[1][0], want[2][0].astype(np.int32), 0.8, 0.0)
+    assert int(re.search(r"detections after NMS: (\d+)", out).group(1)) == keep.sum()
+    refused = subprocess.run([str(a) for a in (runner.path, *args)], capture_output=True, text=True, timeout=300)
+    assert refused.returncode == 1 and "pass --ops-lib" in refused.stderr, refused.stderr
