@@ -186,8 +186,18 @@ Phases (any failure raises, and the script exits non-zero without a result):
    0-3 and the ``mem`` suite; each stage's ms beside its floor at the GEMM
    and copy ceilings measured in the same run (fails on a kernel check, a
    stage with no time, ``features + detect`` more than 15% off ``full``, a
-   trace without its kernels); then the ``kernels`` line and, last, the
-   result line.
+   trace without its kernels);
+11. the sharded (dp x tp) path (``codetr_torch.parallel``) with this
+   process as the one rank of an NCCL group, on a 1 x 1 mesh (NCCL takes
+   one rank per card; tp > 1 runs in the CPU tests' gloo group): the tiny
+   dry run, its CLI on one card and its refusal of two; Swin-L's tp
+   placements at tp = 2 by ``param_sharding_rule``; one sharded train step
+   of the seed-0 Swin-L at 608x608 fp32 against one ``make_train_step``
+   step from the same weights (K1 12, K2 12, matching 2 launches; the loss
+   within 1e-4; the parameters within 2.02 lr and their updates within
+   1e-2 lr where the gradient is above 1e-2 of its leaf's scale), both
+   timed; the sharded forward against the model's own; then the
+   ``kernels`` line and, last, the result line.
 
 The script leaves PyTorch's TF32 flags at their defaults (printed at the
 start), as a user's process has them: the port's fp32 forward and train
@@ -219,6 +229,7 @@ from dataclasses import replace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from codetr_torch import Inferencer, build_codetr, co_dino_r50, co_dino_swin_l
 from codetr_torch.bench import FAMILIES, MATRIX, measure_config, verify_inputs, verify_msda_on_card
@@ -228,7 +239,12 @@ from codetr_torch.ops import _build
 from codetr_torch.ops import hungarian, msda, msda_grid, msda_tiles
 from codetr_torch.parallel import losses as losses_module
 from codetr_torch.parallel.losses import dino_detection_loss, matching_problems
-from codetr_torch.parallel.train import adamw, capture_train_step, make_train_step, run_in_dtype, train_loss
+from codetr_torch.parallel import dryrun
+from codetr_torch.parallel.dryrun import run_dryrun
+from codetr_torch.parallel.mesh import (assert_tp_sharded, make_mesh, mesh_shape, placement_of, sharded_forward,
+                                        sharded_fraction, tp_plan, whole)
+from codetr_torch.parallel.train import (adamw, capture_train_step, init_sharded_state, jit_train_step,
+                                         make_train_step, run_in_dtype, train_loss)
 from codetr_torch.tools import attr, rehearsal, trainbench
 from codetr_torch.tools.attr import union_us
 from codetr_torch.ops.nms import postprocess_detections
@@ -3267,6 +3283,182 @@ def attribution_phase(tmp, stamp):
     return results
 
 
+DRYRUN_HW = (608, 608)  # the sharded phase's Swin-L input, the JAX tools/trainbench.py's size
+
+
+def sharded_batch(cfg):
+    """One padded 608x608 image and synthetic targets (max_gt 8, 3 valid)."""
+    h, w = DRYRUN_HW
+    rng = np.random.default_rng(SEED + 7)
+    img = torch.from_numpy(rng.standard_normal((1, h, w, 3)).astype(np.float32))
+    mask = torch.zeros(1, h, w)
+    mask[:, int(h * 0.75):, :] = 1.0
+    mask[:, :, int(w * 0.875):] = 1.0
+    return [t.to(DEVICE) for t in (img, mask, *synthetic_targets(rng, 8, 3, cfg.head.num_classes, "cpu"))]
+
+
+def launch_counts():
+    return msda.launches, msda.launches_bwd, hungarian.launches
+
+
+def dryrun_phase(tmp, stamp):
+    """The sharded (dp x tp) path on the card: this process as the one rank
+    of an NCCL group, the mesh 1 x 1 (NCCL takes one rank per card).  The
+    tiny dry run (``parallel.dryrun.run_dryrun``) in this rank (its CLI on
+    one card is ``tests/test_torch_port_parallel_gpu.py``'s), then the CLI's
+    refusal of two ranks on one card;
+    Swin-L's tp placements at tp = 2 from ``param_sharding_rule`` (the
+    fraction of 2-D weight elements split) beside ``shard_params``' at
+    tp = 1; the seed-0 Swin-L at 608x608 fp32 placed by
+    ``init_sharded_state`` against the same weights unplaced:
+    ``sharded_forward`` (``msda_impl="auto"``, K1 12 launches) against the
+    model's own forward, then one ``jit_train_step`` step against one
+    ``make_train_step`` step on the same batch (``sharded_step_checks``).
+
+    The forward is held bit for bit, the boxes, scores and labels and the
+    pre-top-k outputs (``train_outputs``): decided from PR 19's chip runs,
+    which found them equal (at 1 x 1 the placed modules run the same GEMMs
+    and kernels), so a rounding change there is a fault of the sharded
+    path, not the seed-0 model's chaos in fp32 that keeps PR 17's package
+    off the ladder."""
+    cfg = CONFIG()
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        lines = io.StringIO()
+        with contextlib.redirect_stdout(lines):
+            run_dryrun(1, device=DEVICE)
+        print(lines.getvalue().strip())
+        mesh = make_mesh(dp=1, tp=1, device=DEVICE)
+        ref = build_codetr(cfg, device=DEVICE, seed=SEED)
+        plan = tp_plan(ref, 2)
+        frac = sharded_fraction({n: (p.shape, plan[n]) for n, p in ref.named_parameters()})
+        at2 = collections.Counter(repr(p) for p in plan.values())
+        sharded = copy.deepcopy(ref)
+        opt = init_sharded_state(sharded, mesh)
+        placed = collections.Counter(f"{placement_of(p)!r} {type(p).__name__}" for p in sharded.parameters())
+        report = assert_tp_sharded(sharded, mesh)
+        print(f"Swin-L tp placements by param_sharding_rule at tp = 2: {dict(at2)} of {len(plan)} parameters, "
+              f"{frac:.4f} of the 2-D weight elements split; shard_params at tp = 1 (mesh "
+              f"{mesh_shape(mesh)}): {dict(placed)}; assert_tp_sharded {report} [{stamp}]")
+        batch = sharded_batch(cfg)
+        t1 = time.perf_counter()
+        fwd_r = sharded_forward_checks(ref, sharded, mesh, batch[:2], stamp)
+        t2 = time.perf_counter()
+        step_r = sharded_step_checks(ref, sharded, opt, mesh, batch, stamp)
+        print(f"sharded phase, wall seconds: the tiny dry run and the builds {t1 - t0:.1f}, forward checks "
+              f"{t2 - t1:.1f}, step checks and timings {time.perf_counter() - t2:.1f} [{stamp}]")
+        del ref, sharded, opt
+    finally:
+        dist.destroy_process_group()
+    try:
+        dryrun.main(["--nproc", "2", "--device", "cuda"])
+        fail("the dry run's CLI took 2 NCCL ranks on one card")
+    except RuntimeError as e:
+        print(f"dry run CLI --nproc 2 --device cuda refused: {e} [{stamp}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**step_r, **fwd_r, "sharded_2d_fraction_tp2": frac, "seconds": time.perf_counter() - t0}
+
+
+def sharded_forward_checks(ref, sharded, mesh, inputs, stamp):
+    """``sharded_forward`` of the placed model against ``ref``'s forward:
+    K1 12 launches, equal bit for bit (``dryrun_phase``)."""
+    before = launch_counts()[0]
+    got = sharded_forward(sharded, mesh)(*inputs)
+    torch.cuda.synchronize()
+    launched = launch_counts()[0] - before
+    with torch.no_grad():
+        want = ref(*inputs)
+        raw_s, raw_r = sharded.train_outputs(*inputs), ref.train_outputs(*inputs)
+    equal = {k: torch.equal(a, b) for k, a, b in zip(("boxes", "scores", "labels"), got, want)}
+    equal.update({k: torch.equal(raw_s[k], raw_r[k]) for k in raw_r})
+    print(f"sharded forward Swin-L {DRYRUN_HW[0]}x{DRYRUN_HW[1]} fp32, mesh 1 x 1: K1 launches {launched}; "
+          f"against the model's own forward, equal bit for bit: {equal}; boxes max diff "
+          f"{(got[0] - want[0]).abs().max().item():.3e} px, scores {(got[1] - want[1]).abs().max().item():.3e} "
+          f"[{stamp}]")
+    if launched != launches_per_forward(ref.cfg) or not all(equal.values()):
+        fail("the sharded forward disagrees with the model's own forward or missed K1")
+    return {"forward_launches": launched, "forward_bit_equal": all(equal.values())}
+
+
+def sharded_step_checks(ref, sharded, opt, mesh, batch, stamp):
+    """One ``jit_train_step`` step of ``sharded`` against one
+    ``make_train_step`` step of ``ref`` from the same weights: K1 12, K2 12
+    and the matching 2 launches, the loss within 1e-4 relative, every
+    parameter within 2 x 1.01 lr of the one-device step's (Adam moves an
+    entry by at most ~lr a step, and a gradient of rounding noise may point
+    either way) and its update within 1e-2 lr where the gradient is at
+    least 1e-2 of its leaf's scale (the key thirds of the attention biases,
+    zero in exact arithmetic, left out); then 2 more steps of each, in
+    turns, and each one's forward+backward and AdamW step alone, on the
+    host clock."""
+    start = {n: p.detach().clone() for n, p in ref.named_parameters()}
+    step = jit_train_step(sharded, opt, mesh)
+    before = launch_counts()
+    loss_s = step(*batch).item()
+    torch.cuda.synchronize()
+    launched = tuple(a - b for a, b in zip(launch_counts(), before))
+    if launched != (12, 12, 2):
+        fail(f"the sharded step launched K1, K2, the matching {launched} times, not (12, 12, 2)")
+    grads_s = {n: whole(p.grad) for n, p in sharded.named_parameters()}
+    opt_r = adamw(ref)
+    one_device = make_train_step(ref, opt_r)
+    loss_r = one_device(*batch).item()
+    lr = opt.param_groups[0]["lr"]
+    moved, update, checked, flips, total = 0.0, 0.0, 0, 0, 0
+    for n, p in ref.named_parameters():
+        got, want, g = whole(sharded.get_parameter(n).detach()), p.detach(), p.grad
+        diff = (got - want).abs()
+        moved, flips, total = max(moved, diff.max().item()), flips + int((diff > lr).sum()), total + p.numel()
+        above = ~key_bias_mask(n, p.shape).to(DEVICE) & (g.abs() >= 1e-2 * g.abs().max())
+        err = ((got - start[n]) - (want - start[n])).abs()[above]
+        bound = 1e-2 * lr + torch.finfo(torch.float32).eps * want[above].abs()
+        if diff.max() > 2 * 1.01 * lr or (err > bound).any():
+            fail(f"the sharded step moved {n} off the one-device step's: {diff.max().item() / lr:.3f} lr, "
+                 f"update off by {err.max().item() / lr:.3e} lr")
+        update, checked = max(update, err.max().item() if err.numel() else 0.0), checked + int(above.sum())
+    del start
+    gaps = {}
+    for n, p in ref.named_parameters():
+        keep = ~key_bias_mask(n, p.shape).to(DEVICE)
+        gaps[n] = ((grads_s[n] - p.grad)[keep].abs().max() / p.grad[keep].abs().max()).item()
+    del grads_s
+    loss_err = abs(loss_s - loss_r) / abs(loss_r)
+    if loss_err > 1e-4 or checked < 0.1 * total:
+        fail(f"the sharded step's loss {loss_s} against {loss_r}, or only {checked} of {total} updates held")
+    # 2 more steps each, in turns, then each one's forward+backward and AdamW
+    # step alone (host clock to a sync)
+    times = {"sharded": [], "one-device": []}
+    for name in ("sharded", "one-device", "one-device", "sharded"):
+        t = time.perf_counter()
+        (step if name == "sharded" else one_device)(*batch).item()
+        times[name].append((time.perf_counter() - t) * 1e3)
+    parts = {}
+    for name, model, o in (("sharded", sharded, opt), ("one-device", ref, opt_r)):
+        o.zero_grad(set_to_none=True)
+        t = time.perf_counter()
+        train_loss(model, batch, backward=True).item()
+        t1 = time.perf_counter()
+        o.step()
+        torch.cuda.synchronize()
+        parts[name] = ((t1 - t) * 1e3, (time.perf_counter() - t1) * 1e3)
+    print(f"sharded train step Swin-L {DRYRUN_HW[0]}x{DRYRUN_HW[1]} fp32 batch 1, mesh 1 x 1 (NCCL): K1, K2, "
+          f"matching launches {launched}; loss {loss_s!r} vs the one-device step's {loss_r!r} (rel err "
+          f"{loss_err:.3e}, tol 1e-4, bit-equal {loss_s == loss_r}); parameters after the step within "
+          f"{moved / lr:.4f} lr (tol 2.02 lr; {flips} of {total} entries over 1 lr), updates within "
+          f"{update / lr:.3e} lr on {checked} entries (tol 1e-2 lr); gradients (not gated: float atomics "
+          f"in the MSDA backward) largest leaf gap {max(gaps.values()):.3e} of its scale, "
+          f"{sum(g > 1e-4 for g in gaps.values())}/{len(gaps)} leaves over 1e-4, "
+          f"{sum(g == 0 for g in gaps.values())} equal; 2 more steps each, in turns (host clock to a sync): "
+          f"sharded {fmt_ms(times['sharded'])} ms, one-device {fmt_ms(times['one-device'])} ms; forward+backward "
+          f"alone {parts['sharded'][0]:.1f} / {parts['one-device'][0]:.1f} ms, AdamW step alone "
+          f"{parts['sharded'][1]:.1f} / {parts['one-device'][1]:.1f} ms (sharded / one-device) [{stamp}]")
+    return {"step_launches": launched, "step_loss_rel_err": loss_err, "step_ms": times, "step_parts_ms": parts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one GPU", file=sys.stderr)
@@ -3659,7 +3851,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         attribution = attribution_phase(tmp, stamp)
-    phase_s["attribution"] = time.perf_counter() - t_phase
+    phase_s["attribution"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
+    # 11. the sharded (dp x tp) step and forward on a 1 x 1 NCCL mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        sharded = dryrun_phase(tmp, stamp)
+    phase_s["sharded"] = time.perf_counter() - t_phase
     print("phases, wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     tc = cfg.head.transformer
@@ -3706,6 +3904,9 @@ def main() -> int:
         # stage attribution's full Swin-L 1280x1920 bf16 forward, a replay's
         # kernels from its trace (K1's encoder and decoder entries)
         "launches_attribution_full_replay": attribution["model"]["records"]["full"]["traced"]["port_kernels"],
+        # the sharded step's and the sharded forward's (Swin-L 608x608 fp32, mesh 1 x 1)
+        "launches_sharded_step": sharded["step_launches"][0],
+        "launches_sharded_forward": sharded["forward_launches"],
         "rehearsal_taps": rehearsed["k1"],
         # the msda_impl="reference" Swin-L model (plain versions, no kernel) against this one
         "msda_impl_reference": reference,
@@ -3770,6 +3971,7 @@ def main() -> int:
         "replaces": "codetr_tpu/ops/msda_win_bwd.py:306",
         "launches": train["launches"]["msda_bwd"],  # over the 3 timed train steps
         "launches_per_step": n_enc + n_dec,
+        "launches_sharded_step": sharded["step_launches"][1],
         # one replay of each captured train step, from its trace (K2 and the decoder's entry)
         "launches_captured_step": {k: {n: r["counts"][n] for n in ("msda_tile_bwd_kernel", "msda_bwd_kernel")}
                                    for k, r in captured.items()},
@@ -3867,6 +4069,7 @@ def main() -> int:
         "replaces": "codetr_tpu/parallel/losses.py:116",
         "launches": train["launches"]["hungarian"],  # over the 3 timed train steps
         "launches_per_step": 2,
+        "launches_sharded_step": sharded["step_launches"][2],
         # one replay of each captured train step, from its trace
         "launches_captured_step": {k: r["counts"]["hungarian_kernel"] for k, r in captured.items()},
         # column indices against the plain version's (equal: 0)

@@ -19,7 +19,13 @@ class ConvGN(nn.Module):
         self.gn = nn.GroupNorm(groups, c_out, eps=GN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.gn(self.conv(x))
+        # the op F.group_norm calls, without its refusal of a group of one
+        # element (a 1x1 level with a channel a group, as the tiny config
+        # gives at 32x32), which normalises to the bias, as the JAX
+        # package's GroupNorm does
+        gn = self.gn
+        return torch.group_norm(self.conv(x), gn.num_groups, gn.weight, gn.bias, gn.eps,
+                                torch.backends.cudnn.enabled)
 
 
 class ChannelMapper(nn.Module):

@@ -54,13 +54,23 @@ class FFN(nn.Module):
 
 
 class _PackedAttention(nn.Module):
-    """Parameter holder with torch.nn.MultiheadAttention's names."""
+    """Parameter holder with torch.nn.MultiheadAttention's names, and the
+    packed input projection.  ``parallel/mesh.py:shard_params`` swaps in a
+    subclass whose weight rows are split over the tensor-parallel ranks."""
 
     def __init__(self, embed_dims: int):
         super().__init__()
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dims, embed_dims))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dims))
         self.out_proj = nn.Linear(embed_dims, embed_dims)
+
+    def project(self, qk_in: torch.Tensor, query: torch.Tensor):
+        """q, k, v: rows [0, 2E) of the packed weight on ``qk_in``, rows
+        [2E, 3E) on ``query``."""
+        E = self.in_proj_weight.shape[1]
+        w, b = self.in_proj_weight, self.in_proj_bias
+        return (F.linear(qk_in, w[:E], b[:E]), F.linear(qk_in, w[E:2 * E], b[E:2 * E]),
+                F.linear(query, w[2 * E:], b[2 * E:]))
 
 
 class MultiheadAttention(nn.Module):
@@ -76,10 +86,7 @@ class MultiheadAttention(nn.Module):
         E, nh = self.embed_dims, self.num_heads
         d = E // nh
         qk_in = query if query_pos is None else query + query_pos
-        w, b = self.attn.in_proj_weight, self.attn.in_proj_bias
-        q = F.linear(qk_in, w[:E], b[:E])
-        k = F.linear(qk_in, w[E:2 * E], b[E:2 * E])
-        v = F.linear(query, w[2 * E:], b[2 * E:])
+        q, k, v = self.attn.project(qk_in, query)
         bs, nq, _ = q.shape
         q, k, v = (t.reshape(bs, nq, nh, d).transpose(1, 2) for t in (q, k, v))
         logits = torch.matmul(q, k.transpose(-1, -2)).float() * (1.0 / d**0.5)

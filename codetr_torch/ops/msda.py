@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import sys
 from typing import List, Sequence, Tuple
 
 import torch
@@ -586,6 +587,36 @@ class _QmMSDA(torch.autograd.Function):
         return (*_launch_qm_bwd(value, ctx.spatial_shapes, x, y, w, grad_out), None)
 
 
+def _is_dtensor(*ts) -> bool:
+    """Whether one of ``ts`` is a DTensor, without importing
+    ``torch.distributed.tensor`` (~1 s), which a DTensor's maker did."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and any(isinstance(t, mod.DTensor) for t in ts)
+
+
+def _on_local_tensors(fn, value, *tensors):
+    """``fn(value, *tensors)`` (an MSDA entry with its other arguments
+    bound) on DTensors, through ``local_map``: each tensor redistributed to
+    ``value``'s placements with everything but a batch split
+    (``Shard(0)``) replicated, ``fn`` run on the local tensors, and its
+    output wrapped with the same placements (MSDA is independent per
+    image).
+
+    ``local_map``, not a ``register_sharding`` rule on ``codetr::msda_packed``
+    / ``codetr::msda_reference``: a rule would hand the ops' registered
+    backward DTensors, and the backward launches its kernel on raw
+    pointers; ``local_map`` converts at the boundary with differentiable
+    ``to_local`` / ``from_local``, so the ops and their backward (K1, K2, the
+    decoder's entries) see ordinary tensors, as on one device.  The
+    kernels are unchanged."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    place = tuple(p if p == Shard(0) else Replicate() for p in value.placements)
+    return local_map(fn, out_placements=(place,), in_placements=(place,) * (1 + len(tensors)),
+                     redistribute_inputs=True)(value, *tensors)
+
+
 def _route(t: torch.Tensor) -> str:
     if t.device.type in ("cpu", "cuda"):
         return t.device.type
@@ -603,7 +634,11 @@ def msda_grid_packed(
     """Grid-query (encoder) MSDA on packed coordinates -> (bs, K, h*d).
     ``impl="auto"``: the packed kernel (K1's counterpart) on the card, the
     plain version on the CPU; ``"reference"`` runs the plain version
-    ``msda_grid_packed_plain`` on any device."""
+    ``msda_grid_packed_plain`` on any device.  DTensor arguments run on
+    their local tensors (``_on_local_tensors``)."""
+    if _is_dtensor(value, cpk):
+        return _on_local_tensors(lambda v, c: msda_grid_packed(v, spatial_shapes, c, num_points, impl=impl),
+                                 value, cpk)
     _check(value, spatial_shapes, cpk)
     bs, K, h, _ = value.shape
     HLP = h * len(spatial_shapes) * num_points
@@ -720,7 +755,13 @@ def multi_scale_deformable_attention(
     grid impls need grid queries and raise without them.
     ``impl="reference"`` runs the plain version
     ``multi_scale_deformable_attention_plain`` on any device, with or
-    without grid queries (the JAX package's exact flat gather)."""
+    without grid queries (the JAX package's exact flat gather).  DTensor
+    arguments run on their local tensors (``_on_local_tensors``)."""
+    if _is_dtensor(value, sampling_locations, attention_weights):
+        return _on_local_tensors(
+            lambda v, loc, attn: multi_scale_deformable_attention(
+                v, spatial_shapes, loc, attn, grid_queries, impl=impl, grid_radius=grid_radius, envelope=envelope),
+            value, sampling_locations, attention_weights)
     if impl not in ("auto", "reference") and not grid_queries:
         raise ValueError(f"impl={impl!r} requires grid queries")
     _check(value, spatial_shapes, sampling_locations, attention_weights)

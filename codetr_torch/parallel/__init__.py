@@ -1,1 +1,2 @@
-"""Training: the Co-DINO losses and the train step."""
+"""Training: the Co-DINO losses, the train step on one device and sharded
+over a ("dp", "tp") mesh, the sharded forward and the multi-device dry run."""

@@ -20,7 +20,7 @@ images); the per-image ``vmap`` of the JAX package is a batch dimension.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -213,11 +213,17 @@ def dino_detection_loss(
     w_cls: float = 1.0,
     w_bbox: float = 5.0,
     w_iou: float = 2.0,
+    num_gts: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total loss over all decoder layers + the encoder stage (the aux
     supervision pattern of mmdet DINO loss_by_feat), and each stage's
     class, box and GIoU losses by name.  Nothing here waits for the device:
-    on the card it runs with no host synchronisation."""
+    on the card it runs with no host synchronisation.
+
+    Every stage's summed losses are divided by ``num_gts`` (at least 1):
+    the batch's valid gts by default.  A data-parallel step passes the
+    count of the whole batch, so that its ranks' losses sum to the
+    whole batch's loss (``parallel/train.py:jit_train_step``)."""
     all_cls = outputs["all_cls_logits"]  # (nl, bs, nq, ncls)
     all_coords = outputs["all_coords"]  # (nl, bs, nq, 4)
     nl = all_cls.shape[0]
@@ -230,7 +236,7 @@ def dino_detection_loss(
     logs = {}
     for si, (cl, co, matched) in enumerate(stages):
         lc, l1, lg, npos = _stage_loss(cl, co, gt_boxes, gt_labels, gt_valid, matched)
-        denom = npos.sum().clamp(min=1.0)
+        denom = (npos.sum() if num_gts is None else num_gts).clamp(min=1.0)
         lc, l1, lg = lc.sum() / denom, l1.sum() / denom, lg.sum() / denom
         total = total + (w_cls * lc + w_bbox * l1 + w_iou * lg)
         name = f"d{si}" if si < nl else "enc"

@@ -17,10 +17,18 @@ on bf16 casts of the parameters and floating buffers
 fp32 leaves in fp32, and AdamW updates fp32 leaves with fp32 state.  A
 model whose parameters are not fp32 is refused: AdamW's first steps move a
 weight by ~lr, below half a bf16 ulp of most weights, so bf16 leaves would
-lose most updates.  The sharded (dp x tp) variants are not ported.
+lose most updates.
+
+The sharded step is the JAX package's ``init_sharded_state`` /
+``jit_train_step`` over a ("dp", "tp") mesh (``parallel/mesh.py``): tp by
+the DTensor placements of ``shard_params``, dp by one all-reduce of the
+gradients over the dp ranks.  Each dp rank takes its slice of the batch
+and divides its losses by the whole batch's valid gts, so the ranks' sums
+are the whole batch's loss and gradient, as GSPMD computes them.  It runs
+in full fp32.
 
 ``capture_train_step`` is the one-device counterpart of the JAX package's
-``jit_train_step`` (and of ``jax.jit(step)``): the whole step, zero_grad to
+``jax.jit(step)``: the whole step, zero_grad to
 ``optimizer.step()``, captured once on the card in one CUDA graph and
 replayed for each batch.  Its warm-up does not train: the parameters,
 buffers and optimizer state are put back in place after the capture, so
@@ -30,24 +38,29 @@ the first replay is the first step.
 from __future__ import annotations
 
 import itertools
-from typing import Any, Callable, Optional, Sequence
+from typing import TYPE_CHECKING, Any, Callable, Iterable, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from codetr_torch.models.codetr import full_fp32
 from codetr_torch.parallel.losses import dino_detection_loss
 from codetr_torch.runtime import aot
 
+if TYPE_CHECKING:  # torch.distributed.tensor takes ~1 s to import: the sharded step imports it
+    from torch.distributed.device_mesh import DeviceMesh
 
-def adamw(model: nn.Module, lr: float = 1e-4, *, capturable: bool = False) -> torch.optim.AdamW:
+
+def adamw(model: nn.Module | Iterable, lr: float = 1e-4, *, capturable: bool = False) -> torch.optim.AdamW:
     """The optimizer equal to ``optax.adamw(lr)``: betas (0.9, 0.999), eps
-    1e-8 and optax's weight decay of 1e-4 (not torch's default 0.01).
+    1e-8 and optax's weight decay of 1e-4 (not torch's default 0.01), over
+    a model's parameters (or given parameters or parameter groups).
     ``capturable=True`` keeps its step count on the device, as
     ``capture_train_step`` needs; the arithmetic is the same."""
     return torch.optim.AdamW(
-        model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4,
-        capturable=capturable,
+        model.parameters() if isinstance(model, nn.Module) else model, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+        weight_decay=1e-4, capturable=capturable,
     )
 
 
@@ -74,9 +87,10 @@ def run_in_dtype(model: nn.Module, compute_dtype: torch.dtype, fn: Callable[...,
     return torch.func.functional_call(_Bound(model, fn), casts, args)
 
 
-def _loss(model: nn.Module, batch: Sequence[torch.Tensor], backward: bool) -> torch.Tensor:
+def _loss(model: nn.Module, batch: Sequence[torch.Tensor], backward: bool,
+          num_gts: Optional[torch.Tensor] = None) -> torch.Tensor:
     outputs = model.train_outputs(*batch[:2])
-    total, _ = dino_detection_loss(outputs, *batch[2:])
+    total, _ = dino_detection_loss(outputs, *batch[2:], num_gts=num_gts)
     if backward:
         total.backward()
     return total.detach()
@@ -94,17 +108,18 @@ def _check_master_weights(model: nn.Module, compute_dtype: Optional[torch.dtype]
 
 
 def train_loss(model: nn.Module, batch: Sequence[torch.Tensor], *,
-               compute_dtype: Optional[torch.dtype] = None, backward: bool = False) -> torch.Tensor:
+               compute_dtype: Optional[torch.dtype] = None, backward: bool = False,
+               num_gts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The detached training loss of ``model`` on ``batch`` = (batch_inputs,
     img_masks, gt_boxes, gt_labels, gt_valid), with its backward pass into
     the parameters' ``.grad`` when ``backward``: the step's forward and
     backward, without the update.  fp32 parameters only; ``compute_dtype``
-    as in ``make_train_step``."""
+    as in ``make_train_step``; ``num_gts`` as in ``dino_detection_loss``."""
     _check_master_weights(model, compute_dtype)
     if compute_dtype in (None, torch.float32):
         with full_fp32():
-            return _loss(model, batch, backward)
-    return run_in_dtype(model, compute_dtype, _loss, batch, backward)
+            return _loss(model, batch, backward, num_gts)
+    return run_in_dtype(model, compute_dtype, _loss, batch, backward, num_gts)
 
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
@@ -125,6 +140,60 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, *,
     def step(*batch) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
         total = train_loss(model, batch, compute_dtype=compute_dtype, backward=True)
+        optimizer.step()
+        return total
+
+    return step
+
+
+def init_sharded_state(model: nn.Module, mesh: DeviceMesh, lr: float = 1e-4) -> torch.optim.AdamW:
+    """Places ``model``'s parameters on ``mesh`` (``shard_params``, in
+    place) and returns ``adamw`` over the placed parameters: the JAX
+    ``init_sharded_state``'s params and optimizer state.  The DTensors and
+    the ordinary tensors are two parameter groups: AdamW's foreach kernels
+    (its default on the card) take one kind at a time."""
+    from torch.distributed.tensor import DTensor
+
+    from codetr_torch.parallel.mesh import shard_params
+
+    params = list(shard_params(model, mesh).parameters())
+    groups = ([p for p in params if not isinstance(p, DTensor)], [p for p in params if isinstance(p, DTensor)])
+    return adamw([{"params": g} for g in groups if g], lr)
+
+
+def _sum_over(group: dist.ProcessGroup, tensors: Sequence[torch.Tensor]) -> None:
+    """Sums ``tensors`` (ordinary tensors or DTensors' local shards) over
+    ``group`` in place, in one all-reduce."""
+    from torch.distributed.tensor import DTensor
+
+    with torch.no_grad():
+        local = [t.to_local() if isinstance(t, DTensor) else t for t in tensors]
+        flat = torch._utils._flatten_dense_tensors(local)
+        dist.all_reduce(flat, group=group)
+        for t, s in zip(local, torch._utils._unflatten_dense_tensors(flat, local)):
+            t.copy_(s)
+
+
+def jit_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
+                   mesh: DeviceMesh) -> Callable[..., torch.Tensor]:
+    """The sharded step (the JAX ``jit_train_step``): ``step(batch_inputs,
+    img_masks, gt_boxes, gt_labels, gt_valid) -> loss`` takes the whole
+    batch on every rank (as ``make_train_step``'s), runs this rank's dp
+    slice (``batch_sharding``) through ``model`` placed by
+    ``shard_params`` (``init_sharded_state``), sums the gradients and the
+    loss over dp, and steps ``optimizer``.  The loss returned is the whole
+    batch's, on every rank.  fp32 only (``make_train_step``'s ValueError
+    otherwise); the batch size must divide by dp."""
+    from codetr_torch.parallel.mesh import batch_sharding
+
+    _check_master_weights(model, None)
+    take, group = batch_sharding(mesh), mesh["dp"].get_group()
+
+    def step(*batch) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        num_gts = batch[4].sum().float()
+        total = train_loss(model, [take(t) for t in batch], backward=True, num_gts=num_gts)
+        _sum_over(group, [p.grad for p in model.parameters() if p.grad is not None] + [total])
         optimizer.step()
         return total
 
