@@ -186,7 +186,22 @@ Phases (any failure raises, and the script exits non-zero without a result):
    0-3 and the ``mem`` suite; each stage's ms beside its floor at the GEMM
    and copy ceilings measured in the same run (fails on a kernel check, a
    stage with no time, ``features + detect`` more than 15% off ``full``, a
-   trace without its kernels);
+   trace without its kernels); the encoder suite's ``dtab`` and
+   ``dmsda_tab`` time the decoder's raw-memory corner table
+   (``ops/msda_dectab.py``) against ``dmsda``;
+10b. the corner table on that model and on a seed-0 Swin-L at 768x1152
+   fp32 (``dectab_phase``): the first decoder cross-attention with the table
+   against without it on the model's own memory (fp32 1e-5 of scale, bf16
+   2^-7 + 1e-5 of scale; one K1 launch without, none with), the whole
+   forward with ``decoder.dectab`` on against off (6 K1 launches against
+   12, the encoder's outputs equal; fp32: the detections on
+   ``compare_models``' ladder for 90% of them);
+10c. K1 a query level a call (``codetr_torch.tools.winbench`` at its
+   1920x1280 defaults, the five levels, ``--verify --full --module``, bf16
+   and fp32; ``winbench_phase``): each level through K1's level entry
+   ``msda_packed_fwd_levels`` against the plain version, its rows equal to
+   the all-levels call's bit for bit, timed against its bytes bound, the
+   levels' sum against the full call;
 11. the sharded (dp x tp) path (``codetr_torch.parallel``) with this
    process as the one rank of an NCCL group, on a 1 x 1 mesh (NCCL takes
    one rank per card; tp > 1 runs in the CPU tests' gloo group): the tiny
@@ -234,7 +249,7 @@ import torch.distributed as dist
 from codetr_torch import Inferencer, build_codetr, co_dino_r50, co_dino_swin_l
 from codetr_torch.bench import FAMILIES, MATRIX, measure_config, verify_inputs, verify_msda_on_card
 from codetr_torch.config import PreprocessConfig
-from codetr_torch.models.codetr import full_fp32
+from codetr_torch.models.codetr import fp32_scope, full_fp32
 from codetr_torch.ops import _build
 from codetr_torch.ops import hungarian, msda, msda_grid, msda_tiles
 from codetr_torch.parallel import losses as losses_module
@@ -245,7 +260,8 @@ from codetr_torch.parallel.mesh import (assert_tp_sharded, make_mesh, mesh_shape
                                         sharded_fraction, tp_plan, whole)
 from codetr_torch.parallel.train import (adamw, capture_train_step, init_sharded_state, jit_train_step,
                                          make_train_step, run_in_dtype, train_loss)
-from codetr_torch.tools import attr, rehearsal, trainbench
+from codetr_torch.ops.msda_dectab import build_raw_quad_table, raw_memory_aug
+from codetr_torch.tools import attr, rehearsal, trainbench, winbench
 from codetr_torch.tools.attr import union_us
 from codetr_torch.ops.nms import postprocess_detections
 from codetr_torch.runtime.aot import (DTYPES, Replay, benchmark, capture, compile_forward, load_executable,
@@ -1393,6 +1409,30 @@ def compare_bf16_steps(cfg, shape_hw, stamp):
     return {"loss_rel_err": loss_err, "launches": counts, "topk_same_position": same_position,
             "topk_same_set": same_set, "decoder_same_token": same_token}
 
+def seeded_image(hw, seed):
+    """A seeded (1, h, w, 3) image and its pad mask (the bottom quarter and
+    the right eighth padded), on the CPU."""
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    img = torch.from_numpy(rng.standard_normal((1, h, w, 3)).astype(np.float32))
+    mask = torch.zeros(1, h, w)
+    mask[:, int(h * 0.75):, :] = 1.0
+    mask[:, :, int(w * 0.875):] = 1.0
+    return img, mask
+
+
+def model_outputs(model, img, mask):
+    """(neck features, the transformer's aux, (boxes, scores, labels)) of
+    one forward in the model's precision, and its MSDA forward launches."""
+    before = msda.launches
+    with torch.no_grad(), fp32_scope(model.dtype):
+        feats = model.features(img)
+        state, refs, aux = model.query_head.run_transformer(feats, mask)
+        dets = model.query_head.decode(state, refs, tuple(img.shape[1:3]))
+    torch.cuda.synchronize()
+    return feats, aux, dets, msda.launches - before
+
+
 def launches_per_forward(cfg) -> int:
     tc = cfg.head.transformer
     return tc.num_encoder_layers + tc.num_decoder_layers
@@ -1402,27 +1442,13 @@ def compare_models(cfg, shape_hw, stamp, label="Swin-L"):
     """A full-width model on the card (kernel path) against the same weights
     on the CPU (plain path), fp32, at a small padded input."""
     h, w = shape_hw
-    rng = np.random.default_rng(SEED + 1)
-    img = torch.from_numpy(rng.standard_normal((1, h, w, 3)).astype(np.float32))
-    mask = torch.zeros(1, h, w)
-    mask[:, int(h * 0.75):, :] = 1.0
-    mask[:, :, int(w * 0.875):] = 1.0
+    img, mask = seeded_image(shape_hw, SEED + 1)
     cpu = build_codetr(cfg, device="cpu", seed=SEED)
     gpu = copy.deepcopy(cpu).to(DEVICE)
-
-    def run(model, x, m):
-        feats = model.features(x)
-        state, refs, aux = model.query_head.run_transformer(feats, m)
-        return feats, aux, model.query_head.decode(state, refs, (h, w))
-
-    with torch.no_grad():
-        c_feats, c_aux, (c_boxes, c_scores, c_labels) = run(cpu, img, mask)
-        before = msda.launches
-        g_feats, g_aux, (g_boxes, g_scores, g_labels) = run(gpu, img.to(DEVICE), mask.to(DEVICE))
-        torch.cuda.synchronize()
-    if msda.launches - before != launches_per_forward(cfg):
-        fail(f"reference check launched the kernel {msda.launches - before} times, "
-             f"not {launches_per_forward(cfg)}")
+    c_feats, c_aux, (c_boxes, c_scores, c_labels), _ = model_outputs(cpu, img, mask)
+    g_feats, g_aux, (g_boxes, g_scores, g_labels), launches = model_outputs(gpu, img.to(DEVICE), mask.to(DEVICE))
+    if launches != launches_per_forward(cfg):
+        fail(f"reference check launched the kernel {launches} times, not {launches_per_forward(cfg)}")
 
     def rel(g, c):
         return ((g.cpu().float() - c).abs().max() / c.abs().max()).item()
@@ -3204,17 +3230,17 @@ ATTR_ITERS, ATTR_TRIALS = 3, 3  # cut from the JAX tools' 5-20 and 5-6 to keep t
 ATTR_SUM_TOL = 0.15  # features + detect against full (the JAX tools/attr.py's derived record)
 
 
-def attribution_phase(tmp, stamp):
-    """``codetr_torch.tools.attr``'s four suites at 1280x1920 bf16 on one
-    seed-0 Swin-L model: ``model`` and ``encoder`` with ``--verify`` (K1's
-    encoder and decoder entries against the plain version on the modules'
-    own inputs) and ``--trace``, ``swin`` over stages 0-3, ``mem``.  Fails
-    on a kernel check, on a stage with no time or floor, on ``features +
-    detect`` more than 15% off ``full``, and on a traced stage whose trace
-    lacks the kernel it runs."""
+def attribution_phase(tmp, model, stamp):
+    """``codetr_torch.tools.attr``'s four suites at 1280x1920 bf16 on
+    ``model``, the seed-0 Swin-L in bf16: ``model`` and ``encoder`` with
+    ``--verify`` (K1's encoder and decoder entries against the plain version
+    on the modules' own inputs) and ``--trace``, ``swin`` over stages 0-3,
+    ``mem``; the encoder suite's ``dtab`` and ``dmsda_tab`` are the
+    decoder's corner table.  Fails on a kernel check, on a stage with no
+    time or floor, on ``features + detect`` more than 15% off ``full``, and
+    on a traced stage whose trace lacks the kernel it runs."""
     h, w = ATTR_HW
     t0 = time.perf_counter()
-    model = build_codetr(CONFIG(), dtype=torch.bfloat16, device=DEVICE, seed=SEED)
     common = ["--device", DEVICE, "--config", ATTR_CONFIG, "--dtype", "bfloat16",
               "--iters", str(ATTR_ITERS), "--trials", str(ATTR_TRIALS)]
     runs = {
@@ -3241,9 +3267,6 @@ def attribution_phase(tmp, stamp):
                 fail(f"attribution {suite}: the {v['verify']} kernel disagrees with the plain version "
                      f"or did not launch once ({v['launches']})")
         for name, rec in r["records"].items():
-            if rec.get("reason"):
-                print(f"attribution {suite} {name} {h}x{w} bf16: {rec['reason']}")
-                continue
             if not (rec["best_sane_ms"] or 0) > 0 or not rec["floor_ms"] > 0:
                 fail(f"attribution {suite} {name}: no time or no floor ({rec['best_sane_ms']}, {rec['floor_ms']})")
             tr = rec.get("traced")
@@ -3277,9 +3300,147 @@ def attribution_phase(tmp, stamp):
         seen = results[suite]["records"][name]["traced"]["port_kernels"]
         if any(not seen.get(k) for k in kernels):
             fail(f"attribution {suite} {name}: its traced replay lacks {kernels} (saw {seen})")
-    del model
+    enc = results["encoder"]["records"]
+    print(f"attribution encoder {h}x{w} bf16, the decoder's corner table: build (dtab, once a forward) "
+          f"{enc['dtab']['best_sane_ms']:.4f} ms, cross-attention on it (dmsda_tab) {enc['dmsda_tab']['best_sane_ms']:.4f} "
+          f"ms a layer against dmsda's {enc['dmsda']['best_sane_ms']:.4f}; 6 layers: "
+          f"{enc['dtab']['best_sane_ms'] + 6 * enc['dmsda_tab']['best_sane_ms']:.3f} against "
+          f"{6 * enc['dmsda']['best_sane_ms']:.3f} ms [{stamp}]")
     wall["all"] = time.perf_counter() - t0
     print("attribution phase, wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
+    return results
+
+
+DECTAB_FP32_HW = (HEIGHT, WIDTH)  # the fp32 check of the decoder's corner table, at the serving size
+# bf16: the decoder states' gap with the table against without it, of their
+# scale (3.730e-2 in each of two chip runs at 1280x1920: the two paths round
+# the bf16 value at other places and six layers of the seed-0 model carry
+# it on; its detections are all off the ladder, so the states are gated)
+DECTAB_BF16_STATES_TOL = 2.0**-4
+
+
+def dectab_checks(model, hw, stamp):
+    """The decoder's raw-memory corner table (``ops/msda_dectab.py``) on
+    ``model`` at ``hw``: its first decoder cross-attention on the model's
+    own inputs (captured by a pre-hook) with the table against without it
+    (fp32 within 1e-5 of the output's scale, bf16 within 2^-7 + 1e-5 of
+    it: the two paths round the bf16 value at other places), each timed;
+    the whole forward with ``decoder.dectab`` on against off: 6 K1 launches
+    (the encoder's) against 12, the encoder's outputs equal, the decoder's
+    states' gap (gated in bf16, ``DECTAB_BF16_STATES_TOL``), and the
+    detections on ``compare_models``' ladder (scores 1e-3, boxes 0.5 px)
+    set-wise, counted beside the strict ladder (gated in fp32)."""
+    dtype = model.dtype
+    label = f"{hw[0]}x{hw[1]} {'fp32' if dtype == torch.float32 else 'bf16'}"
+    img, mask = (t.to(DEVICE) for t in seeded_image(hw, SEED + 11))
+    dec = model.query_head.transformer.decoder
+    cross = dec.layers[0].attentions[1]
+    seen = []
+    hook = cross.register_forward_pre_hook(lambda mod, args: seen.append(args))
+    try:
+        aux, dets, launches = {}, {}, {}
+        for flag in (False, True):
+            dec.dectab = flag
+            _, aux[flag], dets[flag], launches[flag] = model_outputs(model, img, mask)
+    finally:
+        hook.remove()
+        dec.dectab = False
+    query, memory, query_pos, kpm, ref, shapes, _ = seen[0]
+    with torch.no_grad(), fp32_scope(dtype):
+        table = build_raw_quad_table(raw_memory_aug(memory, kpm), shapes)
+        before = msda.launches
+        gather = cross(query, memory, query_pos, kpm, ref, shapes)
+        per_call = (msda.launches - before,)
+        tab = cross(query, memory, query_pos, kpm, ref, shapes, table)
+        torch.cuda.synchronize()
+        per_call += (msda.launches - before - per_call[0],)
+        ms = {"gather": cuda_ms(lambda: cross(query, memory, query_pos, kpm, ref, shapes), 50),
+              "table": cuda_ms(lambda: cross(query, memory, query_pos, kpm, ref, shapes, table), 50),
+              "build": cuda_ms(lambda: build_raw_quad_table(raw_memory_aug(memory, kpm), shapes), 20)}
+    scale = max(gather.float().abs().max().item(), 1.0)
+    rel = (tab.float() - gather.float()).abs().max().item() / scale
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-7 + 1e-5
+    states_rel = ((aux[True]["inter_states"].float() - aux[False]["inter_states"].float()).abs().max()
+                  / aux[False]["inter_states"].float().abs().max()).item()
+    enc_equal = all(torch.equal(aux[True][k], aux[False][k]) for k in ("memory", "enc_class", "topk_idx"))
+    got, want = image_detections(dets[True]), image_detections(dets[False])
+    strict, worst = unmatched_detections(got, want)
+    off = unmatched_detections(got, want, MODEL_SCORE_TOL, MODEL_BOX_TOL)[0]
+    n = len(want["scores"])
+    print(f"dectab {label}: first decoder cross-attention with the table against without it, on the model's own "
+          f"memory: max abs err {rel * scale:.3e}, {rel:.3e} of scale {scale:.3f} (tol {tol:.4g}); K1 launches "
+          f"{per_call} (gather, table); ms a call: gather {ms['gather']:.4f}, table {ms['table']:.4f}, the table's "
+          f"build {ms['build']:.4f}; a forward's K1 launches {launches[False]} without, {launches[True]} with the "
+          f"table; encoder outputs equal {enc_equal}; decoder states {states_rel:.3e} of scale; detections off "
+          f"compare_models' ladder {off} of {n} (gate {int(AOTI_OFF_SHARE * n)}), off the strict ladder {strict}, "
+          f"largest matched box difference {worst:.3e} px [{stamp}]")
+    if not rel <= tol or not torch.isfinite(tab).all() or per_call != (1, 0):
+        fail(f"dectab {label}: the cross-attention on the table is {rel:.3e} of scale off the gather path "
+             f"(tol {tol:.4g}) or launched {per_call}")
+    n_layers = len(dec.layers)
+    if launches != {False: 2 * n_layers, True: n_layers} or not enc_equal:
+        fail(f"dectab {label}: forward launches {launches} (want 12 off, 6 on) or the encoder's outputs moved")
+    if dtype == torch.float32 and off > AOTI_OFF_SHARE * n:
+        fail(f"dectab {label}: {off} of {n} detections off compare_models' ladder with the table")
+    if dtype != torch.float32 and not states_rel <= DECTAB_BF16_STATES_TOL:
+        fail(f"dectab {label}: the decoder states with the table are {states_rel:.3e} of scale off "
+             f"(tol {DECTAB_BF16_STATES_TOL:.4g})")
+    return {"rel": rel, "tol": tol, "ms": ms, "launches_forward": {str(k): v for k, v in launches.items()},
+            "states_rel": states_rel, "off_ladder": off, "off_strict": strict, "detections": n}
+
+
+def dectab_phase(model_bf16, stamp):
+    """``dectab_checks`` on the attribution phase's seed-0 Swin-L (1280x1920
+    bf16), then on a seed-0 Swin-L in fp32 at 768x1152, where the whole
+    forward's detections are gated on the ladder."""
+    out = {"bf16": dectab_checks(model_bf16, ATTR_HW, stamp)}
+    model = build_codetr(CONFIG(), device=DEVICE, seed=SEED)
+    out["fp32"] = dectab_checks(model, DECTAB_FP32_HW, stamp)
+    del model
+    return out
+
+
+WINBENCH_LEVELS = ("0", "1", "2", "3", "4")
+WINBENCH_ITERS, WINBENCH_TRIALS = 5, 3  # cut from the JAX tool's 5 and 6 to keep the phase short; never the shapes
+WINBENCH_LEVEL_LAUNCHES = 1 + winbench.WARMUP + 1  # a level's eager call, the timer's warm-ups and its capture
+
+
+def winbench_phase(stamp):
+    """``codetr_torch.tools.winbench`` at its defaults (1920x1280: K =
+    204,600) over the five query levels with ``--verify --full --module``,
+    bf16 then fp32: one K1 launch a level through its level entry.  Fails
+    on a verify error, a level with no time or other than
+    ``WINBENCH_LEVEL_LAUNCHES`` launches, and any level's
+    rows not equal to the all-levels call's bit for bit.  Prints each
+    level's time against its bytes bound and the levels' sum against the
+    full call."""
+    results = {}
+    for dt in ("bfloat16", "float32"):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # the tool's JSON lines; summarised below
+            r = winbench.main(["--lq", *WINBENCH_LEVELS, "--verify", "--full", "--module", "--dtype", dt,
+                               "--iters", str(WINBENCH_ITERS), "--trials", str(WINBENCH_TRIALS)])
+        s, recs = r["summary"], r["records"]
+        for lq in map(int, WINBENCH_LEVELS):
+            rec, v = recs[f"lq{lq}"], recs[f"verify{lq}"]
+            geo = recs["geometry"]["geometry"][lq]
+            equal = recs["full"]["rows_equal_full"][lq]
+            print(f"winbench {s['H']}x{s['W']} {dt} lq{lq}: {rec['best_sane_ms']:.4f} ms (median "
+                  f"{rec['median_ms']:.4f}, spread {rec['spread']:.3f}) against a {rec['bound_ms']:.4f} ms bound "
+                  f"({rec['bound_by']}: {rec['bytes'] / 1e6:.1f} MB, x {rec['x_over_bound']:.1f}); "
+                  f"{rec['queries']} queries in {rec['tiles']} tiles of {tuple(geo['tile'])}, staged "
+                  f"{geo['staged']}, {geo['smem_bytes']} B; corner reads {rec['corner_reads']}, "
+                  f"{rec['corner_reads_staged'] / max(rec['corner_reads'], 1):.6f} staged, n_out {rec['n_out']}; "
+                  f"verify max abs err {v['max_abs_err']:.3e} (rel {v['rel']:.3e}, {v['tolerance']}); rows equal "
+                  f"the full call's {equal}; {rec['launches']} launches of {rec['entry']} [{stamp}]")
+            if not v["ok"] or not rec["best_sane_ms"] > 0 or not equal \
+                    or rec["launches"] != WINBENCH_LEVEL_LAUNCHES:
+                fail(f"winbench {dt} lq{lq}: verify {v['ok']}, time {rec['best_sane_ms']}, rows equal {equal}, "
+                     f"launches {rec['launches']} (want {WINBENCH_LEVEL_LAUNCHES})")
+        print(f"winbench {s['H']}x{s['W']} {dt}: the levels' sum {s['sum_levels_ms']:.4f} ms against the full call "
+              f"{s['full_best_sane_ms']:.4f} ({s['sum_levels_ms'] / s['full_best_sane_ms']:.3f}); the module "
+              f"{s['module_best_sane_ms']:.4f} ms; {time.perf_counter() - t0:.1f} s wall [{stamp}]")
+        results[dt] = r
     return results
 
 
@@ -3846,12 +4007,22 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         rehearsed = rehearsal_phase(tmp, enc_stage, stamp)
     phase_s["rehearsal"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
-    # 10. stage attribution at 1280x1920 bf16 (codetr_torch.tools.attr)
+    # 10. stage attribution at 1280x1920 bf16 (codetr_torch.tools.attr), then
+    # the decoder's corner table on the same model and at 768x1152 fp32, and
+    # K1 a query level a call (codetr_torch.tools.winbench)
     gc.collect()
     torch.cuda.empty_cache()
+    attr_model = build_codetr(CONFIG(), dtype=torch.bfloat16, device=DEVICE, seed=SEED)
     with tempfile.TemporaryDirectory() as tmp:
-        attribution = attribution_phase(tmp, stamp)
+        attribution = attribution_phase(tmp, attr_model, stamp)
     phase_s["attribution"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
+    dectab = dectab_phase(attr_model, stamp)
+    del attr_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s["dectab"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
+    wbench = winbench_phase(stamp)
+    phase_s["winbench"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
     # 11. the sharded (dp x tp) step and forward on a 1 x 1 NCCL mesh
     gc.collect()
     torch.cuda.empty_cache()
@@ -3904,6 +4075,19 @@ def main() -> int:
         # stage attribution's full Swin-L 1280x1920 bf16 forward, a replay's
         # kernels from its trace (K1's encoder and decoder entries)
         "launches_attribution_full_replay": attribution["model"]["records"]["full"]["traced"]["port_kernels"],
+        # K1's level entry (msda_packed_fwd_levels), winbench's per level: one
+        # eager call, 3 warm-up calls and one capture (a replay launches what
+        # the capture recorded)
+        "launches_winbench_levels": {dt: {lq: r["records"][f"lq{lq}"]["launches"] for lq in range(5)}
+                                     for dt, r in wbench.items()},
+        # the level entry at winbench's defaults (1920x1280), ms a level
+        # (replays) beside its bytes bound, the levels' sum and the full call
+        "winbench": {dt: {k: r["summary"][k] for k in ("levels_best_sane_ms", "bound_ms", "sum_levels_ms",
+                                                         "full_best_sane_ms", "module_best_sane_ms")}
+                     for dt, r in wbench.items()},
+        # a forward with the decoder's corner table: K1's encoder entry alone
+        "launches_dectab_forward": {k: r["launches_forward"] for k, r in dectab.items()},
+        "dectab": dectab,
         # the sharded step's and the sharded forward's (Swin-L 608x608 fp32, mesh 1 x 1)
         "launches_sharded_step": sharded["step_launches"][0],
         "launches_sharded_forward": sharded["forward_launches"],

@@ -73,10 +73,12 @@
 // weight, and only the output elements a corrected tap added to are read
 // and written.
 //
-// Four C entry points:
+// Five C entry points:
 //   msda_packed_fwd: the encoder's packed (bs, K, C) [x(HLP) | y(HLP) |
 //                    w(HLP) | pad] tensor, HLP = heads*levels*points in
 //                    (h, L, P) order (K1's contract), plus the tile plan.
+//   msda_packed_fwd_levels: msda_packed_fwd on a range of query levels
+//                    (the JAX package's K1 takes one query level a call).
 //   msda_qm_fwd:     q-minor x, y and w, each (bs, h, L, P, K) (K3's
 //                    contract), plus the same tile plan.
 //   msda_qm_correction_fwd: msda_qm_fwd's arguments plus the count (one
@@ -245,6 +247,26 @@ static int launch(int dtype, const void* value, Stream xs, Stream ys, Stream ws,
 // tile_w) and region offsets (off_b, off_acc, bytes), per pair lq * L + lt
 // its window (win_h, win_w) and whether it is staged; halo; smem_bytes of
 // dynamic shared memory per block.
+// msda_packed_fwd_levels: msda_packed_fwd on the query levels [lq_begin,
+// lq_end) alone (tools/winbench.py times one level a call): the same plan
+// and kernel, one block per tile of those levels; out's rows of the other
+// levels are not written.
+extern "C" int msda_packed_fwd_levels(const void* value, const void* cpk, void* out,
+                                      int dtype, int bs, int K, int H, int D, int L,
+                                      int P, int C, const int* level_h,
+                                      const int* level_w, const int* tile_h,
+                                      const int* tile_w, const int* win_h,
+                                      const int* win_w, const int* staged,
+                                      const int* off_b, const int* off_acc, int halo,
+                                      int smem_bytes, int lq_begin, int lq_end,
+                                      void* stream) {
+  if ((long long)H * L * P * 3 > C) return -5;
+  const PackedCoords co{(const float*)cpk, C, H * L * P};
+  return tile_fwd_entry(value, co, HaloGeo{}, out, dtype, bs, K, H, D, L, P, level_h, level_w,
+                        tile_h, tile_w, win_h, win_w, staged, off_b, off_acc, halo, smem_bytes,
+                        stream, lq_begin, lq_end);
+}
+
 extern "C" int msda_packed_fwd(const void* value, const void* cpk, void* out,
                                int dtype, int bs, int K, int H, int D, int L,
                                int P, int C, const int* level_h,
@@ -253,11 +275,9 @@ extern "C" int msda_packed_fwd(const void* value, const void* cpk, void* out,
                                const int* win_w, const int* staged,
                                const int* off_b, const int* off_acc, int halo,
                                int smem_bytes, void* stream) {
-  if ((long long)H * L * P * 3 > C) return -5;
-  const PackedCoords co{(const float*)cpk, C, H * L * P};
-  return tile_fwd_entry(value, co, HaloGeo{}, out, dtype, bs, K, H, D, L, P, level_h, level_w,
-                        tile_h, tile_w, win_h, win_w, staged, off_b, off_acc, halo, smem_bytes,
-                        stream);
+  return msda_packed_fwd_levels(value, cpk, out, dtype, bs, K, H, D, L, P, C, level_h, level_w,
+                                tile_h, tile_w, win_h, win_w, staged, off_b, off_acc, halo,
+                                smem_bytes, 0, L, stream);
 }
 
 extern "C" int msda_fwd(const void* value, const void* loc, const void* attn,

@@ -53,6 +53,9 @@ struct TilePlan {
   int off_b[TILE_MAX_LEVELS];    // bytes: second region (fwd: odd levels; bwd: pixel counts)
   int off_acc[TILE_MAX_LEVELS];  // bytes: third (fwd: fp32 accumulator; bwd: entries, gradient rows)
   int halo;
+  // block x takes tile x + tile_base: tile_start[lq_begin] for a launch of
+  // the query levels [lq_begin, lq_end) (tile_fwd_entry), else 0
+  int tile_base;
 };
 
 // Builds the plan from the host arrays (pairs at lq * L + lt) and checks that
@@ -113,14 +116,16 @@ static int make_tile_plan(TilePlan* tp, int L, const int* level_h, const int* le
   return 0;
 }
 
-// The tile of block index `tile`: its query level, first query row and
-// column, and its rows and columns (fewer at the level's edge).
+// The tile of block index `block` (tile block + tp.tile_base): its query
+// level, first query row and column, and its rows and columns (fewer at the
+// level's edge).
 struct TileCoord {
   int lq, y0, x0, rows, cols;
 };
 
-__device__ __forceinline__ TileCoord tile_coord(const TilePlan& tp, int tile) {
+__device__ __forceinline__ TileCoord tile_coord(const TilePlan& tp, int block) {
   TileCoord tc;
+  const int tile = block + tp.tile_base;
   int lq = 0;
   while (lq + 1 < tp.n && tile >= tp.tile_start[lq + 1]) ++lq;
   const int local = tile - tp.tile_start[lq];
@@ -551,15 +556,18 @@ static int launch_tile_fwd(dim3 grid, int smem_bytes, cudaStream_t stream, const
 // The checks and the launch shared by the tiled forward entries: the plan
 // (from the host arrays, as make_tile_plan takes them), one instantiation
 // per value dtype (0 = float32, 1 = bfloat16) and channel-slice count (1:
-// d <= 32, 2: <= 64, 4: <= 128).  Returns cudaGetLastError() after the
-// launch, or a negative code for arguments the kernel does not take.
+// d <= 32, 2: <= 64, 4: <= 128).  The launch covers the tiles of the query
+// levels [lq_begin, lq_end) (lq_end -1: all levels): one block per tile
+// of the range, offset by tp.tile_base, so only those levels' query rows
+// of out are written.  Returns cudaGetLastError() after the launch, or a
+// negative code for arguments the kernel does not take.
 template <class Coords, class Geo>
 static int tile_fwd_entry(const void* value, const Coords& co, const Geo& geo, void* out,
                           int dtype, int bs, int K, int H, int D, int L, int P,
                           const int* level_h, const int* level_w, const int* tile_h,
                           const int* tile_w, const int* win_h, const int* win_w,
                           const int* staged, const int* off_b, const int* off_acc, int halo,
-                          int smem_bytes, void* stream) {
+                          int smem_bytes, void* stream, int lq_begin = 0, int lq_end = -1) {
   if (D < 1 || D > 128) return -2;
   if (dtype != 0 && dtype != 1) return -4;
   if (P < 1 || P > 32) return -7;  // a round holds at least one query's taps
@@ -568,10 +576,13 @@ static int tile_fwd_entry(const void* value, const Coords& co, const Geo& geo, v
   const int err = make_tile_plan(&tp, L, level_h, level_w, tile_h, tile_w, win_h, win_w, staged,
                                  off_b, off_acc, halo, D, P, elem, false, smem_bytes, K);
   if (err) return err;
+  if (lq_end < 0) lq_end = L;
+  if (lq_begin < 0 || lq_begin >= lq_end || lq_end > L) return -8;
+  tp.tile_base = tp.tile_start[lq_begin];
   if (bs == 0 || H == 0) return 0;
   if (bs > 65535 || H > 65535) return -3;
   const int vec16 = (uintptr_t)value % 16 == 0 && (D * elem) % 16 == 0;
-  const dim3 grid((unsigned)tp.tile_start[L], (unsigned)H, (unsigned)bs);
+  const dim3 grid((unsigned)(tp.tile_start[lq_end] - tp.tile_base), (unsigned)H, (unsigned)bs);
   cudaStream_t s = (cudaStream_t)stream;
   constexpr int W = Coords::kCorrection ? TILE_CORRECTION_WARPS : TILE_FWD_WARPS;
   if (dtype == 0) {

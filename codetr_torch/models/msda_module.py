@@ -21,6 +21,15 @@ need grid queries: a module built with one and without them raises.
 never reached from ``"auto"``) keeps both pipelines and runs the plain
 versions (``msda_grid_packed_plain``, ``multi_scale_deformable_attention_plain``)
 on any device: no kernel is launched.
+
+The decoder's shared raw-memory corner table (``ops/msda_dectab.py``): given
+``raw_table`` (built once a forward by ``DinoTransformerDecoder(dectab=
+True)``), a module without grid queries and with ``impl="auto"`` samples
+the raw memory from the table instead of projecting and gathering its
+``value``, and applies its ``value_proj`` after the interpolation, head by
+head: ``out_h = W_h @ feats_h + b_h * wsum_h``, ``wsum`` the interpolated
+"unmasked" indicator channel (the JAX module takes the diagonal blocks of
+a full projection; this is the same function with 1/h of its products).
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from codetr_torch.ops.msda import (
     msda_grid_qm,
     multi_scale_deformable_attention,
 )
+from codetr_torch.ops.msda_dectab import msda_from_raw_table
 
 
 def grid_offset_bias(num_heads: int, num_levels: int, num_points: int) -> torch.Tensor:
@@ -133,6 +143,7 @@ class MultiScaleDeformableAttention(nn.Module):
         key_padding_mask: Optional[torch.Tensor],  # (bs, nk) True = pad
         reference_points: torch.Tensor,  # (bs, nq, L, 2|4) float32
         spatial_shapes: Sequence[Tuple[int, int]],
+        raw_table: Optional[torch.Tensor] = None,  # (bs * R, 4 * (C + 1)) shared corner table
     ) -> torch.Tensor:
         c = self.cfg
         h, L, P = c.num_heads, c.num_levels, c.num_points
@@ -140,7 +151,9 @@ class MultiScaleDeformableAttention(nn.Module):
         if query_pos is not None:
             query = query + query_pos
         bs, nq, _ = query.shape
-        v = self.project_value(value, key_padding_mask)
+        use_table = raw_table is not None and not self.grid_queries and self.impl == "auto"
+        # the table path reads the raw memory from the table: no value_proj on the memory
+        v = None if use_table else self.project_value(value, key_padding_mask)
 
         off = self.sampling_offsets(query).float().reshape(bs, nq, h, L, P, 2)
         raw_attn = self.attention_weights(query).float()
@@ -175,5 +188,19 @@ class MultiScaleDeformableAttention(nn.Module):
                 loc = ref[:, :, None, :, None, :2] + off / P * ref[:, :, None, :, None, 2:] * 0.5
             else:
                 raise ValueError(f"reference_points last dim must be 2 or 4, got {ref.shape[-1]}")
-            out = multi_scale_deformable_attention(v, spatial_shapes, loc.contiguous(), attn, impl=self.impl)
+            if use_table:
+                out = self.table_projection(msda_from_raw_table(raw_table, spatial_shapes, loc, attn), query.dtype)
+            else:
+                out = multi_scale_deformable_attention(v, spatial_shapes, loc.contiguous(), attn, impl=self.impl)
         return self.output_proj(out.to(query.dtype)) + identity
+
+    def table_projection(self, interp: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """``value_proj`` after interpolation: (bs, nq, h, C + 1) fp32 from
+        ``msda_from_raw_table`` -> (bs, nq, h * dh) in ``dtype``, head h
+        ``W_h @ feats_h + b_h * wsum_h`` (the last channel is ``wsum``)."""
+        h = self.cfg.num_heads
+        w = self.value_proj.weight
+        feats, wsum = interp[..., :-1].to(w.dtype), interp[..., -1:].to(w.dtype)
+        out = torch.einsum("bqhc,hdc->bqhd", feats, w.view(h, -1, w.shape[1]))
+        out = out + self.value_proj.bias.view(h, -1) * wsum
+        return out.reshape(*out.shape[:2], -1).to(dtype)

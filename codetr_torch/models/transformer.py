@@ -21,6 +21,7 @@ from codetr_torch.config import TransformerConfig
 from codetr_torch.models.layers import FFN, LN_EPS, MultiheadAttention, mlp
 from codetr_torch.models.msda_module import MultiScaleDeformableAttention
 from codetr_torch.models.positional_encoding import gen_sineembed_for_position
+from codetr_torch.ops.msda_dectab import build_raw_quad_table, raw_memory_aug
 
 Shapes = Tuple[Tuple[int, int], ...]
 
@@ -121,10 +122,11 @@ class DetrTransformerDecoderLayer(nn.Module):
         self.norms = nn.ModuleList([_layer_norm(E) for _ in range(3)])
         self.ffns = nn.ModuleList([FFN(E, cfg.decoder_layer.feedforward_channels)])
 
-    def forward(self, query, query_pos, memory, key_padding_mask, reference_points, spatial_shapes):
+    def forward(self, query, query_pos, memory, key_padding_mask, reference_points, spatial_shapes,
+                raw_table=None):
         query = self.norms[0](self.attentions[0](query, query_pos))
         query = self.attentions[1](
-            query, memory, query_pos, key_padding_mask, reference_points, spatial_shapes
+            query, memory, query_pos, key_padding_mask, reference_points, spatial_shapes, raw_table
         )
         query = self.norms[1](query)
         return self.norms[2](self.ffns[0](query))
@@ -132,12 +134,20 @@ class DetrTransformerDecoderLayer(nn.Module):
 
 class DinoTransformerDecoder(nn.Module):
     """Iterative box refinement in unactivated space, per-layer
-    intermediates, and the shared final LayerNorm applied to each of them."""
+    intermediates, and the shared final LayerNorm applied to each of them.
 
-    def __init__(self, cfg: TransformerConfig, msda_impl: str = "auto"):
+    ``dectab`` (off by default, as in the JAX package; a plain attribute
+    with no parameters, so a built model's decoder can be switched either
+    way over the same weights): with ``msda_impl="auto"`` the forward builds
+    the raw-memory corner table once (``ops/msda_dectab.py``) and every
+    layer's cross-attention samples it instead of its projected memory."""
+
+    def __init__(self, cfg: TransformerConfig, msda_impl: str = "auto", dectab: bool = False):
         super().__init__()
         E = cfg.embed_dims
         self.cfg = cfg
+        self.msda_impl = msda_impl
+        self.dectab = dectab
         self.layers = nn.ModuleList(
             DetrTransformerDecoderLayer(cfg, msda_impl) for _ in range(cfg.num_decoder_layers)
         )
@@ -152,12 +162,15 @@ class DinoTransformerDecoder(nn.Module):
         E = self.cfg.embed_dims
         vr4 = torch.cat([valid_ratios, valid_ratios], dim=-1)  # (bs, L, 4)
         refs = reference_points.float()
+        raw_table = None
+        if self.dectab and self.msda_impl == "auto":
+            raw_table = build_raw_quad_table(raw_memory_aug(memory, key_padding_mask), spatial_shapes)
         states, inter_refs = [], []
         for lid, layer in enumerate(self.layers):
             ref_input = refs.sigmoid()[:, :, None, :] * vr4[:, None]  # (bs, nq, L, 4)
             sine = gen_sineembed_for_position(ref_input[:, :, 0, :].to(query.dtype), E // 2)
             query_pos = self.ref_point_head(sine)
-            query = layer(query, query_pos, memory, key_padding_mask, ref_input, spatial_shapes)
+            query = layer(query, query_pos, memory, key_padding_mask, ref_input, spatial_shapes, raw_table)
             refs = reg_branches[lid](query).float() + refs
             states.append(query)
             inter_refs.append(refs)

@@ -23,6 +23,10 @@ Three public entry points keep the JAX package's signatures and layouts:
   (bs, Q, h, L, P) (the decoder); with ``grid_queries=True`` they are moved
   to q-minor for ``msda_grid_qm``.
 
+``msda_packed_level(value, spatial_shapes, cpk, num_points, plan, lq)`` is
+K1 on one query level's grid queries (its level entry, with a given plan:
+``tools/winbench.py`` times one level a call, as the JAX kernel runs).
+
 ``impl="reference"`` (the packed and reference-layout entries, and every
 layer of a model built with ``msda_impl="reference"``) is the JAX package's
 exact-oracle option: the plain version on any device, no kernel.
@@ -243,8 +247,8 @@ def _fwd_lib() -> ctypes.CDLL:
     lib = _build.load("msda_fwd").lib
     p, i = ctypes.c_void_p, ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.msda_packed_fwd.argtypes = [p, p, p, i, i, i, i, i, i, i, i, ip, ip, *_PLAN_ARGTYPES, p]
-    lib.msda_packed_fwd.restype = i
+    lib.msda_packed_fwd_levels.argtypes = [p, p, p, i, i, i, i, i, i, i, i, ip, ip, *_PLAN_ARGTYPES, i, i, p]
+    lib.msda_packed_fwd_levels.restype = i
     lib.msda_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ip, ip, p]
     lib.msda_fwd.restype = i
     lib.msda_qm_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ip, ip, *_PLAN_ARGTYPES, p]
@@ -292,25 +296,59 @@ def _raise_on(err: int, fn: str) -> None:
         raise RuntimeError(f"{fn} failed: code {err} (negative: bad argument; positive: cudaError_t)")
 
 
-def _launch_packed(value, spatial_shapes, cpk, num_points, plan: Sequence[int]):
-    """K1 on the packed coordinates with ``plan``, ``packed_plan``'s ints."""
+def _launch_packed(value, spatial_shapes, cpk, num_points, plan: Sequence[int], levels=None):
+    """K1 on the packed coordinates with ``plan``, ``packed_plan``'s ints,
+    through its level entry ``msda_packed_fwd_levels`` on the query levels
+    ``levels`` = (begin, end), all of them by default (``msda_packed_fwd``'s
+    launch).  Rows outside the range stay as allocated."""
     global launches
     _kernel_checks(value, spatial_shapes, cpk)
     bs, K, h, d = value.shape
+    L = len(spatial_shapes)
+    lq_begin, lq_end = levels if levels is not None else (0, L)
     lib = _fwd_lib()
-    plan_args = _plan_args_of(tuple(int(v) for v in plan), len(spatial_shapes))
+    plan_args = _plan_args_of(tuple(int(v) for v in plan), L)
     out = torch.empty(bs, K, h * d, dtype=value.dtype, device=value.device)
     hs, ws = _level_arrays(spatial_shapes)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.msda_packed_fwd(
+        err = lib.msda_packed_fwd_levels(
             value.data_ptr(), cpk.data_ptr(), out.data_ptr(), _DTYPE_CODE[value.dtype],
-            bs, K, h, d, len(spatial_shapes), num_points, cpk.shape[2], hs, ws,
-            *plan_args, stream,
+            bs, K, h, d, L, num_points, cpk.shape[2], hs, ws,
+            *plan_args, lq_begin, lq_end, stream,
         )
-    _raise_on(err, "msda_packed_fwd")
+    _raise_on(err, "msda_packed_fwd_levels")
     launches += 1
     return out
+
+
+def _level_rows(spatial_shapes: Shapes, lq: int) -> slice:
+    """The keys (query rows) of level ``lq``."""
+    sizes = [int(hh) * int(ww) for hh, ww in spatial_shapes]
+    if not 0 <= lq < len(sizes):
+        raise ValueError(f"query level {lq} of {len(sizes)} levels")
+    start = sum(sizes[:lq])
+    return slice(start, start + sizes[lq])
+
+
+def msda_packed_level(value, spatial_shapes, cpk, num_points, plan: msda_tiles.TilePlan, lq: int):
+    """K1 on the grid queries of one query level ``lq`` -> (bs, K_lq, h*d),
+    the rows of that level of ``msda_grid_packed``'s output.  On the card
+    it launches K1's level entry with ``plan`` (``msda_tiles.
+    encoder_tile_plan``, tiles overridable): one block per tile of that
+    level, writing only its rows of an output of all K rows, whose view it
+    returns.  On the CPU: the plain version on that level's queries.
+    Counts in ``launches``."""
+    _check(value, spatial_shapes, cpk)
+    rows = _level_rows(spatial_shapes, lq)
+    if _route(value) == "cpu":
+        x, y, w = (a[:, rows] for a in _unpack(cpk, value.shape[2], len(spatial_shapes), num_points))
+        return msda_plain(value, spatial_shapes, x, y, w)
+    if plan.backward or plan.shapes != tuple((int(a), int(b)) for a, b in spatial_shapes) \
+            or plan.head_dim != value.shape[3] or plan.points != num_points \
+            or plan.element_size != value.element_size():
+        raise ValueError("the plan was made for other shapes, a backward, another head dim, points or dtype")
+    return _launch_packed(value, spatial_shapes, cpk, num_points, plan_ints(plan), levels=(lq, lq + 1))[:, rows]
 
 
 def _launch_reference(value, spatial_shapes, loc, attn):

@@ -42,15 +42,16 @@ with per-tile ``origins``).
 ``encoder_tile_plan`` builds the plan (cached), ``correction_plan`` the
 same tiles with no window staged for K3's correction entry;
 ``staged_share`` counts, for a set of taps, the share of nonzero-weight
-corner reads that the plan serves from shared memory.  Nothing here needs a
-card.
+corner reads that the plan serves from shared memory (``taps_outside`` the
+taps with a corner it does not serve; ``corner_reads`` the masks both
+count).  Nothing here needs a card.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass, replace
-from typing import Sequence, Tuple
+from typing import Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -179,7 +180,8 @@ def _stage(shapes, tiles, windows, element_size, smem_budget, head_dim, points, 
         tail = (max(4 * th * tw * points, 16) * 8 if backward else 0) + th * tw * head_dim * 4
         chosen = [False] * L
         if _layout(win_bytes, px, chosen, tail, backward)[2] > smem_budget:
-            raise ValueError(f"a ({th}, {tw}) tile's accumulator alone exceeds {smem_budget} bytes")
+            raise ValueError(f"query level {lq}: a ({th}, {tw}) tile's accumulator alone exceeds "
+                             f"{smem_budget} bytes")
         for lt in sorted(range(L), key=lambda i: (win_bytes[i], i)):
             chosen[lt] = True
             if _layout(win_bytes, px, chosen, tail, backward)[2] > smem_budget:
@@ -199,9 +201,8 @@ def _check_levels(L: int) -> None:
 
 
 @functools.lru_cache(maxsize=64)
-def _plan(shapes, element_size, halo, smem_budget, head_dim, points, backward):
+def _plan(shapes, element_size, halo, smem_budget, head_dim, points, backward, tiles):
     _check_levels(len(shapes))
-    tiles = tile_shapes(len(shapes))
     windows = tuple(
         tuple((window_size(th, Hq, Ht, halo), window_size(tw, Wq, Wt, halo)) for Ht, Wt in shapes)
         for (Hq, Wq), (th, tw) in zip(shapes, tiles))
@@ -239,17 +240,27 @@ def encoder_tile_plan(
     head_dim: int = 32,
     points: int = 4,
     backward: bool = False,
+    tiles: Mapping[int, Tuple[int, int]] | None = None,
 ) -> TilePlan:
     """The tile plan of the encoder forward (or, with ``backward``, the
     backward) kernel for a level set, a value dtype, head dim and points
     per level (cached).  ``smem_budget`` (None: ``SMEM_BUDGET``) bounds a
-    block's shared memory."""
+    block's shared memory.  ``tiles`` overrides the query tile ``(th,
+    tw)`` of the query levels it names (``tools/winbench.py --tiles``);
+    windows, staging and layout follow from the tiles as for the
+    defaults.  A tile whose accumulator alone exceeds the budget raises
+    ``ValueError``."""
     if value_dtype not in _ELEMENT_SIZE:
         raise TypeError(f"value dtype must be float32 or bfloat16, got {value_dtype}")
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     budget = SMEM_BUDGET if smem_budget is None else int(smem_budget)
+    chosen = list(tile_shapes(len(shapes)))
+    for lq, (th, tw) in (tiles or {}).items():
+        if not 0 <= lq < len(shapes) or th < 1 or tw < 1:
+            raise ValueError(f"a tile ({th}, {tw}) for query level {lq} of {len(shapes)}")
+        chosen[lq] = (int(th), int(tw))
     return _plan(shapes, _ELEMENT_SIZE[value_dtype], int(halo), budget, int(head_dim), int(points),
-                 bool(backward))
+                 bool(backward), tuple(chosen))
 
 
 @functools.lru_cache(maxsize=16)
@@ -293,34 +304,63 @@ def query_windows(plan: TilePlan, device: str) -> Tuple[torch.Tensor, ...]:
     return tuple(torch.from_numpy(a).to(device) for a in (y0, x0, wh, ww, staged))
 
 
-def staged_share(
-    plan: TilePlan,
-    x: torch.Tensor,  # (bs, K, h, L, P) normalised x of the grid queries
-    y: torch.Tensor,  # (bs, K, h, L, P)
-    w: torch.Tensor,  # (bs, K, h, L, P) attention weights
-    q_chunk: int = 8192,
-) -> Tuple[int, int]:
-    """(corner reads served from shared memory, all corner reads) of these
-    taps under ``plan``: the corners inside their level of the taps whose
-    weight is not 0, and of those the ones inside a staged window.  Pixel
-    coordinates as the kernels compute them (the product rounded first)."""
+def corner_reads(plan: TilePlan, x, y, w, queries: slice | None = None, q_chunk: int = 8192):
+    """Per chunk of the queries ``queries`` (a slice of the K grid queries;
+    None: all): its first query and, for each of the four corners, (pixel
+    column, pixel row, read, read from shared memory), each (bs, q, h, L,
+    P).  A read is a corner inside its level of a tap whose weight is not
+    0, served if inside a staged window.  Pixel coordinates as the kernels
+    compute them (the product rounded first).  ``x``, ``y``, ``w`` as
+    ``staged_share`` takes them."""
     L = len(plan.shapes)
     dev = x.device
     windows = query_windows(plan, str(dev))
     shape5 = (1, 1, 1, L, 1)
     widths = torch.tensor([w_ for _, w_ in plan.shapes], device=dev).view(shape5)
     heights = torch.tensor([h_ for h_, _ in plan.shapes], device=dev).view(shape5)
-    served = total = 0
-    for q0 in range(0, x.shape[1], q_chunk):
-        q1 = min(x.shape[1], q0 + q_chunk)
+    start, stop, _ = (queries or slice(None)).indices(x.shape[1])
+    for q0 in range(start, stop, q_chunk):
+        q1 = min(stop, q0 + q_chunk)
         fx = torch.floor(x[:, q0:q1] * widths.float() - 0.5).long()
         fy = torch.floor(y[:, q0:q1] * heights.float() - 0.5).long()
         live = w[:, q0:q1] != 0
         wy0, wx0, wh, ww, staged = (a[q0:q1].view(1, q1 - q0, 1, L, 1) for a in windows)
+        corners = []
         for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
             cx, cy = fx + dx, fy + dy
             read = live & (cx >= 0) & (cx < widths) & (cy >= 0) & (cy < heights)
             inside = staged & (cx >= wx0) & (cx < wx0 + ww) & (cy >= wy0) & (cy < wy0 + wh)
+            corners.append((cx, cy, read, read & inside))
+        yield q0, corners
+
+
+def staged_share(
+    plan: TilePlan,
+    x: torch.Tensor,  # (bs, K, h, L, P) normalised x of the grid queries
+    y: torch.Tensor,  # (bs, K, h, L, P)
+    w: torch.Tensor,  # (bs, K, h, L, P) attention weights
+    q_chunk: int = 8192,
+    queries: slice | None = None,
+) -> Tuple[int, int]:
+    """(corner reads served from shared memory, all corner reads) of these
+    taps under ``plan``: the corners inside their level of the taps whose
+    weight is not 0, and of those the ones inside a staged window; of the
+    queries ``queries`` (None: all)."""
+    served = total = 0
+    for _, corners in corner_reads(plan, x, y, w, queries, q_chunk):
+        for _, _, read, inside in corners:
             total += int(read.sum().item())
-            served += int((read & inside).sum().item())
+            served += int(inside.sum().item())
     return served, total
+
+
+def taps_outside(plan: TilePlan, x, y, w, q_chunk: int = 8192, queries: slice | None = None) -> int:
+    """The taps (of the queries ``queries``; None: all) with a corner read
+    that no staged window serves: the kernel reads it from global memory.
+    ``staged_share``'s arguments; the counterpart of the JAX window
+    kernel's count of taps outside its envelope."""
+    out = 0
+    for _, corners in corner_reads(plan, x, y, w, queries, q_chunk):
+        missed = functools.reduce(torch.logical_or, [read & ~inside for _, _, read, inside in corners])
+        out += int(missed.sum().item())
+    return out

@@ -41,9 +41,13 @@ Stages:
   the encoder's own grid reference points: K1's encoder entry), ``outp``,
   ``ffn``, ``ln``, ``topk`` (top proposals over K), ``prop``
   (``CoDinoTransformer.select_proposals``), ``mha900`` (the decoder's
-  self-attention over the proposals) and ``dmsda`` (the decoder's MSDA
-  cross-attention: K1's decoder entry); ``dtab`` and ``dmsda_tab`` print
-  an n/a record (the decoder corner table is not ported).
+  self-attention over the proposals), ``dmsda`` (the decoder's MSDA
+  cross-attention: K1's decoder entry), ``dtab`` (the decoder's raw-memory
+  corner table, ``ops/msda_dectab.build_raw_quad_table``, built once a
+  forward, from the (1, K, C + 1) memory with its indicator channel) and
+  ``dmsda_tab`` (the same cross-attention on that table: torch ops, no
+  kernel of the port; ``--only dmsda_tab`` also runs ``dtab``, as in the
+  JAX tool).
 - ``mem``: memory-bound ops at (1, K, C): ``scale`` and ``scalef32`` (x *
   1.0000001 in the run's dtype and in fp32), ``lnflax`` (the model's
   ``nn.LayerNorm``), ``lnhand`` (a two-pass LayerNorm in fp32 math),
@@ -113,6 +117,7 @@ from codetr_torch.models.layers import FFN, LN_EPS
 from codetr_torch.models.swin import ShiftWindowMSA, SwinBlock, window_partition, window_reverse
 from codetr_torch.models.transformer import _layer_norm, get_reference_points
 from codetr_torch.ops import msda
+from codetr_torch.ops.msda_dectab import build_raw_quad_table, raw_memory_aug
 from codetr_torch.runtime.aot import DTYPES, make_loop_timer
 from codetr_torch.tools.trainbench import card
 from codetr_torch.utils.profiling import PORT_KERNELS, cost_analysis, trace
@@ -120,7 +125,6 @@ from codetr_torch.utils.profiling import PORT_KERNELS, cost_analysis, trace
 STRIDES = (4, 8, 16, 32, 64)
 GEMM_N = 4096  # the GEMM ceiling's M = N = K on the card
 CPU_GEMM_N = 256  # on the CPU: a host figure, kept small for the tests
-DECTAB_NA = "n/a: ops/msda_dectab.py is not ported (ROADMAP §1 item 8)"
 # the kernel entries --verify holds against the plain version: the stage,
 # the module-level function its module calls, the plain version
 VERIFIED = (("emsda", "msda_grid_packed", msda.msda_grid_packed_plain, "msda_packed_fwd (K1, encoder entry)"),
@@ -509,7 +513,9 @@ def encoder_inputs(ctx: Context) -> dict:
             "q900": q900, "ref900": ref900, "hLP": (h, L, P), "nq": nq}
 
 
-def encoder_stages(ctx: Context, model, inputs: dict) -> list:
+def encoder_stages(ctx: Context, model, inputs: dict, with_table: bool = True) -> list:
+    """The encoder suite's stages in the JAX tool's order; ``dtab`` and
+    ``dmsda_tab`` only ``with_table`` (the table is built here, once)."""
     head = model.query_head
     tf = head.transformer
     layer, dec = tf.encoder.layers[0], tf.decoder.layers[0]
@@ -517,6 +523,14 @@ def encoder_stages(ctx: Context, model, inputs: dict) -> list:
     nd = tf.cfg.num_decoder_layers
     shapes, (h, L, P), nq, K = ctx.shapes, inputs["hLP"], inputs["nq"], ctx.K
     i = inputs
+    tab = []
+    if with_table:
+        mem_aug = raw_memory_aug(i["query"], None)  # the JAX tool's [query | ones]
+        with torch.no_grad():
+            table = build_raw_quad_table(mem_aug, shapes)
+        tab = [Stage("dtab", lambda m: build_raw_quad_table(m, shapes), (mem_aug,)),
+               Stage("dmsda_tab", lambda q, tb, rf: cross(q, None, None, None, rf, shapes, raw_table=tb),
+                     (i["q900"], table, i["ref900"]), (cross,))]
     return [
         Stage("vp", attn.project_value, (i["query"], i["mask"]), (attn.value_proj,)),
         Stage("proj", lambda q: (attn.sampling_offsets(q), attn.attention_weights(q)), (i["query"],),
@@ -537,6 +551,7 @@ def encoder_stages(ctx: Context, model, inputs: dict) -> list:
         Stage("mha900", mha, (i["q900"],), (mha,)),
         Stage("dmsda", lambda q, mem, rf: cross(q, mem, None, None, rf, shapes), (i["q900"], i["query"], i["ref900"]),
               (cross,)),
+        *tab,
     ]
 
 
@@ -559,6 +574,22 @@ def recording(name: str):
         setattr(msda_module, name, real)
 
 
+def kernel_error(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """A kernel's output ``got`` against its plain version's fp32 ``want``:
+    fp32 within 1e-5 of the output's scale (at least 1), bf16 within 2^-7
+    of each element + 1e-5 of the scale; finite and of ``want``'s shape."""
+    diff = (got.float() - want).abs()
+    scale = max(want.abs().max().item(), 1.0)
+    if got.dtype == torch.float32:
+        rel, tol = diff.max().item() / scale, "1e-5 of scale"
+        ok = rel < 1e-5
+    else:
+        rel = (diff / (want.abs() * 2.0**-7 + 1e-5 * scale)).max().item()
+        tol, ok = "<= 1 (2^-7 of each element + 1e-5 of scale)", rel <= 1.0
+    ok = ok and bool(torch.isfinite(got).all()) and got.shape == want.shape
+    return {"max_abs_err": diff.max().item(), "rel": rel, "tolerance": tol, "ok": ok}
+
+
 def verify_kernels(ctx: Context, stages: dict) -> list:
     """Each verified stage once, its kernel's output against the plain
     version on the module's own kernel inputs (the fp32 value)."""
@@ -571,19 +602,9 @@ def verify_kernels(ctx: Context, stages: dict) -> list:
         if ctx.device.type == "cuda":
             torch.cuda.synchronize()
         (value, shapes, *coords), got = calls[0]
-        want = plain(value.float(), shapes, *coords)
-        diff = (got.float() - want).abs()
-        scale = max(want.abs().max().item(), 1.0)
-        if got.dtype == torch.float32:
-            rel, tol = diff.max().item() / scale, "1e-5 of scale"
-            ok = rel < 1e-5
-        else:
-            rel = (diff / (want.abs() * 2.0**-7 + 1e-5 * scale)).max().item()
-            tol, ok = "<= 1 (2^-7 of each element + 1e-5 of scale)", rel <= 1.0
-        ok = ok and bool(torch.isfinite(got).all()) and got.shape == want.shape
         rec = {"verify": stage_name, "kernel": kernel if ctx.device.type == "cuda" else "plain version (CPU)",
                "launches": msda.launches - before, "value": list(value.shape), "dtype": str(got.dtype),
-               "max_abs_err": diff.max().item(), "rel": rel, "tolerance": tol, "ok": ok, "shape": ctx.shape_text()}
+               **kernel_error(got, plain(value.float(), shapes, *coords)), "shape": ctx.shape_text()}
         print(json.dumps(rec), flush=True)
         recs.append(rec)
     return recs
@@ -640,20 +661,21 @@ def main(argv=None, model=None) -> dict:
     print(json.dumps({"suite": args.suite, "shape": ctx.shape_text(), "ceilings": ctx.ceilings, "card": stamp}),
           flush=True)
 
-    def want(name: str) -> bool:
-        return not args.only or name in args.only
+    def want(name: str) -> bool:  # dmsda_tab needs dtab's table: it brings dtab along
+        return not args.only or name in args.only or (name == "dtab" and "dmsda_tab" in args.only)
 
     recs, verified, extra = {}, [], {}
     if args.suite == "model":
         model = seeded_model(ctx, model)
         if args.verify:
-            verified = verify_kernels(ctx, {s.name: s for s in encoder_stages(ctx, model, encoder_inputs(ctx))})
+            verified = verify_kernels(ctx, {s.name: s for s in encoder_stages(ctx, model, encoder_inputs(ctx),
+                                                                               with_table=False)})
         stages = model_stages(ctx, model)
     elif args.suite == "swin":
         stages = swin_stages(ctx, model)
     elif args.suite == "encoder":
         model = seeded_model(ctx, model)
-        stages = encoder_stages(ctx, model, encoder_inputs(ctx))
+        stages = encoder_stages(ctx, model, encoder_inputs(ctx), with_table=want("dtab"))
         if args.verify:
             verified = verify_kernels(ctx, {s.name: s for s in stages})
         stages = [s for s in stages if want(s.name)]
@@ -663,12 +685,6 @@ def main(argv=None, model=None) -> dict:
         extra = {"K": ctx.K}
     for stage in stages:
         recs[stage.name] = run_stage(ctx, stage, args.iters, args.trials, args.trace)
-    if args.suite == "encoder":
-        for name in ("dtab", "dmsda_tab"):
-            if want("dmsda_tab") or want(name):
-                rec = {"stage": name, "best_sane_ms": None, "reason": DECTAB_NA, "shape": ctx.shape_text()}
-                print(json.dumps(rec), flush=True)
-                recs[name] = rec
     summary = {"suite": args.suite, "H": ctx.H, "W": ctx.W, "config": args.config, "dtype": args.dtype,
                "device": str(ctx.device), **extra,
                "summary_best_sane_ms": {n: r["best_sane_ms"] for n, r in recs.items()},

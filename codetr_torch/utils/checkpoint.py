@@ -193,9 +193,14 @@ def _head(out: _Out, p, cfg: CoDETRConfig):
         out.norm(f"{k}.norms.1", e["norm2"])
         out.ffn(f"{k}.ffns.0", e["ffn"])
 
-    dec = t["decoder"]
+    _decoder(out, t["decoder"], f"{key}.decoder", nd)
+
+
+def _decoder(out: _Out, dec, key: str, nd: int):
+    """A JAX ``DinoTransformerDecoder``'s params (its scanned layers, the
+    ref-point head, the final norm) under the port's ``key`` prefix."""
     for layer in range(nd):
-        d, k = _index(dec["layers"], layer), f"{key}.decoder.layers.{layer}"
+        d, k = _index(dec["layers"], layer), f"{key}.layers.{layer}"
         sa = d["self_attn"]
         names = ("q_proj", "k_proj", "v_proj")
         out.sd[f"{k}.attentions.0.attn.in_proj_weight"] = np.concatenate(
@@ -210,8 +215,8 @@ def _head(out: _Out, p, cfg: CoDETRConfig):
             out.norm(f"{k}.norms.{n}", d[f"norm{n + 1}"])
         out.ffn(f"{k}.ffns.0", d["ffn"])
     for li, ti in enumerate((0, 2)):
-        out.dense(f"{key}.decoder.ref_point_head.{ti}", dec["ref_point_head"][f"layers_{li}"])
-    out.norm(f"{key}.decoder.norm", dec["norm"])
+        out.dense(f"{key}.ref_point_head.{ti}", dec["ref_point_head"][f"layers_{li}"])
+    out.norm(f"{key}.norm", dec["norm"])
 
 
 def state_dict_from_jax(params, cfg: CoDETRConfig) -> Dict[str, np.ndarray]:

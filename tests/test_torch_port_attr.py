@@ -4,8 +4,8 @@ package's attribution tools (``tools/attr.py``, ``swinattr.py``,
 64x96 on the CPU (where every figure is a host one).
 
 - every subcommand runs with ``--device cpu`` and prints each JAX stage
-  name (``dtab`` / ``dmsda_tab`` as n/a records with their reason), a time,
-  a floor and ``x_over_floor`` for each other stage, and a summary line
+  name (``dtab`` / ``dmsda_tab`` included: the decoder's corner table), a
+  time, a floor and ``x_over_floor`` for each stage, and a summary line
   last; ``--verify`` runs, and ``--trace`` (``model``); the default device raises
   without a card;
 - FLOPs: ``full`` = ``features`` + ``detect`` exactly, and ``ffn``,
@@ -85,9 +85,7 @@ def test_every_suite_runs_on_the_cpu(suite, capsys, tmp_path):
     for r in lines:
         if "stage" not in r:
             continue
-        if r["stage"] in ("dtab", "dmsda_tab"):
-            assert r["best_sane_ms"] is None and r["reason"] == attr.DECTAB_NA
-            continue
+        assert "reason" not in r
         assert r["best_sane_ms"] > 0 and r["floor_ms"] > 0 and r["x_over_floor"] > 0, r
         assert r["ceiling"]["source"] == "measured" and r["shape"] == "64x96 bfloat16"
         assert r["median_ms"] >= r["best_sane_ms"] and r["spread"] >= 1
@@ -109,6 +107,20 @@ def test_every_suite_runs_on_the_cpu(suite, capsys, tmp_path):
             assert r["eff_gb_s"] == pytest.approx(r["traffic_mb"] / 1e3 / (r["best_sane_ms"] / 1e3))
     if suite in ("model", "encoder"):
         assert summary["verify_ok"] and [v["verify"] for v in result["verify"]] == ["emsda", "dmsda"]
+
+
+@pytest.mark.parametrize("only,stages", [("dtab", ["dtab"]), ("dmsda_tab", ["dtab", "dmsda_tab"])])
+def test_only_selects_the_table_stages(only, stages, capsys, tiny_model):
+    """``--only dtab`` times the table build alone; ``--only dmsda_tab``
+    brings the build along (its table), as the JAX tool's switch does."""
+    result = attr.main(["encoder", *HW, "--only", only] + CPU + ["--dtype", "float32"], model=tiny_model)
+    assert list(result["records"]) == stages
+    lines = [json.loads(s) for s in capsys.readouterr().out.splitlines()]
+    assert [r["stage"] for r in lines if "stage" in r] == stages
+    for r in result["records"].values():
+        assert r["best_sane_ms"] > 0 and r["mb"] > 0 and r["floor_ms"] > 0
+    if only == "dmsda_tab":  # the cross-attention on the table computes products
+        assert result["records"]["dmsda_tab"]["gflop"] > 0
 
 
 @pytest.mark.parametrize("suite", sorted(ARGV))

@@ -1677,3 +1677,86 @@ def test_cuda_attribution_encoder_kernels_verified_timed_and_traced(cuda_device,
         assert r["best_sane_ms"] > 0 and r["floor_ms"] > 0 and r["x_over_floor"] > 0, r
         assert r["ceiling"]["source"] == "measured"
         assert r["traced"]["port_kernels"].get(kernel, 0) >= 1, r["traced"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_level_entry_rows_equal_the_full_call(cuda_device, dtype):
+    """K1's level entry (``msda_packed_fwd_levels``, one launch a level) on
+    ``tools/winbench.py``'s inputs at 384x384: each level's rows equal the
+    all-levels call's bit for bit (the same blocks, each independent), and
+    a ``--tiles`` plan's level rows hold to the plain version."""
+    from codetr_torch.ops import msda_tiles
+    from codetr_torch.tools import winbench
+
+    shapes, value, x, y, w, _ = winbench.make_inputs(384, 384, 4.0)
+    v = torch.from_numpy(value).to(cuda_device, dtype)
+    x, y, w = (torch.from_numpy(a).to(cuda_device) for a in (x, y, w))
+    cpk = port_msda.pack_coords_qmajor(x, y, w)
+    full = port_msda.msda_grid_packed(v, shapes, cpk, 4)
+    plan = msda_tiles.encoder_tile_plan(shapes, dtype)
+    for lq in range(len(shapes)):
+        before = port_msda.launches
+        got = port_msda.msda_packed_level(v, shapes, cpk, 4, plan, lq)
+        torch.cuda.synchronize()
+        assert port_msda.launches == before + 1
+        assert torch.equal(got, full[:, port_msda._level_rows(shapes, lq)]), lq
+    small = msda_tiles.encoder_tile_plan(shapes, dtype, tiles={0: (4, 8), 4: (1, 2)})
+    xq, yq, wq = (a.permute(0, 4, 1, 2, 3) for a in (x, y, w))
+    for lq in (0, 4):
+        rows = port_msda._level_rows(shapes, lq)
+        got = port_msda.msda_packed_level(v, shapes, cpk, 4, small, lq)
+        want = port_msda.msda_plain(v.float(), shapes, xq[:, rows], yq[:, rows], wq[:, rows])
+        if dtype == torch.float32:
+            assert_close(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5)
+        else:
+            assert_within_bf16_rounding(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_dectab_path_matches_gather_path(cuda_device, dtype):
+    """The decoder cross-attention on the raw-memory corner table (torch
+    ops, no kernel) against the same module's gather path (K1's decoder
+    entry, one launch) on the card, with a non-rectangular mask; and the
+    table interpolation on the card against the CPU's."""
+    from codetr_torch.config import MSDAConfig
+    from codetr_torch.models.codetr import fp32_scope
+    from codetr_torch.models.msda_module import MultiScaleDeformableAttention
+    from codetr_torch.ops import msda_dectab
+
+    shapes = SHAPES[2]
+    K, L = sum(hh * ww for hh, ww in shapes), len(shapes)
+    rng = np.random.default_rng(7)
+    query = torch.from_numpy(rng.standard_normal((2, 23, 64)).astype(np.float32))
+    memory = torch.from_numpy(rng.standard_normal((2, K, 64)).astype(np.float32))
+    mask = torch.from_numpy(rng.uniform(size=(2, K)) < 0.3)
+    ref = torch.from_numpy(rng.uniform(0.0, 1.0, (2, 23, L, 4)).astype(np.float32))
+    mod = MultiScaleDeformableAttention(MSDAConfig(embed_dims=64, num_heads=4, num_levels=L, num_points=3))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.2)
+    mod = mod.to(cuda_device, dtype)
+    q, mem, mk, rf = (t.to(cuda_device) for t in (query, memory, mask, ref))
+    q, mem = q.to(dtype), mem.to(dtype)
+    with torch.no_grad(), fp32_scope(dtype):
+        table = msda_dectab.build_raw_quad_table(msda_dectab.raw_memory_aug(mem, mk), shapes)
+        before = port_msda.launches
+        tab = mod(q, None, None, mk, rf, shapes, raw_table=table)
+        assert port_msda.launches == before
+        gather = mod(q, mem, None, mk, rf, shapes)
+        torch.cuda.synchronize()
+        assert port_msda.launches == before + 1
+    scale = max(gather.float().abs().max().item(), 1.0)
+    err = (tab.float() - gather.float()).abs().max().item() / scale
+    assert err < (1e-5 if dtype == torch.float32 else 2e-2), err
+
+    loc = torch.from_numpy(rng.uniform(-0.05, 1.05, (2, 23, 4, L, 3, 2)).astype(np.float32))
+    attw = torch.from_numpy(rng.uniform(0, 1, (2, 23, 4, L, 3)).astype(np.float32))
+    aug = msda_dectab.raw_memory_aug(memory, mask)
+    cpu = msda_dectab.msda_from_raw_table(msda_dectab.build_raw_quad_table(aug, shapes), shapes, loc, attw)
+    with fp32_scope(torch.float32):
+        card = msda_dectab.msda_from_raw_table(msda_dectab.build_raw_quad_table(aug.to(cuda_device), shapes), shapes,
+                                               loc.to(cuda_device), attw.to(cuda_device))
+    assert_close(card.cpu().numpy(), cpu.numpy(), rtol=1e-5)
