@@ -70,8 +70,8 @@ Phases (any failure raises, and the script exits non-zero without a result):
    ``"auto"`` run counts the share of the model's own corner reads that
    the tiled kernel serves from shared memory, at least 0.7); the Swin-L
    model built with ``msda_impl="reference"`` (no MSDA launch) against
-   ``"auto"`` on the ladder, and its exported program (no ``codetr::``
-   node); and the gather microbenchmarks (K5) against their plain versions
+   ``"auto"`` on the ladder, and the exported program of the same model
+   with Swin's stages cut to 2 blocks (no ``codetr::`` node); and the gather microbenchmarks (K5) against their plain versions
    at the sweep's and at tail sizes, their library's ``I2F`` count (none in
    a loop), then their sweep (each call beside its launch floor and, for the
    gathers, the shared-memory wavefront figure; the launches per C entry
@@ -131,17 +131,19 @@ Phases (any failure raises, and the script exits non-zero without a result):
    rescaled on the host in float64 as the JAX script does, then made the
    ground truth and scored again at fp32 (determinism and the evaluator's
    plumbing: mAP = AR_100 = 1); then the JAX script's defaults (bf16,
-   soft-NMS, batch 4; 12 forward-kernel launches a batch) twice over 100
+   soft-NMS, batch 4; 12 forward-kernel launches a batch) once over 100
    images (25 full batches) against ground truth at COCO val2017's density,
    with images per second, seconds per part and peak memory;
-8b. the exported forward as an AOTInductor package (``runtime/aot.py:
-   save_package``): the seed-0 Swin-L at 608x608 fp32, full width, exported
+8b. (run after 11) the exported forward as an AOTInductor package (``runtime/aot.py:
+   save_package``): the seed-0 Swin-L at 608x608 fp32, full width with its
+   stages cut to 2 blocks each (``--depths 2 2 2 2``), exported
    and compiled by ``python -m codetr_torch.export_aot --package`` in a
-   background subprocess started after phase 2 (at a lower priority; it
-   is minutes of host work, and beside phases 3-8 the script's wall drops
-   by most of it; its autotuning's kernels share the card with those
-   phases' timings, except phase 7's and the matrix's, and the step of
-   phase 6 that fills the card, during which it is stopped)
+   background subprocess started after phase 2 beside phase 12's (at a
+   lower priority, on half the host's cores; it is minutes of host work,
+   and beside phases 3-8 the script's wall drops by most of it; its
+   autotuning's kernels share the card with those phases' timings, except
+   phase 7's and the matrix's, and the step of phase 6 that fills the
+   card, during which it is stopped)
    (seconds, MB), loaded here (the Python ops: 12 forward-kernel launches a
    forward) and held set-wise against the reloaded ``.codetr.pt2``
    program of the same model on one seeded image (the detections off the
@@ -211,7 +213,17 @@ Phases (any failure raises, and the script exits non-zero without a result):
    step from the same weights (K1 12, K2 12, matching 2 launches; the loss
    within 1e-4; the parameters within 2.02 lr and their updates within
    1e-2 lr where the gradient is above 1e-2 of its leaf's scale), both
-   timed; the sharded forward against the model's own; then the
+   timed; the sharded forward against the model's own;
+12. the deployed artifact at the benchmark's headline, matrix [3]: the
+   seed-0 Swin-L at 1280x1920 bf16, full width, exported and compiled by
+   ``export_aot --package --dtype bfloat16`` in the background from phase 2
+   on (started first), loaded here (12 forward-kernel launches a forward),
+   held set-wise against the reloaded bf16 ``.codetr.pt2`` program with a
+   gate set by controls in this call (the program on its image moved by
+   one bf16 step must pass it, on other images must fail it), timed beside
+   the program; ``aoti_run.py``'s run and the native runner's on it each
+   equal to the in-process package bit for bit, the runner's K1 launches
+   6 + 6 a forward and its NMS count ``batched_nms_native``'s; then the
    ``kernels`` line and, last, the result line.
 
 The script leaves PyTorch's TF32 flags at their defaults (printed at the
@@ -264,8 +276,8 @@ from codetr_torch.ops.msda_dectab import build_raw_quad_table, raw_memory_aug
 from codetr_torch.tools import attr, rehearsal, trainbench, winbench
 from codetr_torch.tools.attr import union_us
 from codetr_torch.ops.nms import postprocess_detections
-from codetr_torch.runtime.aot import (DTYPES, Replay, benchmark, capture, compile_forward, load_executable,
-                                     load_package, msda_nodes, pool_bytes, save_executable)
+from codetr_torch.runtime.aot import (DTYPES, Replay, benchmark, capture, compile_forward, dtype_name,
+                                     load_executable, load_package, msda_nodes, pool_bytes, save_executable)
 from codetr_torch.utils.native import batched_nms_native, preprocess_native
 from codetr_torch.utils.preprocess import preprocess
 from codetr_torch.utils.profiling import kernel_counts, trace
@@ -276,10 +288,14 @@ VERIFY_HW = (1280, 1920)  # the on-card MSDA gate's size, the JAX bench.py's def
 R50_SERVING = ((608, 608, torch.float32), (768, 1152, torch.bfloat16))  # BASELINE configs[0], [1]
 CHECK_HW = (384, 384)  # small input for the card-vs-CPU model check
 TRAIN_CHECK_HW = (256, 256)  # small input for the card-vs-CPU train-step check (K = 5,456)
+# Swin-L at full width with its stages cut to 2 blocks each (24 -> 8): 8b's
+# package (compiled beside phase 12's) and the "reference" impl's export,
+# so that the script stays within its time
+CUT_DEPTHS = (2, 2, 2, 2)
 PERTURBATIONS = 3  # seeded 1e-7 weight perturbations that measure each gradient's spread
 CP_BATCH = 6  # a train batch whose step does not fit the card without SwinConfig.with_cp
 EXPORTED = (0, 3)  # the matrix configurations exported, saved and reloaded (R50 fp32, Swin-L 1280x1920)
-MATRIX_ITERATIONS = 20  # per configuration and mode: 5 blocks of 4
+MATRIX_ITERATIONS = 10  # per configuration and mode: 5 blocks of 2
 KERNELS = ("msda_fwd", "msda_bwd", "msda_shift_fwd", "gatherbench", "hungarian")
 NMS_TYPES = ("nms", "soft_nms", "soft_nms_gaussian")
 POST_BATCHES = (1, 4)  # the postprocess's batch sizes: latency, and eval_coco's and the matrix's batch 4
@@ -2088,9 +2104,10 @@ def reference_phase(model, cfg, image, stamp):
     image at 768x1152, fp32, with every MSDA launch count set to 0 just
     before and read just after (all must stay 0: the plain versions run),
     against ``model`` (``"auto"``) on the ladder, set-wise: scores 2e-4,
-    boxes 0.1 px.  Then the reference model exported (``compile_forward``):
-    its program holds no ``codetr::`` node, and its detections on the image
-    are the eager reference model's on the ladder.  Each forward's ms."""
+    boxes 0.1 px.  Then the reference model with Swin's stages cut to
+    CUT_DEPTHS exported (``compile_forward``): its program holds no
+    ``codetr::`` node, and its detections on the image are the eager
+    model's on the ladder.  Each forward's ms."""
     from codetr_torch.utils.preprocess import preprocess
 
     ref = build_codetr(cfg, device=DEVICE, seed=SEED, msda_impl="reference")
@@ -2110,24 +2127,28 @@ def reference_phase(model, cfg, image, stamp):
 
     unmatched, worst = unmatched_detections(dets(got), dets(want))
     score_err = (got[1] - want[1]).abs().max().item()
+    # the export, of the same model with Swin's stages cut to CUT_DEPTHS
+    del ref
+    ref = build_codetr(replace(cfg, swin=replace(cfg.swin, depths=CUT_DEPTHS)), device=DEVICE, seed=SEED,
+                       msda_impl="reference")
     t0 = time.perf_counter()
     program, _ = compile_forward(ref, height=HEIGHT, width=WIDTH)
     export_s = time.perf_counter() - t0
     nodes = msda_nodes(program.exported)
     with torch.no_grad():
-        exported = program(x, mk)
-    unmatched_exp, worst_exp = unmatched_detections(dets(exported), dets(got))
+        exported, eager = program(x, mk), ref(x, mk)
+    unmatched_exp, worst_exp = unmatched_detections(dets(exported), dets(eager))
     print(f"Swin-L {HEIGHT}x{WIDTH} fp32 msda_impl='reference' (seed 0, the auto model's weights: {same_weights}): "
           f"MSDA launches {launched}; vs 'auto': scores max diff {score_err:.3e}, unmatched detections "
           f"{unmatched} of {len(want[1][0])} set-wise (scores {SCORE_TOL}, boxes {BOX_TOL} px; matched boxes within "
-          f"{worst:.3e} px); forward {ref_ms:.1f} ms (auto {auto_ms:.1f} ms, host clock); exported in "
-          f"{export_s:.1f} s with codetr:: nodes {nodes}, its detections vs the eager reference model: "
+          f"{worst:.3e} px); forward {ref_ms:.1f} ms (auto {auto_ms:.1f} ms, host clock); at depths {CUT_DEPTHS} "
+          f"exported in {export_s:.1f} s with codetr:: nodes {nodes}, its detections vs the eager model's: "
           f"unmatched {unmatched_exp}, boxes within {worst_exp:.3e} px [{stamp}]")
     if (not same_weights or any(launched.values()) or unmatched or unmatched_exp or nodes
             or not all(torch.isfinite(t).all() for t in got[:2])):
         fail(f"msda_impl='reference': weights equal {same_weights}, launches {launched}, unmatched {unmatched} "
              f"(exported {unmatched_exp}), codetr:: nodes {nodes}")
-    del ref, program, exported
+    del ref, program, exported, eager
     gc.collect()
     return {"launches": launched, "score_err": score_err, "unmatched": unmatched, "worst_px": worst,
             "codetr_nodes": nodes, "export_s": export_s, "ms": ref_ms, "auto_ms": auto_ms}
@@ -2399,7 +2420,7 @@ def fused_phase(tmp, images, stamp):
 
 
 AOTI_HW = (608, 608)  # __graft_entry__.entry()'s Swin-L shape and matrix [2]'s, here in fp32
-AOTI_ITERATIONS = 20  # per callable and mode: 5 blocks of 4
+AOTI_ITERATIONS = 10  # per callable and mode: 5 blocks of 2
 AOTI_CONTROL_EPS = (1e-7, 1e-6)  # the rounding controls' relative moves of the image
 # the share of the package's detections that may be off compare_models'
 # ladder against the program: rounding-level moves of the image put 0-14 of
@@ -2407,7 +2428,11 @@ AOTI_CONTROL_EPS = (1e-7, 1e-6)  # the rounding controls' relative moves of the 
 AOTI_OFF_SHARE = 0.1
 ROOT = os.path.dirname(os.path.abspath(__file__))
 AOTI_RUN = os.path.join(ROOT, "codetr_torch", "tools", "aoti_run.py")
-AOTI_NICE = 10  # the background package job's niceness: the phases beside it keep most of the host's cores
+AOTI_NICE = 19  # the background package jobs' niceness: the phases beside them keep most of the host's cores
+# ... and their cores, and Inductor's compile workers a job: the last half of
+# the host's cores, shared by the two jobs
+AOTI_CORES = 0.5
+AOTI_COMPILE_THREADS = 2
 AOTI_JOB_TIMEOUT = 1000  # seconds: a step of the background package job, and the wait for it
 
 
@@ -2418,15 +2443,41 @@ def image_detections(out) -> dict:
             for k, t in zip(("boxes", "scores", "labels"), out)}
 
 
+@contextlib.contextmanager
+def paused(jobs):
+    """The background jobs stopped for the length of the block: timings, and
+    the step that fills the card on purpose."""
+    for j in jobs:
+        j.pause()
+    try:
+        yield
+    finally:
+        for j in jobs:
+            j.resume()
+
+
+def job_cores() -> set:
+    """The background jobs' cores: the last AOTI_CORES of this process's."""
+    cores = sorted(os.sched_getaffinity(0))
+    return set(cores[len(cores) - max(1, int(len(cores) * AOTI_CORES)):])
+
+
+def job_env() -> dict:
+    return {**os.environ, "TORCHINDUCTOR_COMPILE_THREADS": str(AOTI_COMPILE_THREADS)}
+
+
 class AotiJob:
-    """8b's package made beside phases 3-8, in the background: ``python -m
-    codetr_torch.export_aot --package`` (the seed-0 Swin-L at AOTI_HW fp32,
-    full width: the ``.codetr.pt2`` program, the AOTInductor package, their
-    drift against the in-process model), then ``tools/aoti_run.py`` on that
-    package (``python -P``: its directory stays off the path; it imports
-    nothing of codetr_torch) with the op library ``ops``, on the image
-    preprocessed here; one after the other in a daemon thread, each a
-    subprocess in its own session at niceness AOTI_NICE.  The compile is
+    """A package made beside the other phases, in the background: ``python
+    -m codetr_torch.export_aot --package`` (the seed-0 Swin-L at ``hw`` in
+    ``dtype``, full width: the ``.codetr.pt2`` program, the AOTInductor
+    package, their drift against the in-process model), then
+    ``tools/aoti_run.py`` on that package (``python -P``: its directory
+    stays off the path; it imports nothing of codetr_torch) with the op
+    library ``ops``, on the image preprocessed here (``x`` is it in
+    ``dtype``, what the package takes); one after the other in a daemon
+    thread, each a subprocess in its own session at niceness AOTI_NICE.
+    Two run side by side: 8b's (AOTI_HW fp32) and the bf16 phase's
+    (AOTI_BF16_HW), that one started first.  The compile is
     minutes of host work (Inductor's lowering, Triton's compile workers, g++
     of the wrapper), so beside the other phases the script's wall drops by
     most of it.  Its autotuning runs kernels on the card, whose time slices
@@ -2435,18 +2486,21 @@ class AotiJob:
     go on, around the kernels' timings, the matrix and the step that fills
     the card on purpose; at exit a subprocess still running is killed."""
 
-    def __init__(self, tmp, image, ops):
-        h, w = AOTI_HW
-        self.dir = os.path.join(tmp, "aoti")
+    def __init__(self, tmp, image, ops, hw=AOTI_HW, dtype="float32", name="aoti", depths=None):
+        h, w = self.hw = hw
+        self.dtype, self.name = dtype, name
+        self.dir = os.path.join(tmp, name)
         self.exe = os.path.join(self.dir, "codetr.codetr.pt2")
         self.pkg = os.path.join(self.dir, "codetr.aoti.pt2")
-        self.x, self.m = (t[None] for t in preprocess(image, h, w, CONFIG().preprocess, device=DEVICE)[:2])
-        self.inputs, self.outputs = os.path.join(tmp, "aoti_in.npz"), os.path.join(tmp, "aoti_out.npz")
-        np.savez(self.inputs, arg0=self.x.cpu().numpy(), arg1=self.m.cpu().numpy())
+        x, self.m = (t[None] for t in preprocess(image, h, w, CONFIG().preprocess, device=DEVICE)[:2])
+        self.x = x.to(DTYPES[dtype])
+        self.inputs, self.outputs = os.path.join(tmp, f"{name}_in.npz"), os.path.join(tmp, f"{name}_out.npz")
+        # float32 in the file (aoti_run.py casts the image to the package's dtype, as .to() did here)
+        np.savez(self.inputs, arg0=x.cpu().numpy(), arg1=self.m.cpu().numpy())
         self.steps = (
             ("export_aot", [sys.executable, "-m", "codetr_torch.export_aot", "--config", "swin-l", "--dtype",
-                            "float32", "--height", str(h), "--width", str(w), "--package", "--skip-benchmark",
-                            "--output", self.dir]),
+                            dtype, "--height", str(h), "--width", str(w), "--package", "--skip-benchmark",
+                            "--output", self.dir, *(["--depths", *map(str, depths)] if depths else [])]),
             ("aoti_run", [sys.executable, "-P", AOTI_RUN, "--package", self.pkg, "--ops-lib", str(ops.path),
                           "--inputs", self.inputs, "--outputs", self.outputs]),
         )
@@ -2468,8 +2522,11 @@ class AotiJob:
                         if self.go.is_set():
                             t0 = time.perf_counter()
                             self.proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
-                                                         stderr=subprocess.PIPE, text=True, start_new_session=True)
+                                                         stderr=subprocess.PIPE, text=True, start_new_session=True,
+                                                         env=job_env())
                             os.setpriority(os.PRIO_PROCESS, self.proc.pid, AOTI_NICE)
+                            with contextlib.suppress(OSError):  # the children inherit it
+                                os.sched_setaffinity(self.proc.pid, job_cores())
                             break
                 out, err = self.proc.communicate(timeout=AOTI_JOB_TIMEOUT)
                 self.done[name] = {"rc": self.proc.returncode, "stdout": out, "stderr": err,
@@ -2509,14 +2566,15 @@ class AotiJob:
         waited = time.perf_counter() - t0
         if self.thread.is_alive():
             self.kill()
-            fail(f"the background package job did not end within {AOTI_JOB_TIMEOUT} s of the wait")
+            fail(f"the background package job {self.name} did not end within {AOTI_JOB_TIMEOUT} s of the wait")
         if self.error is not None:
             raise self.error
         for name, _ in self.steps:
             r = self.done.get(name)
             if r is None or r["rc"] != 0:
                 r = r or {"rc": None, "stdout": "", "stderr": ""}
-                fail(f"{name} (background) exited {r['rc']}:\n{r['stdout'][-3000:]}\n{r['stderr'][-6000:]}")
+                fail(f"{name} (background, {self.name}) exited {r['rc']}:\n{r['stdout'][-3000:]}\n"
+                     f"{r['stderr'][-6000:]}")
         record = json.loads(self.done["aoti_run"]["stdout"].strip().splitlines()[-1])
         record["wall_s"] = self.done["aoti_run"]["wall_s"]
         with np.load(self.outputs) as npz:
@@ -2524,10 +2582,32 @@ class AotiJob:
         return self.done["export_aot"], outputs, record, waited
 
 
+def subprocess_check(record, sub, got, label, stamp):
+    """``tools/aoti_run.py``'s run of a package (its record and outputs
+    ``sub``) against the in-process package's outputs ``got``: the
+    subprocess must have imported nothing of codetr_torch and run both ops'
+    CUDA kernels from ``csrc/msda_ops.cpp`` -> (bit for bit equal, max
+    |difference| per output)."""
+    cuda_kernels = {op: [line for line in text.splitlines() if line.startswith("CUDA:")]
+                    for op, text in record["registrations"].items()}
+    from_cpp = all(len(v) == 1 and "msda_ops.cpp" in v[0] for v in cuda_kernels.values())
+    want = [(g.float() if g.dtype == torch.bfloat16 else g).cpu().numpy() for g in got]
+    diffs = [float(np.abs(a.astype(np.float64) - g.astype(np.float64)).max()) for a, g in zip(sub, want)]
+    equal = len(sub) == len(want) and all(np.array_equal(a, g) for a, g in zip(sub, want))
+    print(f"{label} subprocess (tools/aoti_run.py, codetr_torch modules imported {record['codetr_torch_modules']}, "
+          f"package dtype {record.get('dtype')}): the ops' CUDA kernels {cuda_kernels}; load {record['load_s']:.1f} "
+          f"s, one forward {record['run_s'] * 1e3:.1f} ms, {record['wall_s']:.1f} s wall; outputs equal to the "
+          f"in-process package's bit for bit: {equal} (max |difference| boxes, scores, labels {diffs}) [{stamp}]")
+    if record["codetr_torch_modules"] or not from_cpp:
+        fail(f"{label}: the subprocess imported codetr_torch or ran ops not registered by csrc/msda_ops.cpp")
+    return equal, diffs
+
+
 def aoti_phase(job, stamp):
     """The exported forward as an AOTInductor package (``runtime/aot.py:
-    save_package``): the seed-0 Swin-L at 608x608 fp32, full width (2/2/18/2
-    blocks, 6 + 6 layers, 900 queries, 80 classes), exported and compiled by
+    save_package``): the seed-0 Swin-L at 608x608 fp32, full width (its
+    stages cut to CUT_DEPTHS blocks, 6 + 6 layers, 900 queries, 80
+    classes), exported and compiled by
     ``export_aot --package`` in ``job`` (``AotiJob``, beside the earlier
     phases; compile seconds, MB); loaded in this process, where the
     package's two MSDA ops are the Python registrations (12 K1 launches a
@@ -2597,7 +2677,7 @@ def aoti_phase(job, stamp):
         ladder[name] = {"unmatched_on_the_ladder": strict, "worst_px": worst, "unmatched_model_tol": model_tol,
                         "scores": (out[1] - want[1]).abs().max().item(),
                         "scores_median": (out[1] - want[1]).abs().median().item()}
-    print(f"aoti swin-l {h}x{w} fp32: export_aot in the background {made['wall_s']:.1f} s wall (its "
+    print(f"aoti swin-l (depths {CUT_DEPTHS}) {h}x{w} fp32: export_aot in the background {made['wall_s']:.1f} s wall (its "
           f"AOTInductor compile {t_compile:.1f} s, {os.path.getsize(pkg) / 1e6:.1f} MB; stopped {job.paused_s:.1f} s "
           f"of it; this process waited {waited:.1f} s for it and aoti_run), load {t_load:.1f} s; in-process forward: kernel launches "
           f"(forward, q-minor, backward) {launches} [{stamp}]")
@@ -2622,17 +2702,7 @@ def aoti_phase(job, stamp):
                   f"over {r['iterations']} iterations in 5 blocks, host end to end {r['host_e2e_ms']:.3f} ms "
                   f"({r['mode']}) [{stamp}]")
 
-    cuda_kernels = {op: [line for line in text.splitlines() if line.startswith("CUDA:")]
-                    for op, text in record["registrations"].items()}
-    from_cpp = all(len(v) == 1 and "msda_ops.cpp" in v[0] for v in cuda_kernels.values())
-    diffs = [float(np.abs(a.astype(np.float64) - g.cpu().double().numpy()).max()) for a, g in zip(sub, got)]
-    equal = all(np.array_equal(a, g.cpu().numpy()) for a, g in zip(sub, got))
-    print(f"aoti subprocess (tools/aoti_run.py, codetr_torch modules imported {record['codetr_torch_modules']}): "
-          f"the ops' CUDA kernels {cuda_kernels}; load {record['load_s']:.1f} s, one forward "
-          f"{record['run_s'] * 1e3:.1f} ms, {record['wall_s']:.1f} s wall; outputs equal to the in-process "
-          f"package's bit for bit: {equal} (max |difference| boxes, scores, labels {diffs}) [{stamp}]")
-    if record["codetr_torch_modules"] or not from_cpp:
-        fail("the subprocess imported codetr_torch or ran ops not registered by csrc/msda_ops.cpp")
+    equal, diffs = subprocess_check(record, sub, got, "aoti", stamp)
     sub_unmatched = 0
     if not equal:
         sub_unmatched, worst_sub = unmatched_detections(image_detections(sub), image_detections(got))
@@ -2666,10 +2736,13 @@ def runner_out(cmd, what):
     return proc.stdout, wall
 
 
-def runner_phase(tmp, image, aoti, ops, runner, stamp):
+def runner_phase(tmp, image, aoti, ops, runner, stamp, hw=AOTI_HW, smoke=True):
     """The native runner (``codetr_torch/csrc/codetr_aoti_runner.cpp``, a C++
-    program on libtorch, built by ``_build.build_runner("cuda")``) on
-    ``aoti_phase``'s Swin-L 608x608 fp32 package and op library: ``--smoke``
+    program on libtorch, built by ``_build.build_runner("cuda")``) on a
+    package and the op library (``aoti_phase``'s Swin-L 608x608 fp32, then
+    ``aoti_bf16_phase``'s 1280x1920 bf16, whose image the runner casts to
+    bf16 as the meta says and whose outputs it reads back as float32): with
+    ``smoke``, ``--smoke``
     must find both ``codetr::`` ops served by ``msda_ops.cpp``'s CUDA
     kernels; then the image as a raw RGB dump, preprocessed by the host
     library, one warm-up run dumped and RUNNER_ITERATIONS timed runs, each
@@ -2678,15 +2751,19 @@ def runner_phase(tmp, image, aoti, ops, runner, stamp):
     outputs on ``preprocess_native`` of the same image bit for bit, its K1
     launches (counted by the op library) 6 + 6 a forward, and its NMS count
     ``batched_nms_native``'s on the in-process outputs."""
-    h, w = AOTI_HW
-    smoke, smoke_s = runner_out([runner.path, "--smoke", "--device", "cuda", "--ops-lib", ops.path], "--smoke")
-    served = {op: next((line for line in smoke.splitlines() if line.startswith(op + ":")), "")
-              for op in ("codetr::msda_packed", "codetr::msda_reference")}
-    print(f"runner --smoke --device cuda ({smoke_s:.1f} s): {served} [{stamp}]")
-    if not all("CUDA kernel yes" in line and "msda_ops.cpp" in line for line in served.values()):
-        fail(f"the runner's --smoke does not find both ops' CUDA kernels in msda_ops.cpp: {served}")
+    h, w = hw
+    dtype = aoti["package"].dtype
+    label = f"swin-l {h}x{w} {dtype_name(dtype)}"
+    smoke_s = None
+    if smoke:
+        smoke, smoke_s = runner_out([runner.path, "--smoke", "--device", "cuda", "--ops-lib", ops.path], "--smoke")
+        served = {op: next((line for line in smoke.splitlines() if line.startswith(op + ":")), "")
+                  for op in ("codetr::msda_packed", "codetr::msda_reference")}
+        print(f"runner --smoke --device cuda ({smoke_s:.1f} s): {served} [{stamp}]")
+        if not all("CUDA kernel yes" in line and "msda_ops.cpp" in line for line in served.values()):
+            fail(f"the runner's --smoke does not find both ops' CUDA kernels in msda_ops.cpp: {served}")
 
-    raw, prefix = os.path.join(tmp, "runner_image.rgb"), os.path.join(tmp, "runner_out")
+    raw, prefix = os.path.join(tmp, f"runner_image_{h}x{w}.rgb"), os.path.join(tmp, f"runner_out_{h}x{w}")
     np.ascontiguousarray(image).tofile(raw)
     out, wall = runner_out([runner.path, "--model", aoti["path"], "--ops-lib", ops.path, "--device", "cuda",
                             "--image", raw, "--image-height", image.shape[0], "--image-width", image.shape[1],
@@ -2708,7 +2785,7 @@ def runner_phase(tmp, image, aoti, ops, runner, stamp):
 
     pre = PreprocessConfig()
     x, m, _, _ = preprocess_native(image, h, w, pre.mean, pre.std)
-    got = aoti["package"](torch.from_numpy(x[None]).to(DEVICE), torch.from_numpy(m[None]).to(DEVICE))
+    got = aoti["package"](torch.from_numpy(x[None]).to(DEVICE, dtype), torch.from_numpy(m[None]).to(DEVICE))
     want = [t.float().cpu().numpy() for t in got]
     dumped = [np.fromfile(f"{prefix}.{k}.bin", np.float32) for k in ("boxes", "scores", "labels")]
     equal = all(np.array_equal(d, t.ravel()) for d, t in zip(dumped, want))
@@ -2716,7 +2793,7 @@ def runner_phase(tmp, image, aoti, ops, runner, stamp):
     nms = int(batched_nms_native(want[0][0], want[1][0], want[2][0].astype(np.int32), RUNNER_IOU,
                                  RUNNER_SCORE).sum())
     eager = aoti["times"]["package eager"]["p50_ms"]
-    print(f"runner swin-l {h}x{w} fp32 (build {runner.build_seconds:.1f} s): load {load_s:.1f} s, "
+    print(f"runner {label} (build {runner.build_seconds:.1f} s): load {load_s:.1f} s, "
           f"{wall:.1f} s wall; latency {mean_ms:.3f} ms/iter over {RUNNER_ITERATIONS} (p50 {p50_ms:.3f}, min "
           f"{min_ms:.3f}, max {max_ms:.3f}) against the in-process package's eager p50 {eager:.3f} ms "
           f"({p50_ms / eager:.3f}x); K1 launches {launches} over {forwards} forwards; outputs equal to the "
@@ -2724,15 +2801,173 @@ def runner_phase(tmp, image, aoti, ops, runner, stamp):
           f"detections after NMS {printed_nms}, batched_nms_native on the in-process outputs {nms} [{stamp}]")
     per_forward = {op: n / forwards for op, n in launches.items()}
     if per_forward != {"codetr::msda_packed": 6, "codetr::msda_reference": 6}:
-        fail(f"the runner's forwards launched {launches} over {forwards}, not 6 + 6 a forward")
+        fail(f"{label}: the runner's forwards launched {launches} over {forwards}, not 6 + 6 a forward")
     if not equal:
-        fail("the runner's outputs differ from the in-process package's (the same package, kernels and inputs)")
+        fail(f"{label}: the runner's outputs differ from the in-process package's (the same package, kernels "
+             "and inputs)")
     if printed_nms != nms:
-        fail(f"the runner kept {printed_nms} detections after NMS, batched_nms_native {nms}")
+        fail(f"{label}: the runner kept {printed_nms} detections after NMS, batched_nms_native {nms}")
     return {"build_s": runner.build_seconds, "load_s": load_s, "wall_s": wall, "smoke_s": smoke_s,
             "ms_per_iter": mean_ms, "p50_ms": p50_ms, "min_ms": min_ms, "max_ms": max_ms,
             "eager_p50_ms": eager, "launches": launches, "forwards": forwards, "equal": equal,
             "nms": printed_nms}
+
+
+AOTI_BF16_HW = (1280, 1920)  # matrix [3]'s shape and dtype (codetr_torch/bench.py:MATRIX), the benchmark's headline
+AOTI_BF16_IMAGES = 8  # the gate's images: the phase's image and seeded others (AOTI_BF16_SEED + i)
+AOTI_BF16_SEED = SEED + 100
+AOTI_BF16_IOU = 0.5  # box_recall's overlap
+# the gate on the mean box_recall against the program, between its controls
+# as measured on an H100 80GB HBM3 at 700 W (PERF.md §6): the image one bf16
+# step off 0.9096, the next image 0.8588; three packages 0.9062-0.9150
+AOTI_BF16_MIN_RECALL = 0.88
+
+
+def bf16_step(x, seed):
+    """``x`` (bf16) with every nonzero entry moved one bf16 step up or down,
+    a seeded coin each: the image's smallest change in its own dtype."""
+    g = torch.Generator().manual_seed(seed)
+    step = (torch.randint(0, 2, tuple(x.shape), generator=g, dtype=torch.int16) * 2 - 1).to(x.device)
+    moved = (x.contiguous().view(torch.int16) + step).view(torch.bfloat16)
+    return torch.where(x == 0, x, moved)
+
+
+def box_iou(a, b) -> np.ndarray:
+    """(n, 4) x (m, 4) xyxy -> (n, m) IoU."""
+    lt, rb = np.maximum(a[:, None, :2], b[None, :, :2]), np.minimum(a[:, None, 2:], b[None, :, 2:])
+    inter = np.clip(rb - lt, 0, None).prod(-1)
+    area = lambda z: (z[:, 2] - z[:, 0]) * (z[:, 3] - z[:, 1])  # noqa: E731
+    return inter / (area(a)[:, None] + area(b)[None, :] - inter + 1e-9)
+
+
+def detections_vs(out, want, num_classes) -> dict:
+    """One image's detections ``out`` against ``want``'s, set-wise:
+    ``box_recall``, the share of ``want``'s boxes that a box of ``out``
+    overlaps by AOTI_BF16_IOU (labels aside: the seed-0 model's labels move
+    under any rounding change, its boxes less); how many are off the ladder
+    (scores 2e-4, boxes 0.1 px) and off compare_models' (1e-3, 0.5 px); and
+    the COCO protocol's AP with ``want``'s top ``rehearsal.GT_PER_IMAGE``
+    detections as the ground truth (the rehearsal's ``ap_vs_writer``,
+    ``want`` the writer)."""
+    from codetr_torch.utils.coco_eval import evaluate_detections
+
+    o, w = image_detections(out), image_detections(want)
+    strict, _ = unmatched_detections(o, w)
+    model_tol = unmatched_detections(o, w, MODEL_SCORE_TOL, MODEL_BOX_TOL)[0]
+    gts = rehearsal.ground_truth([(w["boxes"], w["scores"], w["labels"], None)])
+    ap = evaluate_detections([o], gts, num_classes)
+    recall = float((box_iou(w["boxes"], o["boxes"]).max(1) >= AOTI_BF16_IOU).mean())
+    return {"box_recall": recall, "off_ladder": strict, "off_model_tol": model_tol, "mAP": ap["mAP"],
+            "mAP_50": ap["mAP_50"], "AR_100": ap["AR_100"]}
+
+
+def aoti_bf16_phase(job, ops, runner, tmp, image, stamp):
+    """The deployed artifact at the benchmark's headline, matrix [3]: the
+    seed-0 Swin-L at 1280x1920 in bf16, full width (2/2/18/2 blocks, 6 + 6
+    layers, 900 queries, 80 classes), batch 1, exported and compiled by
+    ``export_aot --package --dtype bfloat16`` in ``job`` (beside the other
+    phases; export, compile and load seconds, MB); loaded in this process
+    (12 K1 launches a forward through the ops' Python registrations) and
+    held against the reloaded bf16 ``.codetr.pt2`` program it was compiled
+    from.  The seed-0 model is chaotic in bf16 (any rounding change moves
+    all 300 detections off the ladder, and ``ap_vs_writer``'s mAP does not
+    tell another image from a rounding change on one), so the gate is
+    ``detections_vs``' ``box_recall`` against the program, averaged over
+    AOTI_BF16_IMAGES seeded images, with controls in this call: the package
+    on each image must reach AOTI_BF16_MIN_RECALL, as the program on the
+    image moved by one bf16 step (the positive control, ``bf16_step``)
+    does, and the program on the next image (the negative control) must
+    not.  Both timed as CUDA-graph replays and eager calls (p50 / p95 /
+    min).  Then ``tools/aoti_run.py``'s run in ``job`` (the ops
+    from C++) and the native runner on the package: each bit for bit
+    against the in-process package, the runner's K1 launches 6 + 6 a
+    forward (counted by the op library) and its NMS count
+    ``batched_nms_native``'s.  Nothing falls back to fp32: the package's
+    meta, its image input and its outputs' computation are bf16."""
+    h, w = AOTI_BF16_HW
+    cfg = CONFIG()
+    made, sub, record, waited = job.wait()
+    for line in made["stdout"].strip().splitlines():
+        print(f"aoti bf16 export_aot: {line}")
+    found = re.search(r"compiled in ([0-9.]+) s", made["stdout"])
+    if found is None:
+        fail(f"export_aot --package --dtype bfloat16 printed no compile time:\n{made['stdout'][-3000:]}")
+    t_compile = float(found.group(1))
+    with open(job.pkg + ".meta.json") as f:
+        meta = json.load(f)
+    if meta["dtype"] != "bfloat16" or meta["in_avals"][0] != [[1, h, w, 3], "bfloat16"]:
+        fail(f"the bf16 package's meta is not bf16 at {h}x{w}: {meta}")
+    program = load_executable(job.exe, device=DEVICE)
+    t0 = time.perf_counter()
+    package = load_package(job.pkg, device=DEVICE)
+    t_load = time.perf_counter() - t0
+    x, m = job.x, job.m
+    msda.launches = msda.launches_qm = msda.launches_bwd = 0
+    got = package(x, m)
+    torch.cuda.synchronize()
+    launches = (msda.launches, msda.launches_qm, msda.launches_bwd)
+    want = program(x, m)
+    for t in (*got, *want):
+        if t.is_floating_point() and not torch.isfinite(t).all():
+            fail("the bf16 package or program gave non-finite outputs")
+    # the gate, over AOTI_BF16_IMAGES images i: the package on image i, the
+    # program on image i one bf16 step off (positive control) and the
+    # program on image i + 1 (negative control), each against the program on
+    # image i; their means must be at least (package, positive) and under
+    # (negative) AOTI_BF16_MIN_RECALL
+    rng_images = [image] + [np.random.default_rng(AOTI_BF16_SEED + i).integers(0, 256, image.shape, np.uint8)
+                            for i in range(AOTI_BF16_IMAGES - 1)]
+    xs = [x] + [preprocess(im, h, w, cfg.preprocess, device=DEVICE)[0][None].to(torch.bfloat16)
+                for im in rng_images[1:]]
+    wants = [want] + [program(xi, m) for xi in xs[1:]]
+    kinds = {"package": lambda i: got if i == 0 else package(xs[i], m),
+             "positive control (the image one bf16 step off)": lambda i: program(bf16_step(xs[i], SEED), m),
+             "negative control (the next image)": lambda i: wants[(i + 1) % len(xs)]}
+    n = len(want[1][0])
+    vs = {name: [detections_vs(run(i), wants[i], cfg.head.num_classes) for i in range(len(xs))]
+          for name, run in kinds.items()}
+    mean = {name: {k: float(np.mean([r[k] for r in rs])) for k in rs[0]} for name, rs in vs.items()}
+    print(f"aoti bf16 swin-l {h}x{w}: export_aot in the background {made['wall_s']:.1f} s wall (its AOTInductor "
+          f"compile {t_compile:.1f} s, {os.path.getsize(job.pkg) / 1e6:.1f} MB; stopped {job.paused_s:.1f} s of "
+          f"it; this process waited {waited:.1f} s for it and aoti_run), load {t_load:.1f} s; in-process forward: "
+          f"kernel launches (forward, q-minor, backward) {launches} [{stamp}]")
+    for name, rs in vs.items():
+        r = mean[name]
+        print(f"aoti bf16 {name} against the reloaded bf16 .codetr.pt2 program, over {len(xs)} images: box_recall "
+              f"{[round(v['box_recall'], 4) for v in rs]} (mean {r['box_recall']:.4f}, gate "
+              f"{AOTI_BF16_MIN_RECALL}); mAP {r['mAP']:.4f}, mAP_50 {r['mAP_50']:.4f}, AR_100 {r['AR_100']:.4f} "
+              f"(the program's top {rehearsal.GT_PER_IMAGE} the ground truth); off the ladder {r['off_ladder']:.1f} "
+              f"of {n}, off compare_models' {r['off_model_tol']:.1f} [{stamp}]")
+    if launches != (launches_per_forward(cfg), 0, 0):
+        fail(f"the bf16 package's forward launched {launches}, not ({launches_per_forward(cfg)}, 0, 0)")
+    gate = {name: r["box_recall"] >= AOTI_BF16_MIN_RECALL for name, r in mean.items()}
+    if not gate["package"]:
+        fail(f"the bf16 package's mean box_recall against the program, {mean['package']['box_recall']:.4f}, is "
+             f"under {AOTI_BF16_MIN_RECALL}")
+    if not gate["positive control (the image one bf16 step off)"]:
+        fail("the bf16 gate rejects the program on its own images one bf16 step off")
+    if gate["negative control (the next image)"]:
+        fail("the bf16 gate does not reject the program on other images")
+
+    times = {}
+    for name, f in (("package", package), ("program", program)):
+        for mode, graph in (("replay", True), ("eager", False)):
+            r = times[f"{name} {mode}"] = benchmark(f, (x, m), iterations=AOTI_ITERATIONS, graph=graph)
+            print(f"aoti bf16 {name} {mode}: p50 {r['p50_ms']:.3f} ms (p95 {r['p95_ms']:.3f}, min {r['min_ms']:.3f}) "
+                  f"over {r['iterations']} iterations in 5 blocks, host end to end {r['host_e2e_ms']:.3f} ms "
+                  f"({r['mode']}) [{stamp}]")
+    equal, diffs = subprocess_check(record, sub, got, "aoti bf16", stamp)
+    if not equal:
+        fail("aoti_run.py's outputs of the bf16 package differ from the in-process package's")
+    del program, want, wants, xs
+    torch.cuda.empty_cache()
+    aoti = {"export_aot_s": made["wall_s"], "waited_s": waited, "compile_s": t_compile,
+            "mb": os.path.getsize(job.pkg) / 1e6, "load_s": t_load, "launches": launches[0], "vs_program": mean,
+            "times": times, "subprocess": {"equal": equal, "diffs": diffs, "record": record},
+            "path": job.pkg, "package": package}
+    aoti["runner"] = runner_phase(tmp, image, aoti, ops, runner, stamp, hw=AOTI_BF16_HW, smoke=False)
+    del aoti["package"], package, got
+    return aoti
 
 
 def trace_pieces(events, kernels) -> dict:
@@ -2825,7 +3060,7 @@ EVAL_SIZES = ((480, 640), (427, 640), (640, 480), (375, 500), (612, 612), (333, 
               (500, 375), (360, 480), (640, 640))
 EVAL_BATCH = 4  # the JAX eval_coco.py's default
 THROUGHPUT_IMAGES = 100  # pass 3: 25 full batches of EVAL_BATCH
-THROUGHPUT_RUNS = 2  # pass 3's readings in one call
+THROUGHPUT_RUNS = 1  # pass 3's readings in one call
 COCO_GTS_PER_IMAGE = 36781 / 5000  # COCO val2017: instances over images
 # COCO 2017's 80 category ids, of 1..90: the annotations' ids, densified to the model's labels
 COCO_CATEGORY_IDS = [i for i in range(1, 91) if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83)]
@@ -3659,7 +3894,10 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     images = [rng.integers(0, 256, s, np.uint8) for s in ((480, 640, 3), (1280, 720, 3), (900, 1600, 3))]
     aoti_tmp = tempfile.TemporaryDirectory()
-    job = AotiJob(aoti_tmp.name, images[-1], ops)
+    # the bf16 phase's package first (the longer compile, wanted last), then 8b's
+    bf16_job = AotiJob(aoti_tmp.name, images[-1], ops, hw=AOTI_BF16_HW, dtype="bfloat16", name="aoti_bf16")
+    job = AotiJob(aoti_tmp.name, images[-1], ops, depths=CUT_DEPTHS)
+    jobs = (bf16_job, job)
 
     phase_s["build"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
     # 3. kernel vs plain at the main paths' shapes: the forward at every
@@ -3791,9 +4029,8 @@ def main() -> int:
     train_cp = run_training(cfg_cp, 1)
     # the same steps captured in one CUDA graph, beside eager twins
     captured = {"fp32": captured_training(cfg, 1, stamp), "fp32 with_cp": captured_training(cfg_cp, 1, stamp)}
-    job.pause()  # this step fills the card until it runs out
-    no_cp_peak = fwd_bwd_peak(cfg, CP_BATCH)
-    job.resume()
+    with paused(jobs):  # this step fills the card until it runs out
+        no_cp_peak = fwd_bwd_peak(cfg, CP_BATCH)
     train_cp_big = run_training(cfg_cp, CP_BATCH, timed=2)
 
     phase_s["training"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
@@ -3819,8 +4056,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_s["sync-free loss, bf16 step, trainbench"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
-    # 7. timings, with the background job stopped
-    job.pause()
+    # 7. timings, with the background jobs stopped
+    for j in jobs:
+        j.pause()
     per_call, per_call_bwd = {}, {}
     for name, v_dtype in (("encoder", torch.float32), ("encoder_bf16", torch.bfloat16),
                           ("decoder", torch.float32), ("decoder_bf16", torch.bfloat16)):
@@ -3961,7 +4199,8 @@ def main() -> int:
               f"GiB allocated over the warm-up and capture (the eager steps' peak "
               f"{eager['peak_bytes'] / 2**30:.3f}) [{stamp}]")
 
-    job.resume()
+    for j in jobs:
+        j.resume()
     phase_s["timings"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
     # 8. the deployment path: BASELINE configs[0] and [3] exported, saved and
     # reloaded; the five-configuration matrix timed as CUDA-graph replays
@@ -3973,9 +4212,8 @@ def main() -> int:
         t0 = time.perf_counter()
         exported = export_phase(tmp, images[-1], stamp)
         wall["export"], t0 = time.perf_counter() - t0, time.perf_counter()
-        job.pause()
-        matrix = matrix_phase(exported, MATRIX_ITERATIONS, stamp)
-        job.resume()
+        with paused(jobs):
+            matrix = matrix_phase(exported, MATRIX_ITERATIONS, stamp)
         wall["matrix"], t0 = time.perf_counter() - t0, time.perf_counter()
         reloaded = {f"configs{i}": {k: v for k, v in r.items() if k != "program"} for i, r in exported.items()}
         del exported
@@ -3989,21 +4227,8 @@ def main() -> int:
         wall["eval_coco"] = time.perf_counter() - t0
     print("deployment phases, wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
     phase_s["deployment"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
-    # 8b. the exported forward as an AOTInductor package (made by the
-    # background job), its MSDA ops run from C++ in a subprocess with no
-    # Python kernel code
-    gc.collect()
-    torch.cuda.empty_cache()
-    with aoti_tmp as tmp:
-        aoti = aoti_phase(job, stamp)
-        phase_s["aoti"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
-        # 8c. the native runner on that package, with no Python in its process
-        native_run = runner_phase(tmp, images[-1], aoti, ops, runner, stamp)
-        del aoti
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_s["runner"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
-    # 9. checkpoint day: the rehearsal
+    # 9. checkpoint day: the rehearsal (8b and 8c run after 11: their
+    # package's compile in the background has until then)
     with tempfile.TemporaryDirectory() as tmp:
         rehearsed = rehearsal_phase(tmp, enc_stage, stamp)
     phase_s["rehearsal"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
@@ -4028,7 +4253,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         sharded = dryrun_phase(tmp, stamp)
-    phase_s["sharded"] = time.perf_counter() - t_phase
+    phase_s["sharded"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
+    # 8b. the exported forward as an AOTInductor package (made by the
+    # background job), its MSDA ops run from C++ in a subprocess with no
+    # Python kernel code
+    gc.collect()
+    torch.cuda.empty_cache()
+    aoti = aoti_phase(job, stamp)
+    phase_s["aoti"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
+    # 8c. the native runner on that package, with no Python in its process
+    native_run = runner_phase(aoti_tmp.name, images[-1], aoti, ops, runner, stamp)
+    del aoti
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s["runner"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
+    # 12. the deployed artifact at matrix [3], Swin-L 1280x1920 bf16: the
+    # package made by the background job since the build, in process, from
+    # C++ (aoti_run.py) and in the native runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    aoti_bf16 = aoti_bf16_phase(bf16_job, ops, runner, aoti_tmp.name, images[-1], stamp)
+    aoti_tmp.cleanup()
+    phase_s["aoti bf16"] = time.perf_counter() - t_phase
     print("phases, wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     tc = cfg.head.transformer
@@ -4051,7 +4297,7 @@ def main() -> int:
         "library_ms": None,
         "per_call": per_call,
         "max_abs_err_bf16": max(e["max_abs_err_bf16"] for pair in fwd_errs.values() for e in pair),
-        "encoder_design": "shared-memory query tiles (msda_packed_fwd); decoder: direct gather",
+        "encoder_design": "shared-memory query tiles (msda_packed_fwd_levels); decoder: direct gather",
         # the exported, reloaded programs (each forward, launches at capture for
         # the graph replays), the matrix's per call, the fused Inferencer's
         "launches_reloaded_per_forward": {k: r["launches"] for k, r in reloaded.items()},
@@ -4067,6 +4313,11 @@ def main() -> int:
         # fp32 package, counted by csrc/msda_ops.cpp's registrations
         "launches_native_runner": native_run["launches"],
         "native_runner_forwards": native_run["forwards"],
+        # the Swin-L 1280x1920 bf16 package (matrix [3]): one in-process
+        # forward, and the native runner's forwards counted by the op library
+        "launches_aoti_bf16_forward": aoti_bf16["launches"],
+        "launches_native_runner_bf16": aoti_bf16["runner"]["launches"],
+        "native_runner_bf16_forwards": aoti_bf16["runner"]["forwards"],
         # the checkpoint rehearsal's bf16 reader (the counts set to 0 before
         # its forwards), its fp32 reader, and K1 on the first encoder layer's
         # taps of seed 0's, the file's and the scale-2.0 model

@@ -293,7 +293,8 @@ at::ScalarType scalar_type(const std::string& name) {
 }
 
 // Reads <model>.meta.json as tools/aoti_run.py does and checks it against
-// the run: the magic, the device, and two inputs (1, H, W, 3) and (1, H, W).
+// the run: the magic, the device, and two inputs (1, H, W, 3) in the
+// meta's dtype (float32 or bfloat16) and a (1, H, W) float32 mask.
 Meta read_meta(const Args& a) {
   const std::string path = a.model + ".meta.json";
   const Json meta = JsonReader(read_file(path)).read();
@@ -303,7 +304,8 @@ Meta read_meta(const Args& a) {
   const std::string device = meta.at("device").str;
   if (device != a.device) fatal(1, a.model + " was compiled for " + device + ", not " + a.device);
   Meta m;
-  m.fp32 = scalar_type(meta.at("dtype").str) == at::kFloat;
+  const at::ScalarType compute = scalar_type(meta.at("dtype").str);
+  m.fp32 = compute == at::kFloat;
   const Json& avals = meta.at("in_avals");
   auto dims = [&](size_t i, size_t rank) {
     if (avals.items.size() != 2 || avals.items[i].items.size() != 2 ||
@@ -317,6 +319,12 @@ Meta read_meta(const Args& a) {
   if (x[0] != 1 || x[3] != 3 || mask != std::vector<int64_t>{1, x[1], x[2]})
     fatal(1, path + ": the runner takes one image, (1, H, W, 3) and a (1, H, W) mask");
   m.input_dtype = scalar_type(avals.items[0].items[1].str);
+  // the image goes in as in_avals says and the precision follows dtype:
+  // a package whose two disagree would run in a precision its meta does
+  // not say (runtime/aot.py:package_dtype refuses to write one)
+  if (m.input_dtype != compute)
+    fatal(1, path + ": dtype " + meta.at("dtype").str + " but the image input is " +
+                 avals.items[0].items[1].str);
   if (scalar_type(avals.items[1].items[1].str) != at::kFloat) fatal(1, path + ": the mask must be float32");
   m.height = static_cast<int>(x[1]);
   m.width = static_cast<int>(x[2]);
@@ -368,6 +376,8 @@ void synchronize(const c10::Device& device) {
   if (device.is_cuda()) at::detail::getCUDAHooks().deviceSynchronize(device.index());
 }
 
+// an output on the host as float32 (a bf16 package's too) for the dump and
+// the host NMS
 std::vector<float> to_host_f32(const at::Tensor& t) {
   const at::Tensor h = t.to(at::kCPU).to(at::kFloat).contiguous();
   return std::vector<float>(h.data_ptr<float>(), h.data_ptr<float>() + h.numel());

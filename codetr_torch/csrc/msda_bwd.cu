@@ -664,7 +664,7 @@ static int launch_tile_bwd_slices(dim3 grid, int smem_bytes, cudaStream_t stream
 
 // dtype: 0 = float32 value/grad_out, 1 = bfloat16 value/grad_out.
 // Coordinates, weights and every gradient are fp32.  The tile plan as
-// msda_packed_fwd takes it (off_b: the window pixels' counts; off_acc: the
+// msda_packed_fwd_levels takes it (off_b: the window pixels' counts; off_acc: the
 // entry list).
 extern "C" int msda_packed_bwd(const void* value, const void* cpk,
                                const void* grad_out, void* grad_value,

@@ -15,7 +15,7 @@
 //
 // Two designs, one per kind of query:
 //
-// The grid queries (msda_packed_fwd, K1's contract; msda_qm_fwd, K3's):
+// The grid queries (msda_packed_fwd_levels, K1's contract; msda_qm_fwd, K3's):
 // tiles in shared memory.  The queries are the level-concatenated pixel
 // grid, so a tile of same-level queries samples a bounded window of each
 // target level (msda_tiles.cuh holds the kernel, msda_tile_fwd_kernel; the
@@ -73,11 +73,11 @@
 // weight, and only the output elements a corrected tap added to are read
 // and written.
 //
-// Five C entry points:
-//   msda_packed_fwd: the encoder's packed (bs, K, C) [x(HLP) | y(HLP) |
-//                    w(HLP) | pad] tensor, HLP = heads*levels*points in
-//                    (h, L, P) order (K1's contract), plus the tile plan.
-//   msda_packed_fwd_levels: msda_packed_fwd on a range of query levels
+// Four C entry points:
+//   msda_packed_fwd_levels: the encoder's packed (bs, K, C) [x(HLP) |
+//                    y(HLP) | w(HLP) | pad] tensor, HLP = heads*levels*points
+//                    in (h, L, P) order (K1's contract), plus the tile plan
+//                    and a range of query levels: (0, L) for the whole call
 //                    (the JAX package's K1 takes one query level a call).
 //   msda_qm_fwd:     q-minor x, y and w, each (bs, h, L, P, K) (K3's
 //                    contract), plus the same tile plan.
@@ -247,8 +247,8 @@ static int launch(int dtype, const void* value, Stream xs, Stream ys, Stream ws,
 // tile_w) and region offsets (off_b, off_acc, bytes), per pair lq * L + lt
 // its window (win_h, win_w) and whether it is staged; halo; smem_bytes of
 // dynamic shared memory per block.
-// msda_packed_fwd_levels: msda_packed_fwd on the query levels [lq_begin,
-// lq_end) alone (tools/winbench.py times one level a call): the same plan
+// msda_packed_fwd_levels: the query levels [lq_begin, lq_end) alone, (0, L)
+// for every query (tools/winbench.py times one level a call): the same plan
 // and kernel, one block per tile of those levels; out's rows of the other
 // levels are not written.
 extern "C" int msda_packed_fwd_levels(const void* value, const void* cpk, void* out,
@@ -265,19 +265,6 @@ extern "C" int msda_packed_fwd_levels(const void* value, const void* cpk, void* 
   return tile_fwd_entry(value, co, HaloGeo{}, out, dtype, bs, K, H, D, L, P, level_h, level_w,
                         tile_h, tile_w, win_h, win_w, staged, off_b, off_acc, halo, smem_bytes,
                         stream, lq_begin, lq_end);
-}
-
-extern "C" int msda_packed_fwd(const void* value, const void* cpk, void* out,
-                               int dtype, int bs, int K, int H, int D, int L,
-                               int P, int C, const int* level_h,
-                               const int* level_w, const int* tile_h,
-                               const int* tile_w, const int* win_h,
-                               const int* win_w, const int* staged,
-                               const int* off_b, const int* off_acc, int halo,
-                               int smem_bytes, void* stream) {
-  return msda_packed_fwd_levels(value, cpk, out, dtype, bs, K, H, D, L, P, C, level_h, level_w,
-                                tile_h, tile_w, win_h, win_w, staged, off_b, off_acc, halo,
-                                smem_bytes, 0, L, stream);
 }
 
 extern "C" int msda_fwd(const void* value, const void* loc, const void* attn,
@@ -297,7 +284,7 @@ extern "C" int msda_fwd(const void* value, const void* loc, const void* attn,
 }
 
 // x, y, w: q-minor (bs, H, L, P, K) fp32 each, the queries the key grid;
-// the tile plan as msda_packed_fwd takes it (the same plan).
+// the tile plan as msda_packed_fwd_levels takes it (the same plan).
 extern "C" int msda_qm_fwd(const void* value, const void* x, const void* y,
                            const void* w, void* out, int dtype, int bs, int K,
                            int H, int D, int L, int P, const int* level_h,

@@ -10,8 +10,9 @@
 // The schemas' text is ops/msda.py's PACKED_SCHEMA and REFERENCE_SCHEMA
 // (tests/test_torch_port_aoti.py holds them equal).  The kernels registered
 // for CUDA call the C entry points of csrc/msda_fwd.cu, built into this
-// library beside it (ops/_build.py:build_ops): msda_packed_fwd (K1's
-// encoder entry, the tiled kernel) with the tile plan the op carries, and
+// library beside it (ops/_build.py:build_ops): msda_packed_fwd_levels
+// (K1's encoder entry, the tiled kernel) on every query level, (0, L), with
+// the tile plan the op carries, as ops/msda.py's launch calls it, and
 // msda_fwd (the decoder's direct gather).  The plan is built once, in
 // Python, by ops/msda_tiles.py:encoder_tile_plan while exporting, and
 // travels in the graph as the op's int[] argument: _PLAN_ARRAYS (tile_h,
@@ -36,12 +37,13 @@
 #include <cstdint>
 #include <vector>
 
-extern "C" int msda_packed_fwd(const void* value, const void* cpk, void* out, int dtype, int bs,
-                               int K, int H, int D, int L, int P, int C, const int* level_h,
-                               const int* level_w, const int* tile_h, const int* tile_w,
-                               const int* win_h, const int* win_w, const int* staged,
-                               const int* off_b, const int* off_acc, int halo, int smem_bytes,
-                               void* stream);
+extern "C" int msda_packed_fwd_levels(const void* value, const void* cpk, void* out, int dtype,
+                                      int bs, int K, int H, int D, int L, int P, int C,
+                                      const int* level_h, const int* level_w, const int* tile_h,
+                                      const int* tile_w, const int* win_h, const int* win_w,
+                                      const int* staged, const int* off_b, const int* off_acc,
+                                      int halo, int smem_bytes, int lq_begin, int lq_end,
+                                      void* stream);
 extern "C" int msda_fwd(const void* value, const void* loc, const void* attn, void* out, int dtype,
                         int bs, int K, int Q, int H, int D, int L, int P, const int* level_h,
                         const int* level_w, void* stream);
@@ -126,13 +128,14 @@ at::Tensor msda_packed_cuda(const at::Tensor& value, const at::Tensor& cpk,
   }
   const c10::cuda::CUDAGuard guard(value.device());
   at::Tensor out = at::empty({bs, K, H * D}, value.options());
-  const int err = msda_packed_fwd(
+  const int err = msda_packed_fwd_levels(
       value.data_ptr(), cpk.data_ptr(), out.data_ptr(), dtype_code(value), static_cast<int>(bs),
       static_cast<int>(K), static_cast<int>(H), static_cast<int>(D), static_cast<int>(L),
       static_cast<int>(num_points), static_cast<int>(cpk.size(2)), lv.h.data(), lv.w.data(),
       arrays[0], arrays[1], arrays[2], arrays[3], arrays[4], arrays[5], arrays[6], flat[want - 2],
-      flat[want - 1], c10::cuda::getCurrentCUDAStream(value.device().index()).stream());
-  check_launch(err, "msda_packed_fwd");
+      flat[want - 1], 0, static_cast<int>(L),
+      c10::cuda::getCurrentCUDAStream(value.device().index()).stream());
+  check_launch(err, "msda_packed_fwd_levels");
   ++g_launches[0];
   return out;
 }

@@ -50,7 +50,7 @@
 //   msda_shift_qm_fwd: value (bs, K, H, D); x, y, w q-minor (bs, H, L, P, K)
 //   fp32; anchors int32, pair p = lq * L + lt has R[p] and its row anchors
 //   at anchors[off_y[p] ...] (Hq of them), its column anchors at
-//   anchors[off_x[p] ...] (Wq); the tile plan as msda_packed_fwd takes it
+//   anchors[off_x[p] ...] (Wq); the tile plan as msda_packed_fwd_levels takes it
 //   (shift_tile_plan's windows; halo unused); out (bs, K, H * D).
 
 #include <cuda_bf16.h>

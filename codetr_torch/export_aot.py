@@ -15,7 +15,8 @@ takes minutes) also ``codetr.aoti.pt2`` and its meta
 in-process model on the same seeded input, its compile seconds and MB, and,
 unless ``--skip-benchmark``, its times (``package_benchmark.json``).
 ``--image`` takes an ``.npy`` (H, W, 3) uint8 RGB array, or any file
-OpenCV reads.  Runs on the card unless ``--device cpu``.
+OpenCV reads.  ``--depths`` cuts a Swin config's stage depths (the widths
+stay).  Runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import argparse
 import json
 import os
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -60,6 +62,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--package", action="store_true",
                     help="also compile an AOTInductor package, codetr.aoti.pt2 (takes minutes)")
     ap.add_argument("--skip-benchmark", action="store_true")
+    ap.add_argument("--depths", type=int, nargs="+", default=None,
+                    help="Swin stage depths instead of the config's (a cut-depth model at full width)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap.parse_args(argv)
 
@@ -92,6 +96,11 @@ def main(argv=None) -> None:
         cfg = load_config_file(args.config_file)
     else:
         cfg = CONFIGS[args.config]()
+    if args.depths:
+        if cfg.backbone_type != "swin" or len(args.depths) != len(cfg.swin.depths):
+            raise ValueError(f"--depths takes {len(cfg.swin.depths) if cfg.backbone_type == 'swin' else 'no'} "
+                             f"stage depths for this config, got {args.depths}")
+        cfg = replace(cfg, swin=replace(cfg.swin, depths=tuple(args.depths)))
 
     print(f"building {args.config} ({args.dtype}) at {args.width}x{args.height} on {device} ...")
     model = build_codetr(cfg, args.weights, dtype=dtype, device=device, msda_impl=args.msda_impl)
@@ -101,6 +110,8 @@ def main(argv=None) -> None:
     exe_path = os.path.join(args.output, "codetr.codetr.pt2")
     meta = {"config": args.config_file or args.config, "dtype": args.dtype, "height": args.height,
             "width": args.width, "batch_size": args.batch_size, "fused_preprocess": args.fuse_preprocess}
+    if args.depths:
+        meta["swin_depths"] = list(args.depths)
     save_executable(exe_path, fn, example, meta=meta)
     print(f"saved program: {exe_path} ({os.path.getsize(exe_path) / 1e6:.1f} MB)")
 

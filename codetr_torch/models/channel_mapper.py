@@ -1,5 +1,8 @@
 """ChannelMapper neck, NCHW: per backbone level a 1x1 conv + GroupNorm, then
-one extra level from a 3x3 stride-2 conv + GroupNorm on the last input map."""
+one extra level from a 3x3 stride-2 conv + GroupNorm on the last input map.
+The GroupNorm normalises in float32 on float32 parameters in every compute
+dtype and rounds once, as the JAX package's (flax, ``param_dtype=float32``)
+does."""
 
 from __future__ import annotations
 
@@ -24,8 +27,9 @@ class ConvGN(nn.Module):
         # gives at 32x32), which normalises to the bias, as the JAX
         # package's GroupNorm does
         gn = self.gn
-        return torch.group_norm(self.conv(x), gn.num_groups, gn.weight, gn.bias, gn.eps,
-                                torch.backends.cudnn.enabled)
+        y = self.conv(x)
+        return torch.group_norm(y.float(), gn.num_groups, gn.weight.float(), gn.bias.float(), gn.eps,
+                                torch.backends.cudnn.enabled).to(y.dtype)
 
 
 class ChannelMapper(nn.Module):

@@ -11,7 +11,7 @@ import torch
 from torch import nn
 
 from codetr_torch.config import HeadConfig
-from codetr_torch.models.layers import mlp, nearest_resize_mask
+from codetr_torch.models.layers import mlp, nearest_resize_mask, top_k
 from codetr_torch.models.positional_encoding import sine_positional_encoding
 from codetr_torch.models.transformer import CoDinoTransformer
 
@@ -76,7 +76,7 @@ class CoDINOHead(nn.Module):
 
         bs = outputs_coords.shape[0]
         cls_score = outputs_classes.float().sigmoid()
-        scores, indexes = torch.topk(cls_score.reshape(bs, -1), c.max_per_img, dim=1)
+        scores, indexes = top_k(cls_score.reshape(bs, -1), c.max_per_img, outputs_classes.dtype)
         labels = indexes % c.num_classes
         bbox_index = indexes // c.num_classes
         bbox_pred = torch.gather(outputs_coords, 1, bbox_index[..., None].expand(-1, -1, 4))

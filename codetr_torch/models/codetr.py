@@ -13,6 +13,13 @@ An fp32 model computes in full fp32 on the card: its entry points
 ``full_fp32``, which turns TF32 off for cuDNN's convolutions (on by default
 in PyTorch) and for matmuls, and gives the caller's flags back on exit.  A
 bf16 model leaves the flags alone.
+
+A bf16 model (``build_codetr(dtype=torch.bfloat16)``, ``to_compute_dtype``)
+holds its parameters as the JAX package's bf16 model uses them: in bf16
+those it casts at use (every Linear, convolution and embedding, the level
+embeddings), in float32 those it uses in float32 (``fp32_parameter_names``:
+the norms' and the frozen BatchNorm's tensors, Swin's relative-position
+bias tables).
 """
 
 from __future__ import annotations
@@ -100,6 +107,41 @@ class CoDETR(nn.Module):
         return self.query_head.raw_predictions(self.features(batch_inputs), img_masks)
 
 
+def fp32_parameter_names(model: nn.Module) -> set:
+    """Names of the parameters and buffers that the JAX package uses in
+    float32 in every compute dtype: the affine parameters of LayerNorm and
+    GroupNorm (flax normalises in float32 on ``param_dtype=float32``
+    parameters), the frozen BatchNorm's four tensors (applied in float32)
+    and Swin's relative-position bias tables (added to float32 logits).
+    The JAX package casts every other parameter to the compute dtype where
+    it uses it, which a parameter held in that dtype gives as well."""
+    names = set()
+    for prefix, m in model.named_modules():
+        prefix = prefix + "." if prefix else ""
+        if isinstance(m, (nn.LayerNorm, nn.GroupNorm, FrozenBatchNorm2d)):
+            names.update(prefix + n for n, _ in m.named_parameters(recurse=False))
+            names.update(prefix + n for n, _ in m.named_buffers(recurse=False))
+        elif isinstance(m, WindowMSA):
+            names.add(prefix + "relative_position_bias_table")
+    return names
+
+
+@torch.no_grad()
+def to_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast ``model``'s floating parameters and buffers to ``dtype`` in
+    place, except ``fp32_parameter_names``' (kept float32)."""
+    keep = fp32_parameter_names(model)
+    for prefix, m in model.named_modules():
+        prefix = prefix + "." if prefix else ""
+        for n, p in m.named_parameters(recurse=False):
+            if p.is_floating_point() and prefix + n not in keep:
+                p.data = p.data.to(dtype)
+        for n, b in m.named_buffers(recurse=False):
+            if b.is_floating_point() and prefix + n not in keep:
+                m._buffers[n] = b.to(dtype)
+    return model
+
+
 def check_device(device) -> torch.device:
     """The device an entry point runs on; CUDA without a card raises."""
     device = torch.device(device)
@@ -171,7 +213,9 @@ def build_codetr(
     msda_impl: str = "auto",
 ) -> CoDETR:
     """Build the model with seeded random weights, in eval mode, on
-    ``device`` (CUDA by default; raises if there is no card) in ``dtype``.
+    ``device`` (CUDA by default; raises if there is no card) in ``dtype``
+    (``to_compute_dtype``: a bf16 model keeps ``fp32_parameter_names``'
+    tensors float32).
     ``weights``: an mmdet ``.pth`` loaded over them
     (``utils.checkpoint.load_torch_checkpoint``, which raises ``KeyError``
     on a file that lacks a key of the model, so every weight comes from the
@@ -185,4 +229,4 @@ def build_codetr(
 
         sd = load_torch_checkpoint(weights, cfg)
         model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
-    return model.to(device=device, dtype=dtype).eval()
+    return to_compute_dtype(model.to(device=device), dtype).eval()

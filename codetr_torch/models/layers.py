@@ -3,11 +3,17 @@
 FFN keeps mmcv's ``layers.0.0`` / ``layers.1`` Linear names and
 MultiheadAttention keeps torch's packed ``attn.in_proj_weight``, so a module
 tree built from these bricks loads an mmdet state dict as it is.
-Normalisation and softmax run in float32 whatever the compute dtype.
+Normalisation, attention logits and softmax run in float32 whatever the
+compute dtype, where the JAX package's do: ``LayerNorm`` normalises in
+float32 on float32 parameters and rounds once (flax's ``LayerNorm`` with
+``param_dtype=float32``), and the logits are float32 products of the
+compute-dtype projections (``preferred_element_type=float32``), never
+rounded to bf16.
 """
 
 from __future__ import annotations
 
+import struct
 from typing import Optional
 
 import torch
@@ -17,6 +23,55 @@ from torch import nn
 # torch defaults, the same as the JAX package's
 LN_EPS = 1e-5
 GN_EPS = 1e-5
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` computed in float32, on float32 copies of the input
+    and of the affine parameters, and rounded once to the input's dtype: in
+    a bf16 model the mean, the variance, the scale and the bias never pass
+    through bf16 (the parameters stay float32 there: ``models.codetr.
+    fp32_parameter_names``).  Unchanged for float32 inputs."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(), self.bias.float(),
+                            self.eps).to(x.dtype)
+
+
+def float32_logits(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``q @ k^T`` as float32: the products of the two compute-dtype tensors
+    summed in float32 and kept there (the JAX package's einsum with
+    ``preferred_element_type=float32``).  A product of two bf16 numbers is
+    exact in float32, so only the order of the sum differs."""
+    return torch.matmul(q.float(), k.float().transpose(-1, -2))
+
+
+def scalar_in(x: float, dtype: torch.dtype) -> float:
+    """The number ``x`` rounded to ``dtype`` (float32 or bfloat16, to
+    nearest, ties to even): the factor a JAX expression ``t * x`` uses, a
+    Python scalar taking ``t``'s dtype there.  PyTorch multiplies a bf16
+    tensor by ``x`` at float32 precision, so a bf16 model passes it through
+    this first.  Pure Python: the result is a constant of an exported graph."""
+    bits = struct.unpack("<I", struct.pack("<f", x))[0]
+    if dtype == torch.bfloat16:
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    elif dtype != torch.float32:
+        raise ValueError(f"float32 or bfloat16, got {dtype}")
+    return struct.unpack("<f", struct.pack("<I", bits))[0]
+
+
+def top_k(x: torch.Tensor, k: int, dtype: torch.dtype):
+    """The ``k`` largest entries of each row of ``x`` (bs, n) and their
+    indices, for scores computed in ``dtype``.  bf16 scores take a few
+    hundred values an octave and tie often: equal entries are taken in
+    index order, ``jax.lax.top_k``'s rule (a stable sort), where
+    ``torch.topk`` may take any of them.  float32 ones keep ``torch.topk``:
+    their ties are rare, and one between two proposals of the rehearsal's
+    float32 model (``chip_smoke.py``) that the host's ``torch.topk`` ordered
+    as the card's near-tie falls apart under the stable sort."""
+    if dtype != torch.bfloat16:
+        return torch.topk(x, k, dim=1)
+    values, idx = torch.sort(x, dim=1, descending=True, stable=True)
+    return values[:, :k], idx[:, :k]
 
 
 def mlp(in_dim: int, hidden_dim: int, out_dim: int, num_layers: int) -> nn.Sequential:
@@ -89,7 +144,7 @@ class MultiheadAttention(nn.Module):
         q, k, v = self.attn.project(qk_in, query)
         bs, nq, _ = q.shape
         q, k, v = (t.reshape(bs, nq, nh, d).transpose(1, 2) for t in (q, k, v))
-        logits = torch.matmul(q, k.transpose(-1, -2)).float() * (1.0 / d**0.5)
+        logits = float32_logits(q, k) * (1.0 / d**0.5)
         attn = logits.softmax(-1).to(v.dtype)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(bs, nq, E)
         return query + self.attn.out_proj(out)

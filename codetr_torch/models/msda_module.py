@@ -2,8 +2,12 @@
 
 Projections keep mmdet's names and layout; in particular the
 sampling-offset columns stay interleaved (h, L, P, 2) as in mmdet
-checkpoints.  Coordinates, offsets and attention weights are float32 in every
-compute dtype (bf16 locations would quantise to ~0.6 px at stride 4).
+checkpoints.  With grid queries (the encoder) coordinates, offsets and
+attention weights are float32 in every compute dtype (bf16 locations would
+quantise to ~0.6 px at stride 4).  Without them (the decoder's 4-coordinate
+boxes) they round where the JAX module rounds: the weights after their
+float32 softmax, the offsets, the references and the locations in the
+compute dtype; the kernels read them as float32.
 
 With ``grid_queries=True`` (encoder self-attention, queries = the
 level-concatenated pixel grid) and ``impl="auto"`` or ``"reference"`` the
@@ -141,7 +145,7 @@ class MultiScaleDeformableAttention(nn.Module):
         value: torch.Tensor,  # (bs, nk, C)
         query_pos: Optional[torch.Tensor],
         key_padding_mask: Optional[torch.Tensor],  # (bs, nk) True = pad
-        reference_points: torch.Tensor,  # (bs, nq, L, 2|4) float32
+        reference_points: torch.Tensor,  # (bs, nq, L, 2|4), float32 or the compute dtype
         spatial_shapes: Sequence[Tuple[int, int]],
         raw_table: Optional[torch.Tensor] = None,  # (bs * R, 4 * (C + 1)) shared corner table
     ) -> torch.Tensor:
@@ -180,14 +184,21 @@ class MultiScaleDeformableAttention(nn.Module):
             out = msda_grid_packed(v, spatial_shapes, self.packed_coords(off, raw_attn, ref, spatial_shapes), P,
                                    impl=self.impl)
         else:
-            attn = raw_attn.reshape(bs, nq, h, L * P).softmax(-1).reshape(bs, nq, h, L, P)
+            # the JAX module's roundings: the weights softmaxed in float32 and
+            # rounded to the compute dtype; the offsets and the references
+            # in the compute dtype, so a 4-coordinate box's locations are
+            # computed and rounded there too (the kernels read them as float32)
+            cd = query.dtype
+            attn = raw_attn.reshape(bs, nq, h, L * P).softmax(-1).to(cd).float().reshape(bs, nq, h, L, P)
+            off_c, ref_c = off.to(cd), reference_points.to(cd)
             if ref.shape[-1] == 2:
                 normalizer = level_table(spatial_shapes, "wh", query.device)
-                loc = ref[:, :, None, :, None, :] + off / normalizer[None, None, None, :, None, :]
+                loc = ref_c[:, :, None, :, None, :] + off_c / normalizer[None, None, None, :, None, :]
             elif ref.shape[-1] == 4:
-                loc = ref[:, :, None, :, None, :2] + off / P * ref[:, :, None, :, None, 2:] * 0.5
+                loc = ref_c[:, :, None, :, None, :2] + off_c / P * ref_c[:, :, None, :, None, 2:] * 0.5
             else:
                 raise ValueError(f"reference_points last dim must be 2 or 4, got {ref.shape[-1]}")
+            loc = loc.float()
             if use_table:
                 out = self.table_projection(msda_from_raw_table(raw_table, spatial_shapes, loc, attn), query.dtype)
             else:

@@ -5,8 +5,9 @@ embedding's convolution runs NCHW.  Module names follow mmdet's checkpoint
 keys (``stages.i.blocks.j.attn.w_msa.qkv``, ``stages.i.downsample.reduction``,
 ``norm{i}``).  Features come out NCHW at strides 4/8/16/32.
 
-- Window attention adds the relative-position bias; shifted windows use the
-  static -100 region mask; maps are corner-padded to a window multiple.
+- Window attention adds the relative-position bias to float32 logits;
+  shifted windows use the static -100 region mask; maps are corner-padded
+  to a window multiple.
 - PatchMerging concatenates each 2x2 neighbourhood in ``nn.Unfold``'s
   channel-major order (channel c of position p lands at c*4 + p), as mmdet
   checkpoints expect.
@@ -27,7 +28,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from codetr_torch.config import SwinConfig
-from codetr_torch.models.layers import FFN, LN_EPS, corner_pad_to_multiple
+from codetr_torch.models.layers import (FFN, LN_EPS, LayerNorm, corner_pad_to_multiple, float32_logits,
+                                         scalar_in)
 
 
 def relative_position_index(ws: int) -> torch.Tensor:
@@ -101,7 +103,10 @@ class WindowMSA(nn.Module):
         B, N, C = x.shape
         h = self.num_heads
         q, k, v = self.qkv(x).reshape(B, N, 3, h, C // h).permute(2, 0, 3, 1, 4).unbind(0)
-        attn = torch.matmul(q * self.scale, k.transpose(-2, -1)).float()
+        # q scaled in the compute dtype by the scale rounded to it, then
+        # float32 logits plus the float32 bias table (float32 in a bf16
+        # model too), as the JAX package computes them
+        attn = float32_logits(q * scalar_in(self.scale, q.dtype), k)
         bias = self.relative_position_bias_table[self.relative_position_index.reshape(-1)]
         attn = attn + bias.reshape(N, N, h).permute(2, 0, 1)[None].float()
         if mask is not None:
@@ -140,10 +145,10 @@ class SwinBlock(nn.Module):
     def __init__(self, embed_dims: int, num_heads: int, feedforward_channels: int,
                  window_size: int, shift: bool, qkv_bias: bool, qk_scale: Optional[float]):
         super().__init__()
-        self.norm1 = nn.LayerNorm(embed_dims, eps=LN_EPS)
+        self.norm1 = LayerNorm(embed_dims, eps=LN_EPS)
         self.attn = ShiftWindowMSA(embed_dims, num_heads, window_size,
                                    window_size // 2 if shift else 0, qkv_bias, qk_scale)
-        self.norm2 = nn.LayerNorm(embed_dims, eps=LN_EPS)
+        self.norm2 = LayerNorm(embed_dims, eps=LN_EPS)
         self.ffn = FFN(embed_dims, feedforward_channels, activation="gelu", add_identity=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -158,7 +163,7 @@ class PatchEmbed(nn.Module):
         super().__init__()
         self.patch_size = patch_size
         self.projection = nn.Conv2d(in_channels, embed_dims, patch_size, patch_size)
-        self.norm = nn.LayerNorm(embed_dims, eps=LN_EPS)
+        self.norm = LayerNorm(embed_dims, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = corner_pad_to_multiple(x, self.patch_size, self.patch_size)
@@ -171,7 +176,7 @@ class PatchMerging(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
-        self.norm = nn.LayerNorm(4 * in_channels, eps=LN_EPS)
+        self.norm = LayerNorm(4 * in_channels, eps=LN_EPS)
         self.reduction = nn.Linear(4 * in_channels, out_channels, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -206,7 +211,7 @@ class SwinTransformer(nn.Module):
             for i, depth in enumerate(cfg.depths)
         )
         for i in cfg.out_indices:
-            self.add_module(f"norm{i}", nn.LayerNorm(cfg.num_features[i], eps=LN_EPS))
+            self.add_module(f"norm{i}", LayerNorm(cfg.num_features[i], eps=LN_EPS))
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         """x: (B, H, W, 3) -> NCHW feature maps of the out_indices stages."""

@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from codetr_torch.config import TransformerConfig
-from codetr_torch.models.layers import FFN, LN_EPS, MultiheadAttention, mlp
+from codetr_torch.models.layers import FFN, LN_EPS, LayerNorm, MultiheadAttention, mlp, top_k
 from codetr_torch.models.msda_module import MultiScaleDeformableAttention
 from codetr_torch.models.positional_encoding import gen_sineembed_for_position
 from codetr_torch.ops.msda_dectab import build_raw_quad_table, raw_memory_aug
@@ -74,8 +74,8 @@ def apply_mask_to_proposal_and_memory(output_proposals, memory, memory_padding_m
     return proposals, out_memory
 
 
-def _layer_norm(dims: int) -> nn.LayerNorm:
-    return nn.LayerNorm(dims, eps=LN_EPS)
+def _layer_norm(dims: int) -> LayerNorm:
+    return LayerNorm(dims, eps=LN_EPS)
 
 
 class DetrTransformerEncoderLayer(nn.Module):
@@ -229,7 +229,8 @@ class CoDinoTransformer(nn.Module):
         """The two-stage proposal stage: each key's proposal, masked, the
         memory through ``enc_output`` and its norm, the encoder-stage class
         and box branches (index ``num_decoder_layers``), and the top
-        ``two_stage_num_proposals`` keys by their best class logit ->
+        ``two_stage_num_proposals`` keys by their best class logit (bf16
+        ties in key order, ``layers.top_k``) ->
         (topk_coords_unact (bs, nq, 4), topk_idx (bs, nq), enc_class
         (bs, K, num_classes), enc_coord_unact (bs, K, 4))."""
         c = self.cfg
@@ -244,7 +245,7 @@ class CoDinoTransformer(nn.Module):
         enc_coord_unact = reg_branches[nd](output_memory).float() + output_proposals
 
         topk = c.two_stage_num_proposals
-        topk_idx = torch.topk(enc_class.float().max(-1)[0], topk, dim=1)[1]
+        topk_idx = top_k(enc_class.float().max(-1)[0], topk, enc_class.dtype)[1]
         # the proposals enter the decoder as constants: its box losses reach
         # the encoder stage only through its own outputs, not through them
         topk_coords_unact = torch.gather(

@@ -299,8 +299,8 @@ def _raise_on(err: int, fn: str) -> None:
 def _launch_packed(value, spatial_shapes, cpk, num_points, plan: Sequence[int], levels=None):
     """K1 on the packed coordinates with ``plan``, ``packed_plan``'s ints,
     through its level entry ``msda_packed_fwd_levels`` on the query levels
-    ``levels`` = (begin, end), all of them by default (``msda_packed_fwd``'s
-    launch).  Rows outside the range stay as allocated."""
+    ``levels`` = (begin, end), all of them by default (the launch
+    ``csrc/msda_ops.cpp`` makes).  Rows outside the range stay as allocated."""
     global launches
     _kernel_checks(value, spatial_shapes, cpk)
     bs, K, h, d = value.shape

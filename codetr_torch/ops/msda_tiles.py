@@ -1,5 +1,5 @@
 """Tile plan of the encoder MSDA kernels: the packed entries of
-``csrc/msda_fwd.cu`` (``msda_packed_fwd``, K1) and ``csrc/msda_bwd.cu``
+``csrc/msda_fwd.cu`` (``msda_packed_fwd_levels``, K1) and ``csrc/msda_bwd.cu``
 (``msda_packed_bwd``, K2), the q-minor entry ``msda_qm_fwd`` (K3), and,
 with windows of its own, the shift-window kernel
 ``csrc/msda_shift_fwd.cu`` (K4, ``ops/msda_grid.py:shift_tile_plan``).

@@ -229,6 +229,23 @@ def _indexed(device: torch.device) -> torch.device:
     return device
 
 
+def package_dtype(meta: dict, example_args: Sequence[torch.Tensor]) -> torch.dtype:
+    """The compute dtype of a package, the meta's ``dtype``; it must be one
+    of ``DTYPES`` and, for the plain form, the image input's dtype: the
+    native runner casts the image to ``in_avals``' dtype and sets its
+    precision (TF32 off for float32) by ``dtype``, so a package whose two
+    disagree would run in a precision its meta does not say.  Raises
+    ``ValueError`` otherwise."""
+    name = meta.get("dtype")
+    if name not in DTYPES:
+        raise ValueError(f"a package computes in one of {sorted(DTYPES)}, the meta says {name!r}")
+    image = example_args[0].dtype if example_args else None
+    if image not in (None, torch.uint8, DTYPES[name]):
+        raise ValueError(f"the meta's dtype {name} is not the program's image dtype "
+                         f"{str(image).replace('torch.', '')}")
+    return DTYPES[name]
+
+
 def save_package(path: str, program, example_args: Sequence[torch.Tensor], meta: Optional[dict] = None,
                  device="cuda") -> str:
     """Compile ``program`` (what ``compile_forward`` returned, or an
@@ -237,20 +254,24 @@ def save_package(path: str, program, example_args: Sequence[torch.Tensor], meta:
     -> the package's path.  The compile runs under the program's precision
     scope (``fp32_scope``), and the meta's ``dtype`` (from ``program`` when
     ``meta`` has none) makes ``load_package`` run it there too: Inductor's
-    extern GEMMs and convolutions read the TF32 flags when they run.
+    extern GEMMs and convolutions read the TF32 flags when they run.  A
+    bf16 program compiles and runs as it is (``fp32_scope`` is no scope
+    there); ``package_dtype`` refuses a meta whose dtype is not the
+    program's.
     The wrapper is built by the ``g++`` on the path, the host compiler that
     nvcc builds the port's libraries with, not by ``$CXX`` (Inductor's
     default), which may name a compiler without OpenMP's runtime, and the
     wrapper links with ``-fopenmp``."""
     device = _indexed(check_device(device))
-    exported = on_device(getattr(program, "exported", program), device)
     meta = dict(meta or {})
     if "dtype" not in meta and hasattr(program, "dtype"):
         meta["dtype"] = dtype_name(program.dtype)
+    dtype = package_dtype(meta, example_args)
+    exported = on_device(getattr(program, "exported", program), device)
     path += ".aoti.pt2"
     from torch._inductor import aoti_compile_and_package
 
-    with torch.no_grad(), fp32_scope(DTYPES[meta["dtype"]]):
+    with torch.no_grad(), fp32_scope(dtype):
         aoti_compile_and_package(exported, package_path=path, inductor_configs={"cpp.cxx": "g++"})
     meta.update(
         magic=PACKAGE_MAGIC,
@@ -284,6 +305,9 @@ def load_package(path: str, device="cuda") -> Package:
     package compiled for another device type, or, on the card, a kernel
     library that cannot be built or loaded."""
     meta = _read_meta(path, PACKAGE_MAGIC)
+    if meta.get("dtype") not in DTYPES:
+        raise ValueError(f"{path}: a package computes in one of {sorted(DTYPES)}, the meta says "
+                         f"{meta.get('dtype')!r}")
     device = _indexed(check_device(device))
     if meta.get("device") != device.type:
         raise ValueError(f"{path} was compiled for {meta.get('device')!r}, not {device.type!r}")

@@ -11,10 +11,11 @@ exists in its process.  It loads ``--ops-lib`` (``csrc/msda_ops.cpp`` with
 ``csrc/msda_fwd.cu``, built by ``codetr_torch.ops._build.build_ops()``)
 with ``torch.ops.load_library``, the package (``runtime/aot.py:
 save_package``) with ``torch._inductor.aoti_load_package``, runs it once on
-the arrays ``arg0``, ``arg1``, ... of ``--inputs`` on the card, an fp32
-package (the meta's ``dtype``) with TF32 off as ``runtime/aot.py:
+the arrays ``arg0``, ``arg1``, ... of ``--inputs`` on the card, each cast to
+its ``in_avals`` dtype (a bf16 package's image: an ``.npz`` holds no bf16),
+an fp32 package (the meta's ``dtype``) with TF32 off as ``runtime/aot.py:
 load_package`` runs it, and writes ``out0``, ``out1``, ... to
-``--outputs``.  It prints one JSON line: the dispatcher's registrations of
+``--outputs`` (a bf16 output as float32, which holds it exactly).  It prints one JSON line: the dispatcher's registrations of
 the two ops (the CUDA kernel's names ``msda_ops.cpp``), the seconds to
 load and to run, and the modules of ``codetr_torch`` imported (none).  Any
 failure exits non-zero.
@@ -71,15 +72,19 @@ def main(argv=None) -> dict:
     compiled = aoti_load_package(args.package, device_index=device.index or 0)
     load_s = time.perf_counter() - t0
 
+    dtypes = [getattr(torch, aval[1]) for aval in meta["in_avals"]]
     with np.load(args.inputs) as npz:
-        inputs = [torch.from_numpy(npz[f"arg{i}"]).to(device) for i in range(len(npz.files))]
+        if len(npz.files) != len(dtypes):
+            raise ValueError(f"{args.inputs} holds {len(npz.files)} arrays, the package takes {len(dtypes)}")
+        inputs = [torch.from_numpy(npz[f"arg{i}"]).to(device, dt) for i, dt in enumerate(dtypes)]
     t0 = time.perf_counter()
     with torch.no_grad():
         outputs = compiled(*inputs)
     torch.cuda.synchronize(device)
     run_s = time.perf_counter() - t0
-    np.savez(args.outputs, **{f"out{i}": t.cpu().numpy() for i, t in enumerate(outputs)})
-    record = {"registrations": registrations, "load_s": load_s, "run_s": run_s,
+    np.savez(args.outputs, **{f"out{i}": (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+                              for i, t in enumerate(outputs)})
+    record = {"registrations": registrations, "load_s": load_s, "run_s": run_s, "dtype": meta["dtype"],
               "codetr_torch_modules": codetr_modules(), "outputs": len(outputs)}
     print(json.dumps(record))
     return record

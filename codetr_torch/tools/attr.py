@@ -79,7 +79,7 @@ the time by kernel class (the port's kernels, GEMMs, LayerNorm, softmax,
 reductions, copies, other elementwise) and the port's kernels by name
 (``utils.profiling.PORT_KERNELS``); on the card only the kernels that the
 graph launches started count, and a trace that lost some is taken again.  With ``--verify`` the encoder MSDA
-module (K1's encoder entry, ``msda_packed_fwd``) and the decoder's
+module (K1's encoder entry, ``msda_packed_fwd_levels``) and the decoder's
 (``msda_fwd``) run once on the ``emsda`` and ``dmsda`` inputs and each
 kernel's output is held against the plain version (``ops/msda.py:msda_plain``)
 on the inputs the module gave it: fp32 within 1e-5 of the output's scale,
@@ -127,7 +127,7 @@ GEMM_N = 4096  # the GEMM ceiling's M = N = K on the card
 CPU_GEMM_N = 256  # on the CPU: a host figure, kept small for the tests
 # the kernel entries --verify holds against the plain version: the stage,
 # the module-level function its module calls, the plain version
-VERIFIED = (("emsda", "msda_grid_packed", msda.msda_grid_packed_plain, "msda_packed_fwd (K1, encoder entry)"),
+VERIFIED = (("emsda", "msda_grid_packed", msda.msda_grid_packed_plain, "msda_packed_fwd_levels (K1, encoder entry)"),
             ("dmsda", "multi_scale_deformable_attention", msda.multi_scale_deformable_attention_plain,
              "msda_fwd (K1, decoder entry)"))
 

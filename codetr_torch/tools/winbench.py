@@ -265,7 +265,7 @@ def main(argv=None) -> dict:
         equal = {lq: bool(torch.equal(out, full_out[:, msda._level_rows(shapes, lq)])) for lq, out in level_out.items()}
         full = time_calls(full_fn, (value, cpk), args.iters, args.trials, on_card, "full", dtype)
         rec = {"full_best_sane_ms": full["best_sane_ms"], **full, "rows_equal_full": equal,
-               "call": "msda_grid_packed" if production else "msda_packed_fwd with the overridden plan"}
+               "call": "msda_grid_packed" if production else "msda_packed_fwd_levels with the overridden plan"}
         print(json.dumps(rec), flush=True)
         records["full"] = rec
     del level_out

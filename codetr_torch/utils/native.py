@@ -15,6 +15,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from codetr_torch.ops import _build
 
@@ -79,17 +80,26 @@ def preprocess_native(
     return out, mask, (float(scale[0]), float(scale[1])), (int(resized[0]), int(resized[1]))
 
 
+def _host(a, dtype) -> np.ndarray:
+    """``a`` (a numpy array, or a torch tensor on any device and of any
+    dtype, bf16 included) as a contiguous host array of ``dtype``: what
+    the native runner does to a package's outputs before its NMS."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().to("cpu", torch.float32 if a.is_floating_point() else torch.int64).numpy()
+    return np.ascontiguousarray(a, dtype)
+
+
 def batched_nms_native(
-    boxes: np.ndarray, scores: np.ndarray, labels: np.ndarray,
-    iou_threshold: float, score_threshold: float = -np.inf,
+    boxes, scores, labels, iou_threshold: float, score_threshold: float = -np.inf,
 ) -> np.ndarray:
     """Greedy per-class NMS of (N, 4) xyxy boxes -> keep (N,) bool: boxes
     in descending score order (ties by index) are kept unless a kept box of
     their label overlaps them by more than ``iou_threshold``; scores below
-    ``score_threshold`` or not finite are dropped."""
-    boxes = np.ascontiguousarray(boxes, np.float32)
-    scores = np.ascontiguousarray(scores, np.float32)
-    labels = np.ascontiguousarray(labels, np.int32)
+    ``score_threshold`` or not finite are dropped.  Numpy arrays or torch
+    tensors (a bf16 package's outputs too), read as float32 and int32."""
+    boxes = _host(boxes, np.float32)
+    scores = _host(scores, np.float32)
+    labels = _host(labels, np.int32)
     n = len(boxes)
     if boxes.shape != (n, 4) or scores.shape != (n,) or labels.shape != (n,):
         raise ValueError(f"boxes (N, 4), scores (N,), labels (N,); got {boxes.shape}, {scores.shape}, "

@@ -38,6 +38,7 @@ from codetr_torch.utils.preprocess import preprocess_in_graph, resize_to_canvas
 from codetr_torch.utils.visualize import draw_detections
 
 from test_torch_port_model import match_detections, perturbed_jax_params, port_from_jax
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 HW = 96
 MSDA_OPS = {"codetr.msda_packed.default": 2, "codetr.msda_reference.default": 2}

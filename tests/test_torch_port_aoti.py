@@ -34,6 +34,7 @@ from codetr_torch.ops import msda_tiles
 from codetr_torch.runtime import aot
 
 from test_torch_port_model import match_detections, perturbed_jax_params, port_from_jax
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 HW = 96
 # the CPU compile without vectorised kernels, precompiled headers, an

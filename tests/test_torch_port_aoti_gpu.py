@@ -5,7 +5,7 @@ AOTInductor package run with it, on the card.
 nothing of ``codetr_torch`` loads it and calls ``torch.ops.codetr.
 msda_packed`` / ``msda_reference``, whose results must equal the Python
 ops' CUDA launches in this process bit for bit (the same kernels, the same
-plan).  A tiny package (compiled once for the file) run through
+plan).  A tiny package (compiled once for the file in fp32 and once in bf16) run through
 ``tools/aoti_run.py`` in a subprocess, and by the native runner
 (``csrc/codetr_aoti_runner.cpp``, ``_build.build_runner("cuda")``) on the
 host library's preprocess of a raw image, must equal the same package run
@@ -80,20 +80,24 @@ def run(cmd, timeout=900):
 TINY_HW = 96
 
 
-@pytest.fixture(scope="module")
-def tiny_package(tmp_path_factory):
-    """The tiny seed-4 model as an fp32 CUDA package at 96x96 (the file's
-    one package compile) -> its path."""
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def tiny_package(request, tmp_path_factory):
+    """The tiny seed-4 model as a CUDA package at 96x96, fp32 and bf16 (the
+    file's two package compiles) -> its path."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the op library and the package's kernels have no CPU mode")
     from codetr_torch import build_codetr, tiny_test_config
     from codetr_torch.runtime import aot
 
     with kept_tf32_flags():
-        model = build_codetr(tiny_test_config(), device="cuda", seed=4)
+        model = build_codetr(tiny_test_config(), device="cuda", seed=4, dtype=aot.DTYPES[request.param])
         fn, example = aot.compile_forward(model, height=TINY_HW, width=TINY_HW)
-        return aot.save_package(str(tmp_path_factory.mktemp("aoti") / "tiny"), fn, example,
+        path = aot.save_package(str(tmp_path_factory.mktemp("aoti") / "tiny"), fn, example,
                                 meta={"config": "tiny"})
+    with open(path + ".meta.json") as f:
+        meta = json.load(f)
+    assert meta["dtype"] == request.param and meta["in_avals"][0] == [[1, TINY_HW, TINY_HW, 3], request.param]
+    return path
 
 
 @pytest.mark.gpu
@@ -147,9 +151,11 @@ def test_cpp_ops_equal_the_python_launches(cuda_device, tmp_path):
 
 @pytest.mark.gpu
 def test_tiny_package_runs_from_cpp(cuda_device, tiny_package, tmp_path):
-    """A tiny fp32 package run by ``tools/aoti_run.py`` in a subprocess (the
-    ops from C++, no codetr_torch module imported) equals the same package
-    run in this process (the Python ops: 2 + 2 launches) bit for bit."""
+    """A tiny package, fp32 and bf16, run by ``tools/aoti_run.py`` in a
+    subprocess (the ops from C++, no codetr_torch module imported; the
+    image cast to the package's dtype there, the outputs read back as
+    float32) equals the same package run in this process (the Python ops:
+    2 + 2 launches) bit for bit."""
     from codetr_torch.runtime import aot
 
     built = _build.build_ops()
@@ -159,7 +165,7 @@ def test_tiny_package_runs_from_cpp(cuda_device, tiny_package, tmp_path):
     m = torch.zeros(1, 96, 96)
     m[:, 70:] = 1.0
     port_msda.launches = 0
-    want = package(x.to(cuda_device), m.to(cuda_device))
+    want = package(x.to(cuda_device, package.dtype), m.to(cuda_device))
     assert port_msda.launches == 4
     np.savez(tmp_path / "in.npz", arg0=x.numpy(), arg1=m.numpy())
     out = run([sys.executable, "-P", AOTI_RUN, "--package", tiny_package, "--ops-lib", str(built.path),
@@ -169,13 +175,16 @@ def test_tiny_package_runs_from_cpp(cuda_device, tiny_package, tmp_path):
     for text in record["registrations"].values():
         assert "msda_ops.cpp" in [line for line in text.splitlines() if line.startswith("CUDA:")][0], text
     got = np.load(tmp_path / "out.npz")
+    assert record["dtype"] == {torch.float32: "float32", torch.bfloat16: "bfloat16"}[package.dtype]
     for i, t in enumerate(want):
-        np.testing.assert_array_equal(got[f"out{i}"], t.cpu().numpy())
+        np.testing.assert_array_equal(got[f"out{i}"], (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy())
 
 
 @pytest.mark.gpu
 def test_runner_runs_the_tiny_package(cuda_device, tiny_package, tmp_path):
-    """The native runner on a seeded 70x90 raw image: its dump equals the
+    """The native runner on a seeded 70x90 raw image, fp32 and bf16 (the
+    runner casts the image to the package's dtype and reads the outputs
+    back as float32): its dump equals the
     in-process package's outputs on ``preprocess_native`` of the image bit
     for bit, the op library counts 2 + 2 K1 launches a forward, and its NMS
     count is ``batched_nms_native``'s on the in-process outputs.  Without
@@ -191,11 +200,12 @@ def test_runner_runs_the_tiny_package(cuda_device, tiny_package, tmp_path):
     assert re.search(r"codetr::msda_packed 6, codetr::msda_reference 6 over 3 forwards", out), out
     cfg = PreprocessConfig()
     x, m, _, _ = native.preprocess_native(image, TINY_HW, TINY_HW, cfg.mean, cfg.std)
-    want = [t.float().cpu().numpy() for t in aot.load_package(tiny_package)(
-        torch.from_numpy(x[None]).to(cuda_device), torch.from_numpy(m[None]).to(cuda_device))]
+    package = aot.load_package(tiny_package)
+    want = [t.float().cpu().numpy() for t in package(
+        torch.from_numpy(x[None]).to(cuda_device, package.dtype), torch.from_numpy(m[None]).to(cuda_device))]
     for key, t in zip(("boxes", "scores", "labels"), want):
         np.testing.assert_array_equal(np.fromfile(tmp_path / f"raw.{key}.bin", np.float32), t.ravel(), err_msg=key)
-    keep = native.batched_nms_native(want[0][0], want[1][0], want[2][0].astype(np.int32), 0.8, 0.0)
+    keep = native.batched_nms_native(want[0][0], want[1][0], want[2][0], 0.8, 0.0)
     assert int(re.search(r"detections after NMS: (\d+)", out).group(1)) == keep.sum()
     refused = subprocess.run([str(a) for a in (runner.path, *args)], capture_output=True, text=True, timeout=300)
     assert refused.returncode == 1 and "pass --ops-lib" in refused.stderr, refused.stderr

@@ -44,6 +44,7 @@ from codetr_torch.models import swin as port_swin
 from codetr_torch.models.codetr import build_codetr
 from codetr_torch.tools import attr
 from codetr_torch.utils import checkpoint
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 HW = ("64", "96")
 CPU = ["--device", "cpu", "--config", "tiny", "--iters", "1", "--trials", "1"]

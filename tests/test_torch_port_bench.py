@@ -28,6 +28,7 @@ from codetr_torch import bench, build_codetr, tiny_test_config
 from codetr_torch import export_aot
 from codetr_torch.runtime import aot
 from codetr_torch.utils import profiling
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HW = 96

@@ -32,6 +32,7 @@ from test_torch_port_model import perturbed_jax_params
 from test_torch_port_r50 import H as R50_HW
 from test_torch_port_r50 import narrow_r50_configs
 from torch_oracle import TorchCoDETR, init_oracle, oracle_state_dict_numpy
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 
 def save_pth(path, sd, wrapper="state_dict", meta=None, prefix=""):

@@ -708,7 +708,7 @@ def check_tiled(device, dtype, shapes, value, loc, w):
 @pytest.mark.parametrize("d", [30, 32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_tiled_packed_matches_plain(cuda_device, dtype, d):
-    """The tiled encoder kernels (``msda_packed_fwd`` / ``msda_packed_bwd``)
+    """The tiled encoder kernels (``msda_packed_fwd_levels`` / ``msda_packed_bwd``)
     at small odd shapes, batch 2, taps in and just out of their windows,
     far and on grid lines, at one, two and four channel slices a lane, and
     at a head dim that is not a multiple of 4 (the window copies and the

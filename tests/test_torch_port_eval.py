@@ -45,6 +45,7 @@ from codetr_torch.utils import coco_eval
 from cocoeval_independent import evaluate as eval_independent
 from test_torch_port_model import match_detections, perturbed_jax_params, port_from_jax
 from torch_eval_truth import BOX_TOL, EVAL_SIZES, ground_truth, write_annotations
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 KEYS = ("mAP", "mAP_50", "mAP_75", "mAP_small", "mAP_medium", "mAP_large", "AR_100")

@@ -28,6 +28,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from codetr_torch.tools import gatherbench as gb
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 JAX_SCRIPT = Path(__file__).resolve().parent.parent / "tools" / "gatherbench.py"
 

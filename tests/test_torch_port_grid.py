@@ -42,6 +42,7 @@ from codetr_torch.utils.checkpoint import _Out
 
 from test_msda_grid import grid_inputs
 from test_torch_port_msda import assert_close_to_scale
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 
 def wild_inputs(seed, shapes, radius, jitter, h=2, P=2, d=8, wild=0.1):

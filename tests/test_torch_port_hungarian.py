@@ -35,6 +35,7 @@ from codetr_torch.ops import hungarian
 from codetr_torch.parallel import losses as tl
 
 from test_torch_port_train import loss_inputs, rel
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 KINDS = ("square", "wide", "holes", "all_invalid", "integer_ties", "duplicated_columns")
 PER_KIND = -(-200 // len(KINDS))

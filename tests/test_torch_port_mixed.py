@@ -54,6 +54,7 @@ from codetr_torch.tools import trainbench
 
 from test_torch_port_model import perturbed_jax_params, port_from_jax
 from test_torch_port_train import _leaves, port_grads, rel, train_inputs, zero_in_exact_arithmetic
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 BF16 = torch.bfloat16
 

@@ -29,6 +29,7 @@ from codetr_torch.models.codetr import CoDETR, build_codetr, init_weights
 from codetr_torch.inferencer import Inferencer
 from codetr_torch.utils.checkpoint import state_dict_from_jax
 from codetr_torch.utils.preprocess import preprocess
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 H = W = 128

@@ -49,6 +49,7 @@ from codetr_torch.utils.checkpoint import _Out
 from test_msda_grid import grid_inputs
 from test_msda_win_bwd import SHAPES as WIN_SHAPES, _grid_coords
 from test_torch_port_cuda import SHAPES, assert_close, assert_within_bf16_rounding, make_inputs, pack
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 def to_qm(loc, w):
     """Reference layout -> the JAX oracle's q-minor (bs, h, L, P, Q) arrays."""

@@ -52,6 +52,7 @@ from test_torch_port_grid import as_jax, as_torch, off_grid_lines, wild_inputs
 from test_torch_port_model import H, W, assert_model_matches_jax
 from test_torch_port_msda import assert_close_to_scale
 from test_torch_port_postprocess import HostOps
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 
 def seeded_jax_params(seed=0):

@@ -28,6 +28,7 @@ from codetr_torch.ops.nms import nms, postprocess_detections, soft_nms
 from codetr_torch.utils.preprocess import preprocess
 
 from test_torch_port_model import match_detections, perturbed_jax_params, port_from_jax
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("size", [(48, 96), (300, 200), (31, 17), (128, 128), (97, 250)])

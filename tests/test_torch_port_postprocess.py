@@ -23,6 +23,7 @@ from codetr_torch.ops.nms import batched_nms, postprocess_detections, soft_batch
 
 from test_torch_port_cuda import (NMS_TYPES, SCORE_THRESHOLD, assert_postprocess_close, postprocess_inputs,
                                   postprocess_kwargs, postprocess_on, tied_inputs)
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 CASES = [("nms", 0.5), ("soft_nms", 0.8), ("soft_nms", 0.3), ("soft_nms_gaussian", 0.8)]
 

@@ -14,6 +14,7 @@ import torch
 
 from codetr_torch import build_codetr, tiny_test_config
 from codetr_torch.parallel.train import adamw, make_train_step
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 H = W = 128
 

@@ -36,6 +36,7 @@ from test_torch_port_model import (
     assert_model_matches_jax,
     perturbed_jax_params,
 )
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 H = W = 96
 WIDTHS = (32, 64, 128, 256)

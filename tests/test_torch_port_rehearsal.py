@@ -40,6 +40,7 @@ from codetr_torch.ops import msda, msda_tiles
 from codetr_torch.tools import rehearsal
 
 from test_torch_port_model import match_detections
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 HW = 128

@@ -48,6 +48,7 @@ from test_nms import np_nms, random_boxes
 from test_torch_port_aoti import CHEAP_COMPILE, assert_on_the_ladder
 from test_torch_port_model import port_from_jax
 from test_torch_port_msda_impls import seeded_jax_params
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 HW = 96  # 64 leaves the neck's extra level 1x1, which GroupNorm refuses
 IMAGE_HW = (48, 56)

@@ -2,7 +2,7 @@
 (``codetr_torch/ops/msda_tiles.py``) against the JAX package's windowed
 kernel geometry and against brute force, on the CPU.
 
-The tiled CUDA kernels (``csrc/msda_fwd.cu:msda_packed_fwd`` and
+The tiled CUDA kernels (``csrc/msda_fwd.cu:msda_packed_fwd_levels`` and
 ``msda_qm_fwd``, ``csrc/msda_bwd.cu:msda_packed_bwd``) run only on the card
 (``test_torch_port_cuda.py``); here the plan they read is checked: every
 query in exactly one tile, every window inside its level and the budget,
@@ -24,6 +24,7 @@ from codetr_tpu.ops.msda_win import (_tile_shape_for_level, _win_geometry, _win_
                                      win_envelope_mask)
 from codetr_torch.ops import msda as port_msda
 from codetr_torch.ops import msda_tiles
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 
 def level_shapes(h, w):

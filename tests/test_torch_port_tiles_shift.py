@@ -24,6 +24,7 @@ from codetr_torch.ops import msda_grid, msda_tiles
 
 from test_torch_port_grid import wild_inputs
 from test_torch_port_tiles import R50, SERVING, tiles_in_kernel_order
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 
 def jax_anchors(nq, nt, R, coarse):

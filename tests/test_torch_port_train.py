@@ -44,6 +44,7 @@ from codetr_torch.parallel import losses as tl
 from codetr_torch.parallel.train import adamw, make_train_step
 
 from test_torch_port_model import perturbed_jax_params, port_from_jax
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 H = W = 128
 LR = 1e-4

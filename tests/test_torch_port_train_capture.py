@@ -42,6 +42,7 @@ from codetr_torch.parallel import losses
 from codetr_torch.parallel.train import adamw, capture_train_step, make_train_step, snapshot_train_state
 
 from test_torch_port_cuda import tiny_train_batch
+from torch_one_thread import one_torch_thread  # noqa: F401  (autouse)
 
 STEPS = 3
 
