@@ -270,7 +270,7 @@ from codetr_torch.parallel import dryrun
 from codetr_torch.parallel.dryrun import run_dryrun
 from codetr_torch.parallel.mesh import (assert_tp_sharded, make_mesh, mesh_shape, placement_of, sharded_forward,
                                         sharded_fraction, tp_plan, whole)
-from codetr_torch.parallel.train import (adamw, capture_train_step, init_sharded_state, jit_train_step,
+from codetr_torch.parallel.train import (adamw, adamw_moves, capture_train_step, init_sharded_state, jit_train_step,
                                          make_train_step, run_in_dtype, train_loss)
 from codetr_torch.ops.msda_dectab import build_raw_quad_table, raw_memory_aug
 from codetr_torch.tools import attr, rehearsal, trainbench, winbench
@@ -1354,9 +1354,11 @@ def compare_bf16_steps(cfg, shape_hw, stamp):
     top-900 proposals, which the devices pick differently where bf16 scores
     tie or differ in the last bit, so its matches are compared as encoder
     tokens and printed with the top-k agreement as their cause.  Then the
-    loss within 2e-2 relative; every parameter fp32 after the step and every
-    entry with a nonzero gradient moved; 12 + 12 MSDA launches and 2
-    matching launches on the card."""
+    loss within 2e-2 relative; every parameter fp32 after the step and an
+    entry moved exactly where ``adamw_moves`` (the same AdamW step in
+    float64) moves it; 12 + 12 MSDA launches and 2 matching launches on the
+    card.  ``run_in_dtype`` keeps ``fp32_parameter_names`` (the norms, the
+    bias tables) float32, as the served bf16 model and the JAX one do."""
     h, w = shape_hw
     rng = np.random.default_rng(SEED + 2)
     img = torch.from_numpy(rng.standard_normal((1, h, w, 3)).astype(np.float32))
@@ -1400,11 +1402,13 @@ def compare_bf16_steps(cfg, shape_hw, stamp):
     loss_c = make_train_step(cpu, adamw(cpu), compute_dtype=torch.bfloat16)(*cpu_args).item()
     cpu_s = time.perf_counter() - t0
     not_fp32 = [n for m in (gpu, cpu) for n, p in m.named_parameters() if p.dtype != torch.float32]
-    nonzero = stuck = 0
+    nonzero = moved = stuck = strays = 0
     for n, p in gpu.named_parameters():
-        nz = p.grad != 0
-        nonzero += int(nz.sum())
-        stuck += int((nz & (p.detach() == start[n])).sum())
+        got, want = p.detach() != start[n], adamw_moves(start[n], p.grad)
+        nonzero += int((p.grad != 0).sum())
+        moved += int(got.sum())
+        stuck += int((want & ~got).sum())
+        strays += int((got & ~want).sum())
     loss_err = abs(loss_g - loss_c) / abs(loss_c)
     print(f"Swin-L bf16-compute train step {h}x{w} card vs CPU: the two solvers agree on each device's "
           f"costs in all {len(rows)} problems but {disagree}; encoder stage matches card "
@@ -1415,14 +1419,16 @@ def compare_bf16_steps(cfg, shape_hw, stamp):
           f"({tied} groups of equal bf16 scores on the card), so its {nl} stages' valid gts match the "
           f"same encoder token in {same_token} of {enc['n']}; loss {loss_g:.6f} vs {loss_c:.6f} (rel "
           f"err {loss_err:.3e}, tol 2e-2); parameters not fp32 {not_fp32}; {nonzero} gradient entries "
-          f"nonzero, {stuck} of them not moved; launches (MSDA forward, backward, matching) {counts}; "
+          f"nonzero, {moved} entries moved; against the step in float64 {stuck} not moved and {strays} "
+          f"moved where it does not move them; launches (MSDA forward, backward, matching) {counts}; "
           f"CPU step {cpu_s:.1f} s [{stamp}]")
     if disagree or not enc_ok:
         fail(f"bf16 step: the solvers disagree on the same costs ({disagree}) or the encoder stage's "
              f"matches differ beyond a rounding tie")
-    if loss_err > 2e-2 or not_fp32 or stuck or counts != (per, per, 2):
+    if loss_err > 2e-2 or not_fp32 or stuck or strays or counts != (per, per, 2):
         fail("the bf16 train step on the card disagrees with the CPU's")
-    return {"loss_rel_err": loss_err, "launches": counts, "topk_same_position": same_position,
+    return {"loss_rel_err": loss_err, "launches": counts, "moved": moved, "nonzero": nonzero,
+            "topk_same_position": same_position,
             "topk_same_set": same_set, "decoder_same_token": same_token}
 
 def seeded_image(hw, seed):
@@ -3790,8 +3796,18 @@ def sharded_step_checks(ref, sharded, opt, mesh, batch, stamp):
     least 1e-2 of its leaf's scale (the key thirds of the attention biases,
     zero in exact arithmetic, left out); then 2 more steps of each, in
     turns, and each one's forward+backward and AdamW step alone, on the
-    host clock."""
+    host clock.
+
+    The entries that the two steps leave more than 1 lr apart are traced
+    (not gated): how many have sharded and one-device gradients of
+    opposite sign, their largest |gradient| over their leaf's largest,
+    and that against the spread of two one-device gradients from the same
+    state (one extra backward: the float atomics' own noise), as the
+    largest such spread over a leaf's largest gradient."""
     start = {n: p.detach().clone() for n, p in ref.named_parameters()}
+    train_loss(ref, batch, backward=True)  # the extra one-device gradient, before any step
+    second = {n: p.grad.clone() for n, p in ref.named_parameters()}
+    ref.zero_grad(set_to_none=True)
     step = jit_train_step(sharded, opt, mesh)
     before = launch_counts()
     loss_s = step(*batch).item()
@@ -3805,10 +3821,29 @@ def sharded_step_checks(ref, sharded, opt, mesh, batch, stamp):
     loss_r = one_device(*batch).item()
     lr = opt.param_groups[0]["lr"]
     moved, update, checked, flips, total = 0.0, 0.0, 0, 0, 0
+    apart = {"opposite": 0, "within_spread": 0, "zero_in_exact": 0, "grad_over_scale": 0.0,
+             "spread_over_scale": 0.0, "leaves": collections.Counter(), "outside": {}}
     for n, p in ref.named_parameters():
         got, want, g = whole(sharded.get_parameter(n).detach()), p.detach(), p.grad
         diff = (got - want).abs()
         moved, flips, total = max(moved, diff.max().item()), flips + int((diff > lr).sum()), total + p.numel()
+        over = diff > lr
+        if over.any():
+            scale = g.abs().max().clamp_min(1e-30)
+            spread = ((second[n] - g).abs().max() / scale).item()
+            g_s, g_r = grads_s[n][over], g[over]
+            largest = torch.maximum(g_s.abs(), g_r.abs()) / scale
+            zero = key_bias_mask(n, p.shape).to(DEVICE)[over]
+            outside = largest > spread
+            apart["opposite"] += int((g_s * g_r < 0).sum())
+            apart["within_spread"] += int((~outside).sum())
+            apart["zero_in_exact"] += int(zero.sum())
+            if outside.any():  # entries over 1 lr, of them zero in exact arithmetic, spread, largest |gradient|
+                apart["outside"][n] = (int(outside.sum()), int((outside & zero).sum()), f"{spread:.3e}",
+                                       f"{largest[outside].max().item():.3e}")
+            apart["grad_over_scale"] = max(apart["grad_over_scale"], largest.max().item())
+            apart["spread_over_scale"] = max(apart["spread_over_scale"], spread)
+            apart["leaves"][n] += int(over.sum())
         above = ~key_bias_mask(n, p.shape).to(DEVICE) & (g.abs() >= 1e-2 * g.abs().max())
         err = ((got - start[n]) - (want - start[n])).abs()[above]
         bound = 1e-2 * lr + torch.finfo(torch.float32).eps * want[above].abs()
@@ -3816,7 +3851,7 @@ def sharded_step_checks(ref, sharded, opt, mesh, batch, stamp):
             fail(f"the sharded step moved {n} off the one-device step's: {diff.max().item() / lr:.3f} lr, "
                  f"update off by {err.max().item() / lr:.3e} lr")
         update, checked = max(update, err.max().item() if err.numel() else 0.0), checked + int(above.sum())
-    del start
+    del start, second
     gaps = {}
     for n, p in ref.named_parameters():
         keep = ~key_bias_mask(n, p.shape).to(DEVICE)
@@ -3852,7 +3887,17 @@ def sharded_step_checks(ref, sharded, opt, mesh, batch, stamp):
           f"sharded {fmt_ms(times['sharded'])} ms, one-device {fmt_ms(times['one-device'])} ms; forward+backward "
           f"alone {parts['sharded'][0]:.1f} / {parts['one-device'][0]:.1f} ms, AdamW step alone "
           f"{parts['sharded'][1]:.1f} / {parts['one-device'][1]:.1f} ms (sharded / one-device) [{stamp}]")
-    return {"step_launches": launched, "step_loss_rel_err": loss_err, "step_ms": times, "step_parts_ms": parts}
+    print(f"sharded train step: the {flips} entries over 1 lr from the one-device step's: {apart['opposite']} "
+          f"with sharded and one-device gradients of opposite sign; their largest |gradient| "
+          f"{apart['grad_over_scale']:.3e} of their leaf's largest, against the spread of two one-device "
+          f"gradients from the same state (float atomics) up to {apart['spread_over_scale']:.3e} of it over "
+          f"those leaves; {apart['within_spread']} within their leaf's spread; {apart['zero_in_exact']} in the "
+          f"key thirds of the attention biases (zero in exact arithmetic); by leaf "
+          f"{dict(apart['leaves'].most_common(8))} of {len(apart['leaves'])} leaves; over their leaf's spread "
+          f"(entries, of them in key thirds, the leaf's spread, their largest |gradient|, both of its scale): "
+          f"{apart['outside']} [{stamp}]")
+    return {"step_launches": launched, "step_loss_rel_err": loss_err, "step_ms": times, "step_parts_ms": parts,
+            "apart": {k: v for k, v in apart.items() if k != "leaves"}}
 
 
 def main() -> int:
@@ -4050,9 +4095,14 @@ def main() -> int:
           f"{tb['pool_captured_gib']:.3f} GiB; eager: fwd {tb['fwd_eager_ms']:.2f} ms, fwd+bwd "
           f"{tb['fwdbwd_eager_ms']:.2f} ms, step {tb['step_eager_ms']:.2f} ms, medians "
           f"{tb['median_eager_ms']}, spread {tb['spread_eager']}, peak {tb['peak_gib']:.3f} GiB; matching "
-          f"{tb['matching_ms_per_step']:.4f} ms a step in {tb['matching_launches_per_step']} launches [{stamp}]")
-    if not tb["gradcheck"]["pass"] or tb["matching_launches_per_step"] != 2:
-        fail("trainbench: the gradcheck failed or the step did not launch the matching kernel twice")
+          f"{tb['matching_ms_per_step']:.4f} ms a step in {tb['matching_launches_per_step']} launches; one "
+          f"traced eager fwd+bwd's kernels (launches, device ms): "
+          + ", ".join(f"{n} {k['launches']}, {k['ms']:.4f}" for n, k in tb["kernels_fwdbwd"].items())
+          + f" [{stamp}]")
+    tb_k2 = tb["kernels_fwdbwd"]["msda_tile_bwd_kernel"]
+    if not tb["gradcheck"]["pass"] or tb["matching_launches_per_step"] != 2 or tb_k2["launches"] != 6:
+        fail("trainbench: the gradcheck failed, or the step did not launch the matching kernel twice or K2 "
+             "6 times")
     torch.cuda.empty_cache()
 
     phase_s["sync-free loss, bf16 step, trainbench"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
@@ -4407,6 +4457,8 @@ def main() -> int:
         "launches": train["launches"]["msda_bwd"],  # over the 3 timed train steps
         "launches_per_step": n_enc + n_dec,
         "launches_sharded_step": sharded["step_launches"][1],
+        # K2 (the encoder's 6) in one traced eager bf16 fwd+bwd of trainbench's Swin-L 608x608 step
+        "bf16_trainbench_fwdbwd": tb["kernels_fwdbwd"]["msda_tile_bwd_kernel"],
         # one replay of each captured train step, from its trace (K2 and the decoder's entry)
         "launches_captured_step": {k: {n: r["counts"][n] for n in ("msda_tile_bwd_kernel", "msda_bwd_kernel")}
                                    for k, r in captured.items()},

@@ -13,11 +13,16 @@ Mixed precision is the JAX package's ``dtype=bfloat16, param_dtype=float32``
 with ``optax.adamw``: the model holds fp32 parameters, and with
 ``compute_dtype=torch.bfloat16`` each step runs the forward and backward
 on bf16 casts of the parameters and floating buffers
-(``torch.func.functional_call``); the casts' gradients come back to the
-fp32 leaves in fp32, and AdamW updates fp32 leaves with fp32 state.  A
-model whose parameters are not fp32 is refused: AdamW's first steps move a
-weight by ~lr, below half a bf16 ulp of most weights, so bf16 leaves would
-lose most updates.
+(``torch.func.functional_call``), except ``models.codetr.
+fp32_parameter_names``' (the LayerNorm and GroupNorm affine parameters,
+the frozen BatchNorm's four tensors, Swin's relative-position bias
+tables), which the JAX bf16 model uses in float32 and which reach the
+model as their fp32 leaves, uncast: the step's forward is the served bf16
+model's (``to_compute_dtype``) bit for bit.  The casts' gradients come
+back to the fp32 leaves in fp32, and AdamW updates fp32 leaves with fp32
+state.  A model whose parameters are not fp32 is refused: AdamW's first
+steps move a weight by ~lr, below half a bf16 ulp of most weights, so
+bf16 leaves would lose most updates.
 
 The sharded step is the JAX package's ``init_sharded_state`` /
 ``jit_train_step`` over a ("dp", "tp") mesh (``parallel/mesh.py``): tp by
@@ -44,12 +49,16 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from codetr_torch.models.codetr import full_fp32
+from codetr_torch.models.codetr import fp32_parameter_names, full_fp32
 from codetr_torch.parallel.losses import dino_detection_loss
 from codetr_torch.runtime import aot
 
 if TYPE_CHECKING:  # torch.distributed.tensor takes ~1 s to import: the sharded step imports it
     from torch.distributed.device_mesh import DeviceMesh
+
+
+# optax.adamw's defaults: its weight decay is 1e-4, not torch's 0.01
+BETAS, EPS, WEIGHT_DECAY = (0.9, 0.999), 1e-8, 1e-4
 
 
 def adamw(model: nn.Module | Iterable, lr: float = 1e-4, *, capturable: bool = False) -> torch.optim.AdamW:
@@ -59,9 +68,24 @@ def adamw(model: nn.Module | Iterable, lr: float = 1e-4, *, capturable: bool = F
     ``capturable=True`` keeps its step count on the device, as
     ``capture_train_step`` needs; the arithmetic is the same."""
     return torch.optim.AdamW(
-        model.parameters() if isinstance(model, nn.Module) else model, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-        weight_decay=1e-4, capturable=capturable,
+        model.parameters() if isinstance(model, nn.Module) else model, lr=lr, betas=BETAS, eps=EPS,
+        weight_decay=WEIGHT_DECAY, capturable=capturable,
     )
+
+
+@torch.no_grad()
+def adamw_moves(param: torch.Tensor, grad: torch.Tensor, lr: float = 1e-4) -> torch.Tensor:
+    """Where ``adamw``'s first step (zero moments) on ``param`` with ``grad``
+    moves an entry: the step computed in float64 and rounded to
+    ``param``'s dtype differs from ``param``.  An entry whose gradient is
+    tiny (a denormal ~1e-44 moves a weight by ~lr x 1e-36) stays put in
+    float32, under ``optax.adamw`` too; the checks of which entries a step
+    moved hold it to this."""
+    b1, b2 = BETAS
+    p, g = param.double(), grad.double()
+    m, v = (1 - b1) * g, (1 - b2) * g * g
+    stepped = p * (1 - lr * WEIGHT_DECAY) - (lr / (1 - b1)) * m / (v.sqrt() / (1 - b2) ** 0.5 + EPS)
+    return stepped.to(param.dtype) != param
 
 
 class _Bound(nn.Module):
@@ -77,13 +101,16 @@ class _Bound(nn.Module):
 
 def run_in_dtype(model: nn.Module, compute_dtype: torch.dtype, fn: Callable[..., Any], *args):
     """``fn(model, *args)`` with the model's floating parameters and buffers
-    replaced by casts to ``compute_dtype`` for the length of the call.  The
-    casts are autograd ops, so a backward pass reaches the fp32 leaves in
-    fp32 (as ``astype``'s VJP does in JAX); run it inside ``fn``, so that
-    ``SwinConfig.with_cp``'s recompute sees the casts too."""
+    replaced by casts to ``compute_dtype`` for the length of the call, but
+    for ``fp32_parameter_names(model)``, which stay as they are (the JAX
+    model's float32 tensors in every compute dtype).  The casts are autograd
+    ops, so a backward pass reaches the fp32 leaves in fp32 (as ``astype``'s
+    VJP does in JAX); run it inside ``fn``, so that ``SwinConfig.with_cp``'s
+    recompute sees the casts too."""
+    keep = fp32_parameter_names(model)
     casts = {f"model.{n}": t.to(compute_dtype)
              for n, t in itertools.chain(model.named_parameters(), model.named_buffers())
-             if t.is_floating_point()}
+             if t.is_floating_point() and n not in keep}
     return torch.func.functional_call(_Bound(model, fn), casts, args)
 
 

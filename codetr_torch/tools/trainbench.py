@@ -32,8 +32,10 @@ graph), the eager figures beside them (``fwd_eager_ms``, ...), each
 stage's median and spread (slowest over fastest trial) in both modes, the
 peak memory over the eager steps and over the captured step's warm-up and
 capture, the captured step's graph pool, the Hungarian matching kernel's
-time per step (its two launches on this step's costs) and the card's name
-and power limit.  The
+time per step (its two launches on this step's costs), the port's kernels
+in one traced eager fwd+bwd on the card (``kernels_fwdbwd``: launches and
+device ms per kernel, ``utils.profiling.kernel_ms``; K2 is
+``msda_tile_bwd_kernel``) and the card's name and power limit.  The
 JAX script's canary is n/a: a chip call holds a dedicated card.
 """
 
@@ -43,6 +45,7 @@ import argparse
 import json
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -56,6 +59,7 @@ from codetr_torch.parallel.losses import matching_problems
 from codetr_torch.parallel.train import (WARMUP_STEPS, adamw, capture_train_step, make_train_step, run_in_dtype,
                                          train_loss)
 from codetr_torch.runtime.aot import DTYPES, Replay, pool_bytes
+from codetr_torch.utils.profiling import kernel_counts, kernel_ms, trace
 
 TRAIN_CONFIGS = ("swin-l", "tiny")  # the JAX script's model; the CPU tests' one
 STRIDES = (4, 8, 16, 32, 64)
@@ -218,6 +222,14 @@ def main(argv=None) -> dict:
         return torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda" else None
 
     eager = {"fwd": timer(lambda: fwd(*batch)), "fwd+bwd": timer(lambda: fwd_bwd(*batch))}
+    kernels = None
+    if device.type == "cuda":  # one eager fwd+bwd traced: each kernel's launches and device time
+        with tempfile.TemporaryDirectory() as tmp:
+            with trace(tmp):
+                fwd_bwd(*batch)
+                torch.cuda.synchronize()
+            counts, ms = kernel_counts(tmp), kernel_ms(tmp)
+        kernels = {n: {"launches": counts[n], "ms": ms[n]} for n in counts}
     step = make_train_step(model, adamw(model), compute_dtype=dtype)
     reset_peak()
     eager["step"] = timer(lambda: step(*batch))
@@ -268,6 +280,7 @@ def main(argv=None) -> dict:
         "matching_ms_per_step": min(match_ms),
         "matching_launches_per_step": per_step,
         "matching_shapes": [list(p[0].shape) for p in problems],
+        "kernels_fwdbwd": kernels,
     })
     print(json.dumps({k: v for k, v in result.items() if k != "gradcheck"}), flush=True)
     return result

@@ -13,7 +13,8 @@
 - ``kernel_counts(logdir)``: the port's hand-written kernels in a trace,
   counted by function name (``PORT_KERNELS``): a CUDA graph's replay
   launches what its capture recorded, which the wrappers' host counters
-  (``msda.launches``, ...) counted once, at capture.
+  (``msda.launches``, ...) counted once, at capture; ``kernel_ms(logdir)``
+  their device time summed per name.
 - ``save_graph(exported, path)``: an exported program's graph as text (the
   JAX ``save_hlo``).
 - ``cost_analysis(fn, args)``: FLOPs counted by
@@ -98,18 +99,25 @@ PORT_KERNELS = ("msda_tile_fwd_kernel", "msda_fwd_kernel", "msda_tile_bwd_kernel
                 "hungarian_kernel")
 
 
+def _kernel_events(logdir: str, names: Sequence[str]) -> dict:
+    """The kernel events of ``logdir/trace.json`` whose function is each of
+    ``names``, and under ``"all"`` every kernel event."""
+    with open(os.path.join(logdir, "trace.json")) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    by_name = {n: [e for e in events if re.search(rf"\b{n}\b", e["name"])] for n in names}
+    by_name["all"] = events
+    return by_name
+
+
 def kernel_counts(logdir: str, names: Sequence[str] = PORT_KERNELS) -> dict:
     """Kernel events of ``logdir/trace.json`` (``trace``) whose function is
     one of ``names``, counted per name; ``"all"`` counts every kernel."""
-    with open(os.path.join(logdir, "trace.json")) as f:
-        events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
-    counts = {n: 0 for n in names}
-    for e in events:
-        for n in names:
-            if re.search(rf"\b{n}\b", e["name"]):
-                counts[n] += 1
-    counts["all"] = len(events)
-    return counts
+    return {n: len(es) for n, es in _kernel_events(logdir, names).items()}
+
+
+def kernel_ms(logdir: str, names: Sequence[str] = PORT_KERNELS) -> dict:
+    """``kernel_counts``' kernels' device time in ms, summed per name."""
+    return {n: sum(e["dur"] for e in es) / 1e3 for n, es in _kernel_events(logdir, names).items()}
 
 
 def save_graph(exported, path: str) -> str:

@@ -1095,14 +1095,14 @@ def test_cuda_bf16_train_step_matches_cpu(cuda_device):
     device's costs, and where the devices' matches differ the costs differ
     by rounding and the two assignments are a near-tie (within 2 x n x the
     largest cost difference).  Then the loss within 2e-2 relative; the
-    card's parameters stay fp32 and every entry with a nonzero gradient
-    moves."""
+    card's parameters stay fp32 and an entry moves exactly where
+    ``adamw_moves`` (the step in float64) moves it."""
     import copy
 
     from codetr_torch import build_codetr, tiny_test_config
     from codetr_torch.ops import hungarian
     from codetr_torch.parallel import losses
-    from codetr_torch.parallel.train import adamw, make_train_step, run_in_dtype
+    from codetr_torch.parallel.train import adamw, adamw_moves, make_train_step, run_in_dtype
 
     cpu = build_codetr(tiny_test_config(), device="cpu", seed=3)
     gpu = copy.deepcopy(cpu).to(cuda_device)
@@ -1134,8 +1134,7 @@ def test_cuda_bf16_train_step_matches_cpu(cuda_device):
     assert abs(loss_g - loss_c) <= 2e-2 * abs(loss_c), (loss_g, loss_c)
     for n, p in gpu.named_parameters():
         assert p.dtype == torch.float32, n
-        nz = p.grad != 0
-        assert not (nz & (p.detach() == start[n])).any(), n
+        assert torch.equal(p.detach() != start[n], adamw_moves(start[n], p.grad)), n
 
 
 # ---- the matching with more padded gts than queries (R > C) ----
